@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernel from ``flowavenet_tpu_torch/ops/csrc`` and prints
-   the build time, the card's name and power limit, and the versions.
-2. Holds the fused pair kernel against its plain PyTorch version
+1. Builds both CUDA sources from ``flowavenet_tpu_torch/ops/csrc`` at once
+   (one nvcc each) and prints the build times, ptxas' register and spill
+   lines, the card's name and power limit, and the versions.
+2. Holds the fused reverse pair kernel against its plain PyTorch version
    (``pair_reverse_ref``, TF32 off) at the lj22k geometry of every block
    the kernel routes (R_in = 2^bi, Cc = 80*2^bi, R = 256), at the batch
    shape of step 3, on a pair whose zero convs carry 0.05-scale weights
@@ -24,10 +25,21 @@
    which the int8 route must match to the JAX package's int8 test bar
    (corr > 0.998, rel < 0.08).  Each route runs one warm-up call and
    ``REPS`` timed calls; the median and the range are printed.
-4. Prints a JSON line of main-path numbers, one JSON line of per-kernel
-   numbers (times per reverse: the sum over the routed blocks, 3 pairs
-   each), the card's name and power limit, and as its last line
-   ``{"ok": true, "device": {...}}``.
+4. Holds ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` against
+   their plain versions at the lj22k training geometry of blocks 0-3
+   (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
+   ``train_kernel_checks``), checks that two backward launches give the
+   same bits, and prints kernel, plain and bound ms.
+5. Trains lj22k at full width (batch 8 x 6400 samples, bf16 compute, fp32
+   params) through the port's entry points on a seeded fwrec corpus: DDI,
+   then ``TRAIN_STEPS`` steps on the FWN_TRAIN_KERNEL=1 route and on the
+   plain route from the same params (checks in ``training_phase``), and
+   one FWN_FWD_KERNEL=1 eval step.
+6. Prints a JSON line of main-path numbers, one JSON line of per-kernel
+   numbers (per reverse for the reverse pair, per train step for the
+   training pair, per eval step for the forward pair: the sum over the
+   routed blocks, 3 pairs each), the card's name and power limit, and as
+   its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
 It exits non-zero too when CUDA is unavailable.
@@ -47,6 +59,8 @@ import numpy as np
 FRAMES = (180, 262, 301, 345)       # ~2.1-4.0 s of 22.05 kHz audio
 SEED = 1234
 REPS = 5                            # timed synthesize_mels calls per route
+TRAIN_STEPS = 12                    # training steps per route
+WARMUP_STEPS = 2                    # of which untimed
 
 
 def check(ok: bool, what) -> None:
@@ -194,6 +208,345 @@ def kernel_checks(params, cfg, B: int, T: int, blocks, dev):
     return rows
 
 
+def _cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def train_kernel_checks(params, cfg, B: int, T: int, blocks, dev):
+    """Phase 4: pair_fwd, pair_train_fwd and pair_train_bwd vs their plain
+    versions at the training geometry of each block (a pair with 0.05-scale
+    zero convs and ActNorm noise; the hinge margin set to half the pair's
+    max|log_s| so the hinge is live; TF32 off).  fp32: rel-to-max <= 1e-4
+    on outputs and statistics; the gradients' worst leaf error (rel-to-max)
+    against the plain version run in fp64 at most twice the fp32 plain
+    version's own (or 1e-4), and cosine >= 0.99999 per leaf.  (A relu
+    pre-activation within fp32 rounding of 0 flips its mask between any
+    two fp32 evaluation orders and moves a few rows' input gradients by up
+    to ~2e-2 of the leaf's max, so the plain fp32 version is itself that
+    far from fp64; rel-to-max 1e-4 holds for neither.)
+    bf16: outputs rel <= 1e-2 and corr >= 0.999, statistics rel <= 1e-2,
+    cosine >= 0.999 per gradient leaf.  Two backward launches must give the
+    same bits."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    rows = []
+    margin0 = pft.HINGE_MARGIN
+    for bi in blocks:
+        r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
+        gen = torch.Generator().manual_seed(SEED + 10 + bi)
+        pair = tree_map(lambda l: l.clone(),
+                        fwn._index(fwn._pair_params(params["blocks"][bi]), 0))
+        for leaf, s in ((pair["coupling"]["zero"]["w"], 0.05),
+                        (pair["actnorm"]["b"], 0.05),
+                        (pair["actnorm"]["logs"], 0.05)):
+            leaf.add_(s * torch.randn(leaf.shape, generator=gen))
+        pair = tree_map(lambda l: l.to(dev), pair)
+        g = torch.Generator(device=dev).manual_seed(SEED + bi)
+        x32 = [torch.randn(B, tk, r_in, generator=g, device=dev)
+               for _ in range(4)]
+        c32 = [torch.rand(B, tk, cc, generator=g, device=dev)
+               for _ in range(2)]
+        scal = [torch.tensor(s, device=dev) for s in (0.7, 0.11, 1.3)]
+        for mode in ("fp32", "bf16"):
+            dt = torch.float32 if mode == "fp32" else torch.bfloat16
+            u, v, gu, gv = (x.to(dt) for x in x32)
+            ca, cb = (x.to(dt) for x in c32)
+            ops = pf.pair_forward_operands(pair, dt)
+            pft.HINGE_MARGIN = margin0
+            mx = float(pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3])
+            pft.HINGE_MARGIN = 0.5 * mx
+            try:
+                want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
+                got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+                fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
+                d1 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal,
+                                              ops)
+                d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal,
+                                              ops)
+                torch.cuda.synchronize()
+                dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal,
+                                              ops)
+                errs = [_errors(a, b) for a, b in
+                        list(zip(got[:2], want[:2]))
+                        + list(zip(fwd[:2], want[:2]))]
+                rel = max(e[1] for e in errs)
+                corr = min(e[2] for e in errs)
+                st_rel = max(abs(float(a) - float(b))
+                             / max(abs(float(b)), 1e-6) for a, b in
+                             list(zip(got[2:], want[2:])) + [(fwd[2],
+                                                              want[2])])
+                flat = lambda d: list(d[0]) + list(d[1:])
+                same = all(torch.equal(a, b) for a, b in zip(flat(d1),
+                                                             flat(d2)))
+                # per leaf: rel-to-max, L2-relative error and cosine
+                g_rel, g_l2, g_cos, g_err = 0.0, 0.0, 1.0, 0.0
+                for a, b in zip(flat(d1), flat(dref)):
+                    a, b = a.double(), b.double()
+                    check(bool(torch.isfinite(a).all()), "non-finite grad")
+                    if float(b.abs().max()) == 0.0:
+                        continue
+                    err = float((a - b).abs().max())
+                    g_err = max(g_err, err)
+                    g_rel = max(g_rel, err / float(b.abs().max()))
+                    g_l2 = max(g_l2, float((a - b).norm() / b.norm()))
+                    g_cos = min(g_cos, _cos(a, b))
+                y64, k64, p64 = "", 0.0, 0.0
+                if mode == "fp32":
+                    # yardstick: the kernel and the fp32 plain version
+                    # against the plain version in fp64
+                    d64 = pft.pair_train_bwd_ref(
+                        *(x.double() for x in (u, v, ca, cb, gu, gv)),
+                        *scal, tuple(o.double() for o in ops))
+                    worst = []
+                    for a, b, e in zip(flat(d1), flat(dref), flat(d64)):
+                        m = float(e.abs().max())
+                        if m > 0:
+                            worst.append((float((a.double() - e).abs().max())
+                                          / m,
+                                          float((b.double() - e).abs().max())
+                                          / m))
+                    k64 = max(w[0] for w in worst)
+                    p64 = max(w[1] for w in worst)
+                    y64 = f" | vs fp64: kernel {k64:.2e} plain fp32 {p64:.2e}"
+                fwd_ms = _time_ms(
+                    lambda: pft.fused_pair_train_fwd(u, v, ca, cb, ops), 5)
+                pfw_ms = _time_ms(
+                    lambda: pf.fused_pair_forward(u, v, ca, cb, ops), 5)
+                bwd_ms = _time_ms(lambda: pft.fused_pair_train_bwd(
+                    u, v, ca, cb, gu, gv, *scal, ops), 3)
+                fwd_plain = _time_ms(
+                    lambda: pft.pair_train_fwd_ref(u, v, ca, cb, ops), 2)
+                pfw_plain = _time_ms(lambda: pft.pair_train_fwd_ref(
+                    u, v, ca, cb, ops, stats=False), 2)
+                bwd_plain = _time_ms(lambda: pft.pair_train_bwd_ref(
+                    u, v, ca, cb, gu, gv, *scal, ops), 2)
+            finally:
+                pft.HINGE_MARGIN = margin0
+            print(f"train block {bi} {mode:4s} T_k={tk:5d} R_in={r_in:2d} "
+                  f"Cc={cc:4d}: out rel={rel:.3e} corr={corr:.7f} "
+                  f"stats rel={st_rel:.3e} grad rel={g_rel:.3e} "
+                  f"l2={g_l2:.3e} cos={g_cos:.8f} bwd deterministic={same}"
+                  f"{y64} | ms: "
+                  f"train_fwd {fwd_ms:.3f} (plain {fwd_plain:.3f}) "
+                  f"fwd {pfw_ms:.3f} (plain {pfw_plain:.3f}) "
+                  f"bwd {bwd_ms:.3f} (plain {bwd_plain:.3f})", flush=True)
+            check(same, f"pair_train_bwd not deterministic (block {bi})")
+            if mode == "fp32":
+                check(rel <= 1e-4 and st_rel <= 1e-4
+                      and k64 <= max(2.0 * p64, 1e-4) and g_cos >= 0.99999,
+                      f"fp32 training kernels vs plain, block {bi}: out "
+                      f"{rel} stats {st_rel} grads vs fp64 {k64} (plain "
+                      f"fp32 {p64}) cos {g_cos}")
+            else:
+                check(rel <= 1e-2 and corr >= 0.999 and st_rel <= 1e-2
+                      and g_cos >= 0.999,
+                      f"bf16 training kernels vs plain, block {bi}: out "
+                      f"{rel} corr {corr} stats {st_rel} grad cos {g_cos}")
+            rows.append({"block": bi, "mode": mode, "T_k": tk,
+                         "fwd_err": max(e[0] for e in errs[:2]),
+                         "pfw_err": max(e[0] for e in errs[2:]),
+                         "bwd_err": g_err,
+                         "fwd_ms": fwd_ms, "pfw_ms": pfw_ms,
+                         "bwd_ms": bwd_ms, "fwd_plain_ms": fwd_plain,
+                         "pfw_plain_ms": pfw_plain, "bwd_plain_ms": bwd_plain,
+                         "fwd_bound": pft.train_pair_bound_ms(B, tk, r_in,
+                                                              cc),
+                         "bwd_bound": pft.train_pair_bound_ms(
+                             B, tk, r_in, cc, backward=True)})
+    return rows
+
+
+def _write_corpus(d: str, cfg, n: int = 16) -> None:
+    """A seeded fwrec corpus: random audio aligned to random 80-bin mels,
+    40-60 frames per utterance (longer than the 25-frame crop)."""
+    from flowavenet_tpu_torch.data.records import FwRecordWriter
+    rng = np.random.RandomState(SEED)
+    hop, mels = cfg.audio.hop_size, cfg.audio.num_mels
+    for name, count in (("train", n), ("test", 4)):
+        with FwRecordWriter(os.path.join(d, f"{name}.fwrec")) as w:
+            for _ in range(count):
+                f = int(rng.randint(40, 61))
+                w.write((0.1 * rng.randn(f * hop)).astype(np.float32),
+                        rng.rand(f, mels).astype(np.float32))
+
+
+def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
+    """Phase 5: lj22k training at full width, batch 8 x 6400 samples,
+    bf16 compute with fp32 params, through the port's entry points
+    (FwRecordWriter, CropDataset, create_state, ddi_initialize,
+    make_train_step, make_eval_step).  DDI, then ``steps`` steps on each
+    route from identical params: FWN_TRAIN_KERNEL=1 and the plain route.
+    Checks finite losses; the first-step loss of the two routes within rel
+    1e-3, or the kernel route's no farther from the fp32 loss than the
+    plain route's; at the params the plain route reached, the cosine of
+    the two routes' global gradients on batch 0 in fp32 >= 0.999, and in
+    bf16 each route's cosine to the fp32 gradient, the kernel route's no
+    more than 0.01 below the plain route's; and
+    the kernel launches per step the routing implies; a FWN_FWD_KERNEL=1
+    eval step launches pair_fwd on blocks 0-3."""
+    import torch
+    from flowavenet_tpu_torch.data.dataset import CropDataset
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.training.train import to_device
+    from flowavenet_tpu_torch.training.train_state import (
+        create_state, ddi_initialize, make_eval_step, make_train_step)
+    from flowavenet_tpu_torch.utils.tree import leaves, tree_map
+
+    _write_corpus(tmpdir, cfg)
+    ds = CropDataset(os.path.join(tmpdir, "train.fwrec"),
+                     hop_size=cfg.audio.hop_size,
+                     max_time_steps=cfg.data.max_time_steps,
+                     batch_size=cfg.data.batch_size, seed=cfg.train.seed)
+    batches = [to_device(ds.batch_at(s), dev) for s in range(steps)]
+    t0 = time.perf_counter()
+    state0 = create_state(torch.Generator(dev).manual_seed(SEED), cfg)
+    state0 = ddi_initialize(state0, cfg, batches[0])
+    torch.cuda.synchronize()
+    ddi_s = time.perf_counter() - t0
+    print(f"training: DDI {ddi_s:.2f} s", flush=True)
+    n_route = sum((cfg.model.num_mels << bi) <= fwn.TRAIN_KERNEL_MAX_CC
+                  for bi in range(cfg.model.n_block)) * cfg.model.n_flow // 2
+
+    def global_grad(params, dt):
+        p = tree_map(lambda l: l.detach().requires_grad_(), params)
+        total, _ = fwn.loss_fn(p, cfg.model, batches[0]["audio"],
+                               batches[0]["mel"], compute_dtype=dt,
+                               logs_l2=cfg.train.logs_l2,
+                               logs_hinge=cfg.train.logs_hinge)
+        flat = leaves(p)
+        gs = torch.autograd.grad(total, flat, allow_unused=True)
+        return float(total.detach()), torch.cat([
+            (torch.zeros_like(x) if g is None else g).flatten()
+            for g, x in zip(gs, flat)])
+
+    out = {}
+    saved = fwn.TRAIN_KERNEL
+    try:
+        for route, on in (("kernel", True), ("plain", False)):
+            fwn.TRAIN_KERNEL = on
+            step_fn = make_train_step(cfg)
+            state = state0
+            torch.cuda.reset_peak_memory_stats(dev)
+            walls, losses, counts = [], [], None
+            for s in range(steps):
+                torch.cuda.synchronize()
+                for k in pf.LAUNCHES:
+                    pf.LAUNCHES[k] = 0
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batches[s])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                counts = dict(pf.LAUNCHES)
+                losses.append(float(m["loss"]))
+                want = n_route if on else 0
+                check(counts["pair_train_fwd"] == want
+                      and counts["pair_train_bwd"] == want
+                      and counts["pair_fwd"] == 0,
+                      (route, "launches", counts))
+            check(all(np.isfinite(losses)), (route, "losses", losses))
+            timed = walls[WARMUP_STEPS:]
+            med = float(np.median(timed))
+            out[route] = {
+                "losses": losses, "ms": med, "ms_min": min(timed),
+                "ms_max": max(timed), "walls": walls,
+                "samples_per_s": cfg.data.batch_size
+                * cfg.data.max_time_steps / (med / 1e3),
+                "launches": {k: v for k, v in counts.items() if v},
+                "max_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "state": state}
+            print(f"training {route} route: median {med:.1f} ms/step (min "
+                  f"{min(timed):.1f}, max {max(timed):.1f}, {len(timed)} "
+                  f"steps after {WARMUP_STEPS} warm-up), "
+                  f"{out[route]['samples_per_s']:.0f} samples/s, launches "
+                  f"per step {out[route]['launches']}, max memory "
+                  f"{out[route]['max_mem_gb']:.2f} GB, losses "
+                  f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+        # the gradients of both routes at the params the plain route
+        # reached: at the DDI'd start the true gradient of the ActNorms and
+        # biases is ~0 and bf16 rounding noise dominates it
+        trained = out["plain"]["state"].params
+        g = {}
+        for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            for route, on in (("kernel", True), ("plain", False)):
+                fwn.TRAIN_KERNEL = on
+                g[route, name] = global_grad(trained, dt)
+        fwn.TRAIN_KERNEL = False
+        l32 = global_grad(state0.params, torch.float32)[0]
+    finally:
+        fwn.TRAIN_KERNEL = saved
+    cos = _cos(g["kernel", "fp32"][1], g["plain", "fp32"][1])
+    cos_k = _cos(g["kernel", "bf16"][1], g["plain", "fp32"][1])
+    cos_p = _cos(g["plain", "bf16"][1], g["plain", "fp32"][1])
+    l_k, l_p = out["kernel"]["losses"][0], out["plain"]["losses"][0]
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    k32 = abs(l_k - l32) / abs(l32)
+    p32 = abs(l_p - l32) / abs(l32)
+    print(f"training routes: first-step loss kernel {l_k:.6f} plain "
+          f"{l_p:.6f} (rel {loss_rel:.3e}; vs the fp32 loss {l32:.6f}: "
+          f"kernel {k32:.3e}, plain {p32:.3e}); global gradient cosine, "
+          f"kernel vs plain route in fp32 {cos:.7f}; vs the plain fp32 "
+          f"gradient: kernel route bf16 {cos_k:.6f}, plain route bf16 "
+          f"{cos_p:.6f}", flush=True)
+    # bf16 rounds at other points on the two routes (the scan route runs
+    # its affine updates and convs in bf16, the kernel in fp32), so each
+    # bf16 route is held to the fp32 result, no worse than the plain route
+    check(loss_rel <= 1e-3 or k32 <= p32, ("first-step loss", l_k, l_p,
+                                           l32))
+    check(cos >= 0.999, ("fp32 gradient cosine", cos))
+    check(cos_k >= cos_p - 0.01, ("bf16 gradient cosine vs fp32", cos_k,
+                                  cos_p))
+
+    eval_step = make_eval_step(cfg)
+    evals = {}
+    saved = fwn.PAIR_KERNEL_FWD
+    try:
+        for route, on in (("fwd_kernel", True), ("plain", False)):
+            fwn.PAIR_KERNEL_FWD = on
+            eval_step(state0.params, batches[1])
+            torch.cuda.synchronize()
+            for k in pf.LAUNCHES:
+                pf.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            aux = eval_step(state0.params, batches[1])
+            loss = float(aux["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(pf.LAUNCHES)
+            n_fwd = sum((cfg.model.num_mels << bi) <= fwn.PAIR_KERNEL_FWD_MAX_CC
+                        for bi in range(cfg.model.n_block)
+                        ) * cfg.model.n_flow // 2
+            check(counts["pair_fwd"] == (n_fwd if on else 0)
+                  and counts["pair_train_fwd"] == 0,
+                  (route, "eval launches", counts))
+            evals[route] = {"loss": loss, "ms": ms,
+                            "launches": counts["pair_fwd"]}
+            print(f"eval {route}: loss {loss:.6f}, {ms:.1f} ms, pair_fwd "
+                  f"launches {counts['pair_fwd']}", flush=True)
+    finally:
+        fwn.PAIR_KERNEL_FWD = saved
+    with torch.no_grad():
+        e32 = float(fwn.loss_fn(state0.params, cfg.model, batches[1]["audio"],
+                                batches[1]["mel"])[0])
+    e_k, e_p = evals["fwd_kernel"]["loss"], evals["plain"]["loss"]
+    e_rel = abs(e_k - e_p) / abs(e_p)
+    print(f"eval routes: rel {e_rel:.3e}; vs the fp32 loss {e32:.6f}: "
+          f"fwd kernel {abs(e_k - e32) / abs(e32):.3e}, plain "
+          f"{abs(e_p - e32) / abs(e32):.3e}", flush=True)
+    check(e_rel <= 1e-3 or abs(e_k - e32) <= abs(e_p - e32),
+          ("eval loss fwd kernel vs plain", e_k, e_p, e32))
+    for r in out.values():
+        del r["state"]
+    return {"routes": out, "ddi_s": ddi_s, "loss_rel": loss_rel,
+            "loss_rel_fp32": (k32, p32), "grad_cos": cos,
+            "grad_cos_bf16": (cos_k, cos_p), "eval": evals, "eval_rel": e_rel,
+            "n_route": n_route}
+
+
 def main_path(params, cfg, dev, frames):
     """Phase 3: synthesize_mels through the user-facing entry points."""
     import torch
@@ -236,7 +589,8 @@ def main_path(params, cfg, dev, frames):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = dict(pf.LAUNCHES)
-            check(counts == expect, (name, counts))
+            check(counts == {**{k: 0 for k in counts}, **expect},
+                  (name, counts))
             if i:
                 walls.append(wall * 1e3)
         med = float(np.median(walls))
@@ -287,6 +641,7 @@ def main() -> int:
     from flowavenet_tpu_torch.ops import _build
     from flowavenet_tpu_torch.synthesis.synthesize import padded_frames
 
+    t_start = time.perf_counter()
     # the plain versions run in full fp32: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -296,19 +651,36 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; card: {smi}", flush=True)
+    # phase 1: both sources at once, one nvcc each
+    libs = ("pair_flow", "pair_flow_train")
     t0 = time.perf_counter()
-    _build.load("pair_flow")
-    print(f"build pair_flow: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in _build.BUILD_INFO.get("pair_flow", (0, ""))[1].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print("  ptxas:", line.strip())
+    _build.build_all(libs)
+    print(f"build {' + '.join(libs)} in parallel: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in libs:
+        secs, log = _build.BUILD_INFO.get(name, (0.0, ""))
+        print(f"build {name}: {secs:.1f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print("  ptxas:", line.strip())
+        _build.load(name)
 
     cfg = lj22k()
     params = randomized_params(cfg, SEED)
     B, T = len(FRAMES), padded_frames(max(FRAMES), cfg) * cfg.audio.hop_size
-    # blocks 0-4 take the int8 kernel, blocks 0-3 the bf16 one
+    # phase 2: blocks 0-4 take the int8 kernel, blocks 0-3 the bf16 one
     rows = kernel_checks(params, cfg, B, T, range(5), dev)
+    # phase 3: synthesis, the first slice's main path
     main_out = main_path(params, cfg, dev, FRAMES)
+    # phase 4: the training kernels at the training geometry of blocks 0-3
+    tB, tT = cfg.data.batch_size, cfg.data.max_time_steps
+    trows = train_kernel_checks(params, cfg, tB, tT, range(4), dev)
+    # phase 5: training, this slice's main path
+    import tempfile
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")) as tmp:
+        tr = training_phase(cfg, dev, tmp)
 
     def entry(name, mode, src_line, launches, blks):
         sel = [r for r in rows if r["mode"] == mode and r["block"] in blks]
@@ -325,10 +697,41 @@ def main() -> int:
                     r["bound_by"] == "operations" for r in sel) else "bytes",
                 "library_ms": None}
 
-    kernels = [entry("pair_flow", "bf16", 410, main_out["launches"],
-                     range(4)),
-               entry("pair_flow_i8", "int8", 514, main_out["launches_i8"],
-                     range(5))]
+    def tentry(name, replaces, key, err, launches, blks):
+        """Per main-path step: the sum over the routed blocks' bf16 pairs
+        (3 per block) at the training geometry."""
+        sel = [r for r in trows if r["mode"] == "bf16" and r["block"] in blks]
+        n_pair = cfg.model.n_flow // 2
+        bkey = "bwd_bound" if key == "bwd" else "fwd_bound"
+        return {"name": name, "route": "cuda",
+                "source": "flowavenet_tpu_torch/ops/csrc/pair_flow_train.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r[err] for r in sel),
+                "ms": n_pair * sum(r[f"{key}_ms"] for r in sel),
+                "plain_ms": n_pair * sum(r[f"{key}_plain_ms"] for r in sel),
+                "bound_ms": n_pair * sum(r[bkey][0] for r in sel),
+                "bound_by": "operations" if all(
+                    r[bkey][1] == "operations" for r in sel) else "bytes",
+                "library_ms": None}
+
+    n_tr = tr["n_route"] // (cfg.model.n_flow // 2)
+    kernels = [
+        entry("pair_flow", "bf16", 410, main_out["launches"], range(4)),
+        entry("pair_flow_i8", "int8", 514, main_out["launches_i8"],
+              range(5)),
+        tentry("pair_fwd", "flowavenet_tpu/ops/pallas_flow.py:1565", "pfw",
+               "pfw_err", tr["eval"]["fwd_kernel"]["launches"], range(4)),
+        tentry("pair_train_fwd",
+               "flowavenet_tpu/ops/pallas_flow_train.py:144", "fwd",
+               "fwd_err", tr["routes"]["kernel"]["launches"].get(
+                   "pair_train_fwd", 0), range(n_tr)),
+        tentry("pair_train_bwd",
+               "flowavenet_tpu/ops/pallas_flow_train.py:462", "bwd",
+               "bwd_err", tr["routes"]["kernel"]["launches"].get(
+                   "pair_train_bwd", 0), range(n_tr))]
+    check(all(k["launches"] > 0 for k in kernels),
+          ("a kernel of the main paths was never launched", kernels))
+    rk, rp = tr["routes"]["kernel"], tr["routes"]["plain"]
     print(json.dumps({"main_path": {
         "khz_per_s_int8_route": main_out["khz_per_s_i8"],
         "reverse_ms_int8_route": main_out["wall_ms_i8"],
@@ -336,7 +739,23 @@ def main() -> int:
         "reverse_ms_plain_route": main_out["wall_ms_plain"],
         "calls_ms_int8_route": main_out["walls_ms_i8"],
         "calls_ms_bf16_route": main_out["walls_ms"],
-        "calls_ms_plain_route": main_out["walls_ms_plain"]}}))
+        "calls_ms_plain_route": main_out["walls_ms_plain"],
+        "train_step_ms_kernel_route": rk["ms"],
+        "train_step_ms_plain_route": rp["ms"],
+        "train_steps_ms_kernel_route": rk["walls"],
+        "train_steps_ms_plain_route": rp["walls"],
+        "train_samples_per_s_kernel_route": rk["samples_per_s"],
+        "train_samples_per_s_plain_route": rp["samples_per_s"],
+        "train_max_mem_gb_kernel_route": rk["max_mem_gb"],
+        "train_max_mem_gb_plain_route": rp["max_mem_gb"],
+        "train_first_loss_rel": tr["loss_rel"],
+        "train_first_loss_rel_to_fp32": tr["loss_rel_fp32"],
+        "train_grad_cos_fp32": tr["grad_cos"],
+        "train_grad_cos_bf16_to_fp32": tr["grad_cos_bf16"],
+        "ddi_s": tr["ddi_s"],
+        "eval_ms_fwd_kernel_route": tr["eval"]["fwd_kernel"]["ms"],
+        "eval_ms_plain_route": tr["eval"]["plain"]["ms"],
+        "seconds": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,42 +1,65 @@
-"""FloWaveNet one-shot synthesis in PyTorch (twin of
-``flowavenet_tpu/models/flowavenet.py``: ``init_flowavenet`` and
-``reverse``).
+"""FloWaveNet in PyTorch (twin of ``flowavenet_tpu/models/flowavenet.py``):
+``init_flowavenet``, one-shot synthesis (``reverse``) and the likelihood
+side (``forward``, ``ddi``, ``loss_fn``).
 
 Parameters are the JAX package's tree (nested dicts and lists), with
 torch tensors as leaves and the flow axis of each block stacked first.
 
-Scope of ``reverse``: affine couplings, non-causal convs, n_layer == 2,
-even n_flow, no global conditioning, logs_clamp == 0 — the lj22k
-synthesis path.  Anything else raises ``NotImplementedError`` naming the
-JAX code path it would need.
+Scope: affine couplings, non-causal convs, n_layer == 2, even n_flow, no
+global conditioning, logs_clamp == 0 — the lj22k path.  Anything else
+raises ``NotImplementedError`` naming the JAX code path it would need.
 
-Routes (as in the JAX package):
+Synthesis routes (as in the JAX package):
 * ``cfg.use_pallas=False``: the plain pair-scan on every block.
 * default (``FWN_INT8`` on): blocks with cc_half <= 1280 run the fused pair
   (``ops/pair_flow.py``) with int8 fg convs and conditioning; deeper blocks
   run the plain pair-scan with int8 conditioning 1x1s.
 * ``FWN_INT8=0``: blocks with cc_half <= 640 run the fused pair in the
   compute dtype; deeper blocks run the plain pair-scan.
+
+Forward (likelihood) routes, per block, in this order:
+* ``FWN_TRAIN_KERNEL=1`` and cc_half <= ``FWN_TRAIN_MAX_CC`` (80): the
+  training pair (``ops/pair_flow_train.py``, kernels ``pair_train_fwd`` and
+  ``pair_train_bwd``) with exact log_s statistics;
+* ``FWN_FWD_KERNEL=1`` and cc_half <= ``FWN_FWD_MAX_CC`` (640): the forward
+  pair (``pair_fwd``), whose backward recomputes the plain pair; its
+  blocks report zero log_s statistics;
+* otherwise the plain pair-scan, under ``torch.utils.checkpoint`` when
+  ``cfg.remat``/``cfg.remat_blocks`` ask for it.
+Both kernel routes need ``cfg.use_pallas``; on CPU tensors they run the
+kernels' plain versions.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops import pair_flow as pf
+from ..ops import pair_flow_train as pft
 from ..ops.conv import quantize_act
-from ..ops.squeeze import squeeze_level_cond_perm, squeeze_to_level, unsqueeze
-from ..utils.flags import INT8 as _INT8_FLAG
-from ..utils.tree import tree_map
+from ..ops.squeeze import (change_order, squeeze, squeeze_level_cond_perm,
+                           squeeze_to_level, unsqueeze)
+from ..utils import flags as _flags
+from ..utils.tree import leaves, rebuild, tree_map
 from .modules import apply_wavenet, init_wavenet
 from .upsample import apply_upsample, init_upsample
 
-# Live routing switch (tests flip it at runtime, like the JAX package's
-# PAIR_KERNEL_INT8).
-PAIR_KERNEL_INT8 = _INT8_FLAG
+LOG_2PI = math.log(2.0 * math.pi)
+
+# Live routing switches (tests flip them at runtime, as in the JAX
+# package).
+PAIR_KERNEL_INT8 = _flags.INT8
+TRAIN_KERNEL = _flags.TRAIN_KERNEL
+TRAIN_KERNEL_MAX_CC = _flags.TRAIN_MAX_CC
+PAIR_KERNEL_FWD = _flags.FWD_KERNEL
+PAIR_KERNEL_FWD_MAX_CC = _flags.FWD_MAX_CC
+# Dead-zone margin of the log_s hinge (TrainConfig.logs_hinge).
+LOGS_HINGE_MARGIN = _flags.HINGE_MARGIN
 
 
 def _pair_max_cc() -> int:
@@ -80,6 +103,130 @@ def init_flowavenet(gen: torch.Generator, cfg: ModelConfig) -> dict:
         in_ch, cin_ch = in_ch * 2, cin_ch * 2
     params["blocks"] = blocks
     return params
+
+
+def actnorm_forward(p: dict, x: torch.Tensor):
+    """x -> (x + b) * exp(3*logs); logdet = mean(3*logs)."""
+    logs3 = p["logs"].float() * 3.0
+    out = (x + p["b"].to(x.dtype)) * torch.exp(logs3).to(x.dtype)
+    return out, logs3.mean()
+
+
+def actnorm_ddi(x: torch.Tensor) -> dict:
+    """Data-dependent init from one batch: b = -mean(x),
+    logs = log(1/(std+1e-7))/3, statistics over (batch, time)."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 1), keepdim=True)
+    centered = xf - mean
+    var = (centered * centered).mean(dim=(0, 1), keepdim=True)
+    logs = torch.log(1.0 / (torch.sqrt(var) + 1e-7)) / 3.0
+    return {"b": -mean, "logs": logs}
+
+
+def _log_s_stats(log_s: torch.Tensor):
+    """(max |log_s|, sum log_s^2, sum relu(|log_s| - margin)^2) in fp32."""
+    ls = log_s.float()
+    excess = torch.relu(ls.abs() - LOGS_HINGE_MARGIN)
+    return ls.abs().max(), (ls * ls).sum(), (excess * excess).sum()
+
+
+def coupling_forward(p: dict, x: torch.Tensor, c: torch.Tensor,
+                     stats: bool = False):
+    """Affine coupling, forward: the second half of x becomes
+    (x_b - t) * exp(-log_s) with (log_s, t) = net(x_a, c_a)."""
+    in_a, in_b = torch.chunk(x, 2, dim=2)
+    c_a = torch.chunk(c, 2, dim=2)[0]
+    log_s, t = torch.chunk(apply_wavenet(p, in_a, c_a), 2, dim=2)
+    out_b = (in_b - t) * torch.exp(-log_s)
+    logdet = (-log_s.float()).mean() / 2.0
+    out = torch.cat([in_a, out_b], dim=2)
+    if stats:
+        return out, logdet, _log_s_stats(log_s)
+    return out, logdet
+
+
+def _an_half(fp_an: dict, half: int, x: torch.Tensor) -> torch.Tensor:
+    """Apply one channel-half of an ActNorm (forward)."""
+    C2 = x.shape[-1]
+    sl = slice(0, C2) if half == 0 else slice(C2, 2 * C2)
+    b = fp_an["b"][..., sl].to(x.dtype)
+    logs3 = fp_an["logs"][..., sl].float() * 3.0
+    return (x + b) * torch.exp(logs3).to(x.dtype)
+
+
+def _couple_halves_fwd(fp: dict, u, v, c_half):
+    """Forward affine coupling of v given net(u): (v', logdet, stats)."""
+    log_s, t = torch.chunk(apply_wavenet(fp, u, c_half), 2, dim=2)
+    out = (v - t) * torch.exp(-log_s)
+    return out, (-log_s.float()).mean() / 2.0, _log_s_stats(log_s)
+
+
+def _an_logdet(fp_an: dict) -> torch.Tensor:
+    return (fp_an["logs"].float() * 3.0).mean()
+
+
+def _pair_step_fwd(pair: dict, u, v, c_a, c_b):
+    """Two forward flow steps with the halves as explicit state: each
+    change_order is a relabelling of (u, v).  Returns (u, v, logdet,
+    (max, sumsq, hinge))."""
+    even, odd = _index(pair, 0), _index(pair, 1)
+    u = _an_half(even["actnorm"], 0, u)
+    v = _an_half(even["actnorm"], 1, v)
+    v, ld0, st0 = _couple_halves_fwd(even["coupling"], u, v, c_a)
+    v = _an_half(odd["actnorm"], 0, v)
+    u = _an_half(odd["actnorm"], 1, u)
+    u, ld1, st1 = _couple_halves_fwd(odd["coupling"], v, u, c_b)
+    ld = _an_logdet(even["actnorm"]) + _an_logdet(odd["actnorm"]) + ld0 + ld1
+    st = (torch.maximum(st0[0], st1[0]), st0[1] + st1[1], st0[2] + st1[2])
+    return u, v, ld, st
+
+
+def _pair_fwd_ref(pair: dict, u, v, c_a, c_b):
+    """Plain mirror of the fused forward pair (the JAX ``_pair_fwd_ref``):
+    (u', v', raw -log_s sum), computed with the model's own modules."""
+    even, odd = _index(pair, 0), _index(pair, 1)
+    u1 = _an_half(even["actnorm"], 0, u)
+    v1 = _an_half(even["actnorm"], 1, v)
+    log_s, t = torch.chunk(apply_wavenet(even["coupling"], u1, c_a), 2, 2)
+    v2 = (v1 - t) * torch.exp(-log_s)
+    v3 = _an_half(odd["actnorm"], 0, v2)
+    u2 = _an_half(odd["actnorm"], 1, u1)
+    log_s2, t2 = torch.chunk(apply_wavenet(odd["coupling"], v3, c_b), 2, 2)
+    u3 = (u2 - t2) * torch.exp(-log_s2)
+    return u3, v3, -(log_s.float().sum() + log_s2.float().sum())
+
+
+class _PairFwdFused(torch.autograd.Function):
+    """The forward-kernel route's pair: forward through
+    ``pf.fused_pair_forward`` (kernel ``pair_fwd``), backward by autograd
+    through a recompute of :func:`_pair_fwd_ref` from input-only
+    residuals (the JAX ``_pair_fwd_fused_b``)."""
+
+    @staticmethod
+    def forward(ctx, template, u, v, c_a, c_b, *pair_leaves):
+        ctx.template = template
+        ctx.save_for_backward(u, v, c_a, c_b, *pair_leaves)
+        pair = rebuild(template, pair_leaves)
+        ops = pf.pair_forward_operands(pair, u.dtype)
+        return pf.fused_pair_forward(u, v, c_a, c_b, ops)
+
+    @staticmethod
+    def backward(ctx, gu, gv, gr):
+        u, v, c_a, c_b, *pair_leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in (u, v, c_a, c_b,
+                                                         *pair_leaves)]
+            outs = _pair_fwd_ref(rebuild(ctx.template, xs[4:]), *xs[:4])
+            grads = torch.autograd.grad(outs, xs, (gu, gv, gr),
+                                        allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, xs)]
+        return (None, *grads)
+
+
+def _pair_fwd_fused(pair: dict, u, v, c_a, c_b):
+    """(u', v', raw) of one forward pair on the forward-kernel route."""
+    return _PairFwdFused.apply(pair, u, v, c_a, c_b, *leaves(pair))
 
 
 def _an_half_rev(fp_an: dict, half: int, x: torch.Tensor) -> torch.Tensor:
@@ -271,3 +418,173 @@ def reverse(params: dict, cfg: ModelConfig, z: torch.Tensor,
                           cond_perm=squeeze_level_cond_perm(k, C0),
                           c_scales=c_scales)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Likelihood side: forward, DDI, loss
+# ---------------------------------------------------------------------------
+
+def block_forward(p: dict, cfg: ModelConfig, x, c, *,
+                  return_stats: bool = False, remat: Optional[bool] = None):
+    """Forward through one block.  Returns (x, c, logdet); with
+    ``return_stats`` a fourth element (max|log_s|, sum log_s^2,
+    sum relu(|log_s|-margin)^2), fp32 scalars over every coupling of the
+    block.  ``remat`` overrides cfg.remat for this block."""
+    do_remat = cfg.remat if remat is None else remat
+    x, c = squeeze(x), squeeze(c)
+    u, v = (h.contiguous() for h in torch.chunk(x, 2, dim=2))
+    c_a, c_b = (h.contiguous() for h in torch.chunk(c, 2, dim=2))
+    zero = torch.zeros((), device=x.device)
+    pp = _pair_params(p)
+    n_pair = cfg.n_flow // 2
+    cc = c_a.shape[-1]
+
+    def out(u, v, ld, st):
+        x = torch.cat([u, v], dim=2)
+        return (x, c, ld, st) if return_stats else (x, c, ld)
+
+    def an_logdets(pair):
+        return (_an_logdet(_index(pair, 0)["actnorm"])
+                + _an_logdet(_index(pair, 1)["actnorm"]))
+
+    B, T_lvl, r_in = u.shape
+    if TRAIN_KERNEL and cfg.use_pallas and cc <= TRAIN_KERNEL_MAX_CC:
+        # the training pair: exact log_s statistics out of the kernel, and
+        # its backward recomputes from input-only residuals (no checkpoint)
+        ld, raw, mx, sq, hq = zero, zero, zero, zero, zero
+        for i in range(n_pair):
+            pair = _index(pp, i)
+            ops = pf.pair_forward_operands(pair, u.dtype)
+            u, v, s, m_, q_, h_ = pft.PairTrain.apply(u, v, c_a, c_b, *ops)
+            raw, mx = raw + s, torch.maximum(mx, m_)
+            sq, hq = sq + q_, hq + h_
+            ld = ld + an_logdets(pair)
+        ld = ld + raw / (B * T_lvl * r_in) / 2.0
+        return out(u, v, ld, (mx, sq, hq))
+    if PAIR_KERNEL_FWD and cfg.use_pallas and cc <= PAIR_KERNEL_FWD_MAX_CC:
+        # the forward pair: log_s never materializes whole, so the block's
+        # statistics read 0 (loss_fn refuses the guards on this route)
+        ld, raw = zero, zero
+        for i in range(n_pair):
+            pair = _index(pp, i)
+            u, v, s = _pair_fwd_fused(pair, u, v, c_a, c_b)
+            raw = raw + s
+            ld = ld + an_logdets(pair)
+        ld = ld + raw / (B * T_lvl * r_in) / 2.0
+        return out(u, v, ld, (zero, zero, zero))
+    ld, mx, sq, hq = zero, zero, zero, zero
+    for i in range(n_pair):
+        pair = _index(pp, i)
+
+        def step(u, v, pair=pair):
+            return _pair_step_fwd(pair, u, v, c_a, c_b)
+
+        if do_remat and torch.is_grad_enabled():
+            u, v, ld_i, st = checkpoint(step, u, v, use_reentrant=False)
+        else:
+            u, v, ld_i, st = step(u, v)
+        ld = ld + ld_i
+        mx, sq, hq = torch.maximum(mx, st[0]), sq + st[1], hq + st[2]
+    return out(u, v, ld, (mx, sq, hq))
+
+
+def block_ddi(p: dict, cfg: ModelConfig, x, c):
+    """DDI through one block: each flow's ActNorm is set from the
+    statistics of its own input.  Returns (x, c, new block params)."""
+    x, c = squeeze(x), squeeze(c)
+    ans = []
+    for i in range(cfg.n_flow):
+        fp = _index(p["flows"], i)
+        an = actnorm_ddi(x)
+        x, _ = actnorm_forward(an, x)
+        x, _ = coupling_forward(fp["coupling"], x, c)
+        x, c = change_order(x), change_order(c)
+        ans.append(an)
+    new_an = tree_map(lambda *xs: torch.stack(xs), *ans)
+    return x, c, {"flows": {**p["flows"], "actnorm": new_an}}
+
+
+def forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            c: torch.Tensor, compute_dtype=torch.float32,
+            return_stats: bool = False):
+    """NLL forward pass.  x: [B, T, 1] audio; c: [B, T/hop, num_mels] mel.
+    Returns fp32 (log_p, logdet) in nats/dim; with ``return_stats`` also a
+    dict of per-block logdets, max|log_s|, mean log_s^2 and the hinge sum
+    normalized like the logdet."""
+    _check_scope(cfg)
+    _check_shapes(cfg, x, c)
+    x = x.to(compute_dtype)
+    c = apply_upsample(params["upsample"], c.to(compute_dtype),
+                       cfg.upsample_scales)
+    zero = torch.zeros((), device=x.device)
+    logdet, max_ls, sumsq_ls, hinge_ls = zero, zero, zero, zero
+    nel = x.numel()
+    block_lds = []
+    n_ls = 0
+    out = x
+    rb = cfg.remat_blocks
+    for bi, bp in enumerate(params["blocks"]):
+        bl_remat = cfg.remat and (rb < 0 or bi < rb)
+        out, c, ld, st = block_forward(bp, cfg, out, c, return_stats=True,
+                                       remat=bl_remat)
+        max_ls = torch.maximum(max_ls, st[0])
+        sumsq_ls, hinge_ls = sumsq_ls + st[1], hinge_ls + st[2]
+        n_ls += cfg.n_flow * out.shape[0] * out.shape[1] * out.shape[2] // 2
+        block_lds.append(ld)
+        logdet = logdet + ld
+    z32 = out.float()
+    log_p = (0.5 * (-LOG_2PI - z32 * z32)).mean()
+    if not return_stats:
+        return log_p, logdet
+    stats = {f"logdet_block{i}": ld for i, ld in enumerate(block_lds)}
+    stats["max_log_s"] = max_ls
+    stats["logs_mean_sq"] = sumsq_ls / max(n_ls, 1)
+    stats["logs_hinge"] = hinge_ls / max(nel, 1)
+    return log_p, logdet, stats
+
+
+@torch.no_grad()
+def ddi(params: dict, cfg: ModelConfig, x: torch.Tensor, c: torch.Tensor,
+        compute_dtype=torch.float32) -> dict:
+    """Data-dependent ActNorm initialization over one batch; returns the
+    params with every ActNorm replaced."""
+    _check_scope(cfg)
+    _check_shapes(cfg, x, c)
+    out = x.to(compute_dtype)
+    c = apply_upsample(params["upsample"], c.to(compute_dtype),
+                       cfg.upsample_scales)
+    new_blocks = []
+    for bp in params["blocks"]:
+        out, c, new_bp = block_ddi(bp, cfg, out, c)
+        new_blocks.append(new_bp)
+    return {**params, "blocks": new_blocks}
+
+
+def loss_fn(params: dict, cfg: ModelConfig, x, c,
+            compute_dtype=torch.float32, logs_l2: float = 0.0,
+            logs_hinge: float = 0.0):
+    """NLL = -(log_p + logdet) in nats/dim, plus the optional log_s guards
+    (``logs_l2`` * mean log_s^2, ``logs_hinge`` * the hinge).  Returns
+    (total, aux); aux["loss"] is the pure NLL."""
+    log_p, logdet, stats = forward(params, cfg, x, c, compute_dtype,
+                                   return_stats=True)
+    loss = -(log_p + logdet)
+    aux = {"loss": loss, "log_p": log_p, "logdet": logdet,
+           "bits_per_dim": loss / math.log(2.0), **stats}
+    total = loss
+    if logs_l2 > 0.0 or logs_hinge > 0.0:
+        if PAIR_KERNEL_FWD and cfg.use_pallas:
+            raise ValueError(
+                "FWN_FWD_KERNEL=1 is incompatible with the log_s "
+                "divergence guards (logs_hinge/logs_l2): the fused pair "
+                "kernel's log_s stats read 0, disabling the penalty "
+                "silently.  Unset FWN_FWD_KERNEL for guarded training, "
+                "or set logs_hinge=0 and logs_l2=0 to train unguarded.")
+        penalty = torch.zeros((), device=loss.device)
+        if logs_l2 > 0.0:
+            penalty = penalty + logs_l2 * stats["logs_mean_sq"]
+        if logs_hinge > 0.0:
+            penalty = penalty + logs_hinge * stats["logs_hinge"]
+        aux["logs_penalty"] = penalty
+        total = loss + penalty
+    return total, aux

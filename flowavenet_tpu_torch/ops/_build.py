@@ -68,6 +68,17 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names) -> None:
+    """Build several sources at once (one nvcc process each, started
+    together); raises the first build error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for f in [pool.submit(build, n) for n in names]:
+            f.result()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     if name not in _LIBS:

@@ -32,8 +32,12 @@ from .conv import wn_kernel
 KERNEL_HALO = 10
 SQRT_HALF = 0.7071067811865476
 
-# Launches of the CUDA kernel, by name; the wrapper adds one per launch.
-LAUNCHES = {"pair_flow": 0, "pair_flow_i8": 0}
+# Launches of the CUDA kernels, by name; each wrapper adds one per launch.
+# pair_flow* are the reverse pair (csrc/pair_flow.cu); pair_fwd,
+# pair_train_fwd and pair_train_bwd the forward and training pairs
+# (csrc/pair_flow_train.cu, ops/pair_flow_train.py).
+LAUNCHES = {"pair_flow": 0, "pair_flow_i8": 0, "pair_fwd": 0,
+            "pair_train_fwd": 0, "pair_train_bwd": 0}
 
 
 def kernel_t_tile(dtype: torch.dtype) -> int:
@@ -77,12 +81,7 @@ def _flow_operands(fp: dict, dtype) -> tuple:
             torch.stack(skip_b), fin_w, fin_b, zw, zb)
 
 
-def pair_reverse_operands(pair: dict, dtype=torch.bfloat16) -> tuple:
-    """Operands for one flow pair (leaves lead with axis [2]: even=0,
-    odd=1).  Returns 15 tensors, each stacking the two flows:
-    front_w, front_b, kfg, cond_w, cond_b, res_w, res_b, skip_w, skip_b,
-    fin_w, fin_b, zw, zb, an_s, an_b (an_* are [flow, half, R_in] fp32,
-    an_s = exp(-3*logs))."""
+def _pair_operands(pair: dict, dtype, an_sign: float) -> tuple:
     even = tree_map(lambda l: l[0], pair)
     odd = tree_map(lambda l: l[1], pair)
     per_flow = [_flow_operands(even, dtype), _flow_operands(odd, dtype)]
@@ -92,12 +91,30 @@ def pair_reverse_operands(pair: dict, dtype=torch.bfloat16) -> tuple:
         logs3 = fp["actnorm"]["logs"].float()[0, 0] * 3.0
         b = fp["actnorm"]["b"].float()[0, 0]
         c2 = logs3.shape[0] // 2
-        s = torch.exp(-logs3)
+        s = torch.exp(an_sign * logs3)
         return torch.stack([s[:c2], s[c2:]]), torch.stack([b[:c2], b[c2:]])
 
     an_e, an_o = an_halves(even), an_halves(odd)
     return tuple(stacked) + (torch.stack([an_e[0], an_o[0]]),
                              torch.stack([an_e[1], an_o[1]]))
+
+
+def pair_reverse_operands(pair: dict, dtype=torch.bfloat16) -> tuple:
+    """Operands for one flow pair (leaves lead with axis [2]: even=0,
+    odd=1).  Returns 15 tensors, each stacking the two flows:
+    front_w, front_b, kfg, cond_w, cond_b, res_w, res_b, skip_w, skip_b,
+    fin_w, fin_b, zw, zb, an_s, an_b (an_* are [flow, half, R_in] fp32,
+    an_s = exp(-3*logs))."""
+    return _pair_operands(pair, dtype, -1.0)
+
+
+def pair_forward_operands(pair: dict, dtype=torch.bfloat16) -> tuple:
+    """Operands for one FORWARD flow pair (twin of the JAX
+    ``pair_forward_operands``): the folding of :func:`pair_reverse_operands`
+    with the ActNorm halves in forward form, an_s = exp(+3*logs) applied as
+    (x + b) * s.  Differentiable: autograd carries the operand gradients
+    back through the folding to the params."""
+    return _pair_operands(pair, dtype, 1.0)
 
 
 def _quant_w(w: torch.Tensor, reduce_dims: tuple):
@@ -163,11 +180,12 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
     """One coupling net over windows, mirroring the JAX ``_coupling_net``:
     x_buf[:, j] holds position j - x_off relative to output row 0, whose
     global position is p0 [N]; likewise c_buf with c_off."""
+    wt = x_buf.dtype            # fp32 (fp64 for an fp64 reference run)
     def conv3(buf, wk, off, length, dil):
         acc = None
         for k in range(3):
             s = off - dil + k * dil
-            o = torch.matmul(buf[:, s:s + length], wk[k].float())
+            o = torch.matmul(buf[:, s:s + length], wk[k].to(wt))
             acc = o if acc is None else acc + o
         return acc
 
@@ -188,7 +206,7 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
         if int8:
             return _int_dot(tap, w["cond_w"][layer]) * (
                 c_scale * w["cond_s"][layer])
-        return torch.matmul(tap, w["cond_w"][layer].float())
+        return torch.matmul(tap, w["cond_w"][layer].to(wt))
 
     def gate(fg):
         r = fg.shape[-1] // 2
@@ -202,7 +220,7 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
     fg0 = fg0 + cond(0, c_off - 3, l_g0)
     fg0 = fg0 + w["cond_b"][0]
     r = fg0.shape[-1] // 2
-    rs_w = torch.cat([w["res_w"], w["skip_w"][0]], -1).float()
+    rs_w = torch.cat([w["res_w"], w["skip_w"][0]], -1).to(wt)
     rs = torch.matmul(gate(fg0), rs_w)
     res0 = rs[..., :r] + w["res_b"]
     h1 = rnd((h0[:, 1:1 + l_g0] + res0) * SQRT_HALF)
@@ -211,11 +229,11 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
     fg1 = fg1 + cond(1, c_off, out_len)
     fg1 = fg1 + w["cond_b"][1]
     sk0 = rs[:, 3:3 + out_len, r:] + w["skip_b"][0]
-    sk1 = torch.matmul(gate(fg1), w["skip_w"][1].float()) + w["skip_b"][1]
+    sk1 = torch.matmul(gate(fg1), w["skip_w"][1].to(wt)) + w["skip_b"][1]
     out = rnd(torch.relu(sk0 + sk1))
-    out = rnd(torch.relu(torch.matmul(out, w["fin_w"].float())
+    out = rnd(torch.relu(torch.matmul(out, w["fin_w"].to(wt))
                          + w["fin_b"]))
-    return torch.matmul(out, w["zw"].float()) + w["zb"]
+    return torch.matmul(out, w["zw"].to(wt)) + w["zb"]
 
 
 _OP_NAMES = ("front_w", "front_b", "kfg", "cond_w", "cond_b", "res_w",
@@ -415,6 +433,22 @@ def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,
                                 c_row_scales=c_row_scales)
     return _launch(u, v, c_a, c_b, operands, int8=int8,
                    c_row_scales=c_row_scales)
+
+
+def fused_pair_forward(u, v, c_a, c_b, operands):
+    """Apply one FORWARD flow pair (twin of the JAX ``fused_pair_forward``,
+    the port of ``_pair_kernel_fw``).  u, v: [B, T, R_in]; c_*: [B, T, Cc];
+    ``operands`` from :func:`pair_forward_operands`.  Returns
+    (u', v', raw) where raw is the fp32 sum of -log_s over both couplings.
+
+    A CPU tensor runs the plain version (``pair_flow_train.
+    pair_train_fwd_ref`` without the extra statistics); a CUDA tensor
+    launches ``pair_fwd`` (or raises).  No gradient: the model's
+    autograd.Function recomputes the plain pair for that."""
+    from . import pair_flow_train as pft
+    if u.device.type == "cpu":
+        return pft.pair_train_fwd_ref(u, v, c_a, c_b, operands, stats=False)
+    return pft.launch_forward(u, v, c_a, c_b, operands, stats=False)
 
 
 def pair_cost(B: int, T: int, r_in: int, cc: int, r: int = 256,

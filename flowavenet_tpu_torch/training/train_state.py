@@ -1,0 +1,120 @@
+"""Train state and the train/eval steps (twin of
+``flowavenet_tpu/training/train_state.py``), on one device.
+
+bf16 compute with fp32 params and optimizer state; the step is one
+autograd pass, the clip -> Adam -> LR update, the divergence metrics and
+the non-finite skip, all on the device with no host readback.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from ..config import Config
+from ..models import flowavenet as fwn
+from ..utils.tree import leaves, rebuild, tree_map
+from .optimizer import apply_updates, global_norm, lr_schedule, make_optimizer
+
+
+def actnorm_hinge_penalty(params) -> torch.Tensor:
+    """Dead-zone hinge on the ActNorm scales: sum over blocks of
+    sum(relu(|3*logs| - margin)^2) / C_level, fp32."""
+    pen = torch.zeros((), device=params["blocks"][0]["flows"]["actnorm"]
+                      ["logs"].device)
+    for bp in params["blocks"]:
+        logs3 = bp["flows"]["actnorm"]["logs"].float() * 3.0
+        excess = torch.relu(logs3.abs() - fwn.LOGS_HINGE_MARGIN)
+        pen = pen + (excess * excess).sum() / logs3.shape[-1]
+    return pen
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor         # int32 scalar
+    params: Any
+    opt_state: Any
+
+
+def create_state(gen: torch.Generator, cfg: Config) -> TrainState:
+    """Fresh fp32 params on ``gen.device`` and a zero optimizer state."""
+    params = fwn.init_flowavenet(gen, cfg.model)
+    opt = make_optimizer(cfg.train)
+    return TrainState(torch.zeros((), dtype=torch.int32, device=gen.device),
+                      params, opt.init(params))
+
+
+def _compute_dtype(cfg: Config):
+    return (torch.bfloat16 if cfg.train.compute_dtype == "bfloat16"
+            else torch.float32)
+
+
+def make_train_step(cfg: Config):
+    """Returns train_step(state, batch) -> (state, metrics); batch holds
+    device tensors "audio" [B, T, 1] and "mel" [B, T/hop, mels]; metrics
+    are 0-d device tensors."""
+    opt = make_optimizer(cfg.train)
+    schedule = lr_schedule(cfg.train)
+    dt = _compute_dtype(cfg)
+    tc = cfg.train
+
+    def train_step(state: TrainState, batch: dict):
+        params = tree_map(lambda l: l.detach().requires_grad_(),
+                          state.params)
+        total, aux = fwn.loss_fn(params, cfg.model, batch["audio"],
+                                 batch["mel"], compute_dtype=dt,
+                                 logs_l2=tc.logs_l2,
+                                 logs_hinge=tc.logs_hinge)
+        if tc.actnorm_hinge > 0.0:
+            pen = actnorm_hinge_penalty(params)
+            aux["actnorm_hinge"] = pen
+            total = total + tc.actnorm_hinge * pen
+        flat = leaves(params)
+        g_flat = torch.autograd.grad(total, flat, allow_unused=True)
+        grads = rebuild(params, [torch.zeros_like(p) if g is None else g
+                                 for g, p in zip(g_flat, flat)])
+        with torch.no_grad():
+            old = state.params
+            grad_norm = global_norm(grads)
+            updates, opt_state = opt.update(grads, state.opt_state, old)
+            new_params = apply_updates(old, updates)
+            an_max = torch.zeros((), device=grad_norm.device)
+            for bp in old["blocks"]:
+                an_max = torch.maximum(an_max, (bp["flows"]["actnorm"]["logs"]
+                                                .float() * 3.0).abs().max())
+            metrics = {k: v.detach() for k, v in aux.items()}
+            metrics.update(grad_global_norm=grad_norm,
+                           param_global_norm=global_norm(old),
+                           actnorm_max_logs3=an_max,
+                           learning_rate=schedule(state.step))
+            if tc.skip_nonfinite_updates:
+                # a divergent step passes the old state through unchanged
+                ok = torch.isfinite(total.detach()) & torch.isfinite(grad_norm)
+                new_params = tree_map(lambda n, o: torch.where(ok, n, o),
+                                      new_params, old)
+                opt_state = tree_map(lambda n, o: torch.where(ok, n, o),
+                                     opt_state, state.opt_state)
+                metrics["skipped_nonfinite"] = 1.0 - ok.float()
+        return TrainState(state.step + 1, new_params, opt_state), metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: Config):
+    dt = _compute_dtype(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch: dict):
+        _, aux = fwn.loss_fn(params, cfg.model, batch["audio"], batch["mel"],
+                             compute_dtype=dt)
+        return aux
+
+    return eval_step
+
+
+def ddi_initialize(state: TrainState, cfg: Config, batch: dict
+                   ) -> TrainState:
+    """Data-dependent ActNorm init from one batch, in fp32."""
+    new_params = fwn.ddi(state.params, cfg.model, batch["audio"],
+                         batch["mel"], compute_dtype=torch.float32)
+    return state._replace(params=new_params)

@@ -7,13 +7,28 @@ from typing import Any, Callable
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` to the leaves of ``tree`` (and the matching leaves of
-    ``rest``), keeping dict/list/tuple structure."""
+    ``rest``), keeping dict/list/tuple/NamedTuple structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, t, *(r[i] for r in rest))
                for i, t in enumerate(tree)]
+        if hasattr(tree, "_fields"):          # NamedTuple
+            return type(tree)(*out)
         return type(tree)(out)
     return fn(tree, *rest)
+
+
+def leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in ``tree_map`` order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def rebuild(template: Any, new_leaves) -> Any:
+    """``template``'s structure with ``new_leaves`` (in ``leaves`` order)."""
+    it = iter(new_leaves)
+    return tree_map(lambda _: next(it), template)
 

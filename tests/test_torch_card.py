@@ -120,3 +120,81 @@ def test_reverse_direct_route_on_card_matches_cpu(cuda, monkeypatch):
                       z.to(cuda), mel.to(cuda)).cpu().numpy()
     assert pf.LAUNCHES["pair_flow"] == n0 + cfg.n_block * cfg.n_flow // 2
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _train_case(bi: int, dt, dev, T: int = 300, B: int = 2):
+    """lj22k widths of block bi: a pair with 0.05-scale zero convs and
+    0.05-scale ActNorm noise, inputs, cotangents and the three scalar
+    cotangents, all from seeds."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    cfg = lj22k().model
+    gen = torch.Generator().manual_seed(10 + bi)
+    block = fwn.init_block(gen, 1 << bi, cfg.num_mels << bi, cfg)
+    fl = block["flows"]
+    fl["coupling"]["zero"]["w"].normal_(0, 0.05, generator=gen)
+    fl["actnorm"]["b"].normal_(0, 0.05, generator=gen)
+    fl["actnorm"]["logs"].normal_(0, 0.05, generator=gen)
+    pair = tree_map(lambda l: l.to(dev), fwn._index(fwn._pair_params(block),
+                                                    0))
+    ops = pf.pair_forward_operands(pair, dt)
+    r_in, cc = 1 << bi, 80 << bi
+    g = torch.Generator(device=dev).manual_seed(bi)
+    x = [torch.randn(B, T, r_in, generator=g, device=dev).to(dt)
+         for _ in range(4)]
+    c = [torch.rand(B, T, cc, generator=g, device=dev).to(dt)
+         for _ in range(2)]
+    scal = [torch.tensor(s, device=dev) for s in (0.7, 0.11, 1.3)]
+    return pft, ops, x[0], x[1], c[0], c[1], x[2], x[3], scal
+
+
+def _cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bi", [0, 3])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_train_kernels_match_plain(cuda, monkeypatch, bi, mode):
+    """pair_fwd, pair_train_fwd and pair_train_bwd vs their plain versions
+    (pair_train_fwd_ref and autograd through it), T=300 (a ragged last
+    tile), hinge live.  fp32: rel-to-max <= 1e-4 on outputs, statistics
+    and every gradient; bf16: outputs rel <= 1e-2 and corr >= 0.999,
+    cosine >= 0.999 per gradient.  Two backward launches give the same
+    bits."""
+    dt = torch.float32 if mode == "fp32" else torch.bfloat16
+    pft, ops, u, v, ca, cb, gu, gv, (gr, gq, gh) = _train_case(bi, dt, cuda)
+    mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
+    monkeypatch.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
+    want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
+    n0 = dict(pf.LAUNCHES)
+    got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+    fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
+    assert pf.LAUNCHES["pair_fwd"] == n0["pair_fwd"] + 1
+    assert float(want[5]) > 0.0
+    for a, b in list(zip(got[:2], want[:2])) + list(zip(fwd[:2], want[:2])):
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        rel = float((a - b).abs().max() / b.abs().max())
+        if mode == "fp32":
+            assert rel <= 1e-4
+        else:
+            assert rel <= 1e-2 and _cos(a - a.mean(), b - b.mean()) >= 0.999
+    for a, b in list(zip(got[2:], want[2:])) + [(fwd[2], want[2])]:
+        assert abs(float(a) - float(b)) <= 1e-3 * abs(float(b)) + 1e-6
+    d1 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
+    d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 2
+    dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
+    flat = lambda d: list(d[0]) + list(d[1:])
+    for a, a2, b in zip(flat(d1), flat(d2), flat(dref)):
+        assert torch.equal(a, a2)
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        if mode == "fp32":
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        elif float(b.abs().max()) > 0:
+            assert _cos(a, b) >= 0.999

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``flowavenet_tpu_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package, and the entry points run
-on the card unless the caller asks for the CPU."""
+``chip_smoke.py`` imports JAX or the JAX package (the data modules keep
+their own jax-free copies), and the entry points (synthesis and training)
+run on the card unless the caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -35,6 +36,16 @@ def test_no_jax_imports(path):
 def test_sources_found():
     assert len(SOURCES) > 15
     assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow.cu").exists()
+    assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow_train.cu").exists()
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {"flowavenet_tpu_torch/ops/pair_flow_train.py",
+            "flowavenet_tpu_torch/training/optimizer.py",
+            "flowavenet_tpu_torch/training/train_state.py",
+            "flowavenet_tpu_torch/training/metrics.py",
+            "flowavenet_tpu_torch/training/train.py",
+            "flowavenet_tpu_torch/checkpoint/checkpoint.py",
+            "flowavenet_tpu_torch/data/records.py",
+            "flowavenet_tpu_torch/data/dataset.py"} <= names
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
@@ -51,3 +62,9 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsyn.main(["--saved_dir", str(tmp_path), "--config", "tiny"])
     assert tsyn.resolve_device("cpu").type == "cpu"
+    from flowavenet_tpu_torch.training import train as ttrain
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.train(cfg, str(tmp_path), str(tmp_path / "logs"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--config", "tiny", "--data_dir", str(tmp_path),
+                     "--logdir", str(tmp_path / "logs")])

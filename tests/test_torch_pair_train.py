@@ -1,0 +1,223 @@
+"""PyTorch port, forward and training pairs (ops/pair_flow_train.py and
+pair_flow.fused_pair_forward): the plain versions and the training
+route's autograd.Function held against the JAX Pallas kernels
+``_pair_kernel_fws``/``_pair_kernel_bwd``/``_pair_kernel_fw`` in interpret
+mode (as tests/test_pallas_train.py runs them), on primal, statistics and
+every gradient.  The CUDA kernels are held against the plain versions on
+the card by tests/test_torch_card.py and chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flowavenet_tpu.config import tiny
+from flowavenet_tpu.models import flowavenet as jfwn
+from flowavenet_tpu.ops import pallas_flow as jpf
+from flowavenet_tpu.ops import pallas_flow_train as jpft
+from flowavenet_tpu_torch.checkpoint.bridge import to_torch
+from flowavenet_tpu_torch.models import flowavenet as tfwn
+from flowavenet_tpu_torch.ops import pair_flow as tpf
+from flowavenet_tpu_torch.ops import pair_flow_train as tpft
+from flowavenet_tpu_torch.utils.tree import tree_map
+
+CFG = tiny().model
+MARGIN = 0.3   # below the perturbed pair's |log_s|: the hinge is live
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX pair, torch pair) of block 0: init plus 0.1-scale noise on
+    every leaf (test_pallas_train.py's pattern; at init a pair is the
+    identity and most gradient paths are degenerate)."""
+    params = jfwn.init_flowavenet(jax.random.PRNGKey(0), CFG)
+    leaves, treedef = jax.tree.flatten(params)
+    r = np.random.RandomState(1)
+    params = jax.tree.unflatten(treedef, [
+        np.asarray(l) + 0.1 * r.randn(*l.shape).astype(np.float32)
+        for l in leaves])
+    jp = jax.tree.map(lambda l: l[0], jfwn._pair_params(params["blocks"][0]))
+    tp = tfwn._index(tfwn._pair_params(to_torch(params)["blocks"][0]), 0)
+    return jp, tp
+
+
+def _data(T, seed=2, B=2):
+    r = np.random.RandomState(seed)
+    Cc = CFG.num_mels
+    return [0.3 * r.randn(B, T, 1).astype(np.float32),
+            0.3 * r.randn(B, T, 1).astype(np.float32),
+            r.randn(B, T, Cc).astype(np.float32),
+            r.randn(B, T, Cc).astype(np.float32),
+            r.randn(B, T, 1).astype(np.float32),
+            r.randn(B, T, 1).astype(np.float32)]
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-6))
+
+
+def _worst_leaf(tree_t, tree_j):
+    """Worst leaf relative error of the port's .grad tree vs the JAX
+    gradient tree (a leaf no path reaches, layer 1's unused res conv, has
+    no .grad in torch and a zero gradient in JAX)."""
+    flat_t = []
+    tree_map(lambda l: flat_t.append(l.grad if l.grad is not None
+                                     else torch.zeros_like(l)), tree_t)
+    leaves_j = jax.tree.leaves(tree_j)
+    assert len(flat_t) == len(leaves_j)
+    return max(_rel(a.numpy(), b) for a, b in zip(flat_t, leaves_j))
+
+
+def _weighted(out, wu, wv):
+    """The scalar both sides differentiate: a weighted sum of the outputs
+    and the three differentiable statistics (the JAX test's loss)."""
+    u3, v3, raw, _mx, sq, hq = out
+    return ((u3 * wu).sum() + (v3 * wv).sum() + 0.7 * raw + 0.11 * sq
+            + 1.3 * hq)
+
+
+@pytest.mark.parametrize("T", [200, 300])
+def test_train_pair_matches_jax_kernel(pair, monkeypatch, T):
+    """fp32: primal, all four statistics and every gradient (pair params
+    through the operand folding, u, v, c_a, c_b) of the port's training
+    route (PairTrain on the CPU: the plain version and autograd through
+    it) vs the JAX kernels in interpret mode, hinge live.  T=200: one JAX
+    tile with both sequence edges inside it; T=300: past the CUDA kernel's
+    largest tile (256) with a ragged tail, several JAX backward tiles.
+    Bars: 1e-5 relative on the statistics and the primal, 1e-4 worst-leaf
+    relative on the gradients (fp32 summation order only)."""
+    monkeypatch.setattr(jpft, "HINGE_MARGIN", MARGIN)
+    monkeypatch.setattr(tpft, "HINGE_MARGIN", MARGIN)
+    jp, tp = pair
+    u, v, ca, cb, wu, wv = _data(T)
+
+    def loss_j(p, u, v, ca, cb):
+        ops = jpf.pair_forward_operands(p, jnp.float32)
+        out = jfwn._pair_train_fused(True, ops, u, v, ca, cb)
+        return _weighted(out, wu, wv), out
+
+    (lj, outj), gj = jax.value_and_grad(loss_j, argnums=(0, 1, 2, 3, 4),
+                                        has_aux=True)(
+        jp, *map(jnp.asarray, (u, v, ca, cb)))
+
+    tpl = tree_map(lambda l: l.clone().requires_grad_(), tp)
+    xs = [torch.from_numpy(x).requires_grad_() for x in (u, v, ca, cb)]
+    ops = tpf.pair_forward_operands(tpl, torch.float32)
+    outt = tpft.PairTrain.apply(*xs, *ops)
+    lt = _weighted(outt, torch.from_numpy(wu), torch.from_numpy(wv))
+    lt.backward()
+
+    assert abs(float(lt.detach()) - float(lj)) <= 1e-5 * abs(float(lj))
+    for a, b in zip(outt[:2], outj[:2]):
+        assert _rel(a.detach().numpy(), b) < 1e-5
+    for a, b in zip(outt[2:], outj[2:]):
+        np.testing.assert_allclose(float(a.detach()), float(b), rtol=1e-5)
+    assert float(outt[5]) > 0.0                      # the hinge is live
+    gt = [x.grad.numpy() for x in xs]
+    for name, a, b in zip(("u", "v", "c_a", "c_b"), gt, gj[1:]):
+        assert _rel(a, b) < 1e-4, name
+    assert _worst_leaf(tpl, gj[0]) < 1e-4
+
+
+def test_train_pair_backward_ref_matches_jax_bwd(pair, monkeypatch):
+    """The backward's plain version vs ``fused_pair_train_bwd`` on the same
+    folded operands and cotangents: every operand gradient and du, dv,
+    dc_a, dc_b to 1e-4 worst-leaf relative."""
+    monkeypatch.setattr(jpft, "HINGE_MARGIN", MARGIN)
+    monkeypatch.setattr(tpft, "HINGE_MARGIN", MARGIN)
+    jp, tp = pair
+    u, v, ca, cb, wu, wv = _data(160, seed=4)
+    jops = jpf.pair_forward_operands(jp, jnp.float32)
+    dj = jpft.fused_pair_train_bwd(*map(jnp.asarray, (u, v, ca, cb, wu, wv)),
+                                   0.7, 0.11, 1.3, jops, interpret=True)
+    tops = tpf.pair_forward_operands(tp, torch.float32)
+    dt = tpft.fused_pair_train_bwd(
+        *map(torch.from_numpy, (u, v, ca, cb, wu, wv)), torch.tensor(0.7),
+        torch.tensor(0.11), torch.tensor(1.3), tops)
+    for a, b in zip(dt[0], dj[0]):
+        assert a.shape == b.shape
+        assert _rel(a.numpy(), b) < 1e-4
+    for a, b in zip(dt[1:], dj[1:]):
+        assert _rel(a.numpy(), b) < 1e-4
+
+
+@pytest.mark.parametrize("T", [192, 300])
+def test_forward_pair_matches_jax_kernel(pair, T):
+    """pair_fwd's plain version (the port of ``_pair_kernel_fw``) vs
+    ``fused_pair_forward`` in interpret mode: outputs and the raw -log_s
+    sum to 1e-5 relative; and the model-level autograd.Function
+    (``_pair_fwd_fused``, torch-recompute backward) vs JAX's custom_vjp on
+    every gradient, 1e-4 worst-leaf relative."""
+    jp, tp = pair
+    u, v, ca, cb, wu, wv = _data(T, seed=5)
+
+    def loss_j(p, u, v, ca, cb):
+        out = jfwn._pair_fwd_fused(True, p, u, v, ca, cb)
+        return (out[0] * wu).sum() + (out[1] * wv).sum() + 0.7 * out[2], out
+
+    (lj, outj), gj = jax.value_and_grad(loss_j, argnums=(0, 1, 2, 3, 4),
+                                        has_aux=True)(
+        jp, *map(jnp.asarray, (u, v, ca, cb)))
+    tops = tpf.pair_forward_operands(tp, torch.float32)
+    plain = tpf.fused_pair_forward(*map(torch.from_numpy, (u, v, ca, cb)),
+                                   tops)
+    for a, b in zip(plain, outj):
+        assert _rel(a.numpy(), b) < 1e-5
+
+    tpl = tree_map(lambda l: l.clone().requires_grad_(), tp)
+    xs = [torch.from_numpy(x).requires_grad_() for x in (u, v, ca, cb)]
+    outt = tfwn._pair_fwd_fused(tpl, *xs)
+    lt = ((outt[0] * torch.from_numpy(wu)).sum()
+          + (outt[1] * torch.from_numpy(wv)).sum() + 0.7 * outt[2])
+    lt.backward()
+    assert abs(float(lt.detach()) - float(lj)) <= 1e-5 * abs(float(lj))
+    for name, x, b in zip(("u", "v", "c_a", "c_b"), xs, gj[1:]):
+        assert _rel(x.grad.numpy(), b) < 1e-4, name
+    assert _worst_leaf(tpl, gj[0]) < 1e-4
+
+
+def test_forward_operands_match_jax_folding(pair):
+    """pair_forward_operands (ActNorm in forward form, s = exp(+3 logs))
+    vs the JAX folding: 1e-6 relative."""
+    jp, tp = pair
+    jops = jpf.pair_forward_operands(jp, jnp.float32)
+    tops = tpf.pair_forward_operands(tp, torch.float32)
+    assert len(tops) == len(jops) == 15
+    for a, b in zip(tops, jops):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
+
+
+def test_wrappers_take_plain_version_on_cpu(pair):
+    """CPU tensors: no kernel launch is counted; the plain version's bf16
+    run is finite and keeps the storage type."""
+    _, tp = pair
+    u, v, ca, cb, _, _ = _data(100, seed=6)
+    before = dict(tpf.LAUNCHES)
+    bf = [torch.from_numpy(x).bfloat16() for x in (u, v, ca, cb)]
+    out = tpft.fused_pair_train_fwd(*bf, tpf.pair_forward_operands(
+        tp, torch.bfloat16))
+    assert out[0].dtype == torch.bfloat16 and out[1].dtype == torch.bfloat16
+    assert all(bool(torch.isfinite(x.float()).all()) for x in out)
+    assert tpf.LAUNCHES == before
+
+
+def test_train_t_tile_fills_the_card():
+    """At least one tile per SM where T allows, within [32, 256] rows: the
+    lj22k training geometry of blocks 0-3 at batch 8."""
+    assert [tpft.train_t_tile(8, 6400 >> (b + 1), 132)
+            for b in range(4)] == [128, 64, 32, 32]
+    assert tpft.train_t_tile(1, 100000, 132) == 256
+
+
+def test_backward_bound_is_three_forwards():
+    """The backward's operations are 3x the forward's (recompute, input
+    gradients, weight gradients), JAX's cost estimate at
+    pallas_flow_train.py:734-736."""
+    f = tpft.train_pair_cost(8, 3200, 1, 80)
+    b = tpft.train_pair_cost(8, 3200, 1, 80, backward=True)
+    assert b["ops"] == 3 * f["ops"]
+    ms, by = tpft.train_pair_bound_ms(8, 3200, 1, 80, backward=True)
+    assert by == "operations" and ms > 0
