@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-1. Builds both CUDA sources from ``flowavenet_tpu_torch/ops/csrc`` at once
-   (one nvcc each) and prints the build times, ptxas' register and spill
-   lines, the card's name and power limit, and the versions.
-2. Holds the fused reverse pair kernel against its plain PyTorch version
+1. Builds the three CUDA sources of ``flowavenet_tpu_torch/ops/csrc`` at
+   once (one nvcc each) and prints the build times, ptxas' register and
+   spill lines, the card's name and power limit, and the versions.
+2. Holds the direct reverse pair kernel against its plain PyTorch version
    (``pair_reverse_ref``, TF32 off) at the lj22k geometry of every block
    the kernel routes (R_in = 2^bi, Cc = 80*2^bi, R = 256), at the batch
    shape of step 3, on a pair whose zero convs carry 0.05-scale weights
@@ -17,14 +17,17 @@
    add: the RMS of kernel minus plain over the RMS of plain minus the
    pass-through (the same pair with its zero convs zeroed, i.e. ActNorm
    only).  Prints the errors, the kernel's and the plain version's ms,
-   and the H100 bound.
+   and the H100 bound.  Phase 2b (``variant_checks``) does the same for
+   the Winograd pairs (F(2,3), F(4,3); blocks 0-2, fp32 and bf16), the
+   hoisted pairs (blocks 4-7 fp32/bf16; int8 blocks 5-7, with the hoist
+   matmul's ms) and the int8 res/skip pair (blocks 0-4).
 3. Drives ``synthesize_mels`` at the full lj22k width on 4 mels of unequal
    length, in bf16: seeded random weights written to a JAX-layout npz and
-   read back with ``load_params``; the default int8 route (15 kernel
-   launches per reverse), the FWN_INT8=0 route (12) and the plain route,
-   which the int8 route must match to the JAX package's int8 test bar
-   (corr > 0.998, rel < 0.08).  Each route runs one warm-up call and
-   ``REPS`` timed calls; the median and the range are printed.
+   read back with ``load_params``; every route of ``ROUTES`` (launches per
+   reverse checked exactly) and the plain route, which each route must
+   match to the JAX package's int8 test bar (corr > 0.998, rel < 0.08).
+   Each route runs one warm-up call and ``REPS`` timed calls; the median
+   and the range are printed.
 4. Holds ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` against
    their plain versions at the lj22k training geometry of blocks 0-3
    (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
@@ -35,8 +38,13 @@
    then ``TRAIN_STEPS`` steps on the FWN_TRAIN_KERNEL=1 route and on the
    plain route from the same params (checks in ``training_phase``), and
    one FWN_FWD_KERNEL=1 eval step.
-6. Prints a JSON line of main-path numbers, one JSON line of per-kernel
-   numbers (per reverse for the reverse pair, per train step for the
+6. Serves lj22k over HTTP on the card (run after step 3, on its loaded
+   params; checks in ``serving_phase``): 8 concurrent requests (lengths,
+   requests/s, p50/p90 latency), batch-composition invariance within a pow2
+   batch and length bucket, an 800-frame stream (time to the first byte;
+   against one-shot audio), and time-parallel synthesis.
+7. Prints a JSON line of main-path numbers, one JSON line of per-kernel
+   numbers (per reverse for the reverse pairs, per train step for the
    training pair, per eval step for the forward pair: the sum over the
    routed blocks, 3 pairs each), the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
@@ -205,6 +213,129 @@ def kernel_checks(params, cfg, B: int, T: int, blocks, dev):
                          "update_err": upd,
                          "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound[0], "bound_by": bound[1]})
+    return rows
+
+
+# New reverse-pair kernels of the third slice: name -> (blocks, modes)
+VARIANTS = {"pair_flow_wino": (range(3), ("fp32", "bf16")),
+            "pair_flow_wino4": (range(3), ("fp32", "bf16")),
+            "pair_flow_hoisted": (range(4, 8), ("fp32", "bf16")),
+            "pair_flow_hoisted_i8": (range(5, 8), ("int8",)),
+            "pair_flow_i8rs": (range(5), ("int8",))}
+
+
+def variant_checks(params, cfg, B: int, T: int, dev):
+    """Phase 2b: the Winograd, hoisted and int8 res/skip pairs vs their
+    plain versions (TF32 off) at the lj22k geometry of the blocks each
+    routes, at the batch shape of phase 3, with PR 1's bars (fp32 rel <=
+    1e-4; bf16 rel <= 1e-2, corr >= 0.999; int8 rel <= 1e-2, corr >=
+    0.9999; update_err <= 1e-2, fp32 1e-4).  The Winograd plain version
+    runs at a wider tile than the kernel (its output does not depend on
+    the tile); the int8 ones at the kernel's tile.  Hoisted rows also time
+    the cuBLAS hoist matmul of one pair (c_half @ w_flow, both halves)."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.ops.conv import quantize_act
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    rows = []
+    for name, (blocks, modes) in VARIANTS.items():
+        for bi in blocks:
+            r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
+            pair = fwn._index(fwn._pair_params(params["blocks"][bi]), 0)
+            zero = pair["coupling"]["zero"]
+            zero["w"] = 0.05 * torch.randn(
+                zero["w"].shape,
+                generator=torch.Generator().manual_seed(SEED + bi))
+            pair = tree_map(lambda l: l.to(dev), pair)
+            g = torch.Generator(device=dev).manual_seed(SEED + bi)
+            u32 = torch.randn(B, tk, r_in, generator=g, device=dev)
+            v32 = torch.randn(B, tk, r_in, generator=g, device=dev)
+            ca32 = torch.rand(B, tk, cc, generator=g, device=dev)
+            cb32 = torch.rand(B, tk, cc, generator=g, device=dev)
+            for mode in modes:
+                dt = torch.float32 if mode == "fp32" else torch.bfloat16
+                u, v = u32.to(dt), v32.to(dt)
+                ca, cb = ca32.to(dt), cb32.to(dt)
+                kw, hoist_ms, zi = {}, None, (11, 12)
+                if name.startswith("pair_flow_wino"):
+                    P = 12 if name.endswith("4") else 6
+                    ops = (pf.pair_reverse_operands_wino4(pair, dt) if P == 12
+                           else pf.pair_reverse_operands_wino(pair, dt))
+
+                    def kern(ops=ops):
+                        return pf.fused_pair_reverse_wino(u, v, ca, cb, ops)
+
+                    def plain(ops=ops, P=P):
+                        return pf.pair_reverse_wino_ref(
+                            u, v, ca, cb, ops, t_tile=160 * P)
+                    bound = pf.pair_bound_ms(
+                        B, tk, r_in, cc, fg_mults=4 / 6 if P == 6 else 0.5)
+                else:
+                    if name == "pair_flow_i8rs":
+                        (qa, sa), (qb, sb) = (quantize_act(ca, per_row=True),
+                                              quantize_act(cb, per_row=True))
+                        c = (qa, qb)
+                        kw = dict(int8=True, c_row_scales=torch.cat(
+                            [sa.reshape(-1, 1), sb.reshape(-1, 1)], 1))
+                        ops = pf.pair_reverse_operands_int8(pair, dt, rs=True)
+                        bound = pf.pair_bound_ms(B, tk, r_in, cc, int8=True,
+                                                 rs=True)
+                    else:
+                        make = (pf.pair_reverse_operands_hoisted_int8
+                                if name.endswith("i8")
+                                else pf.pair_reverse_operands_hoisted)
+                        ops, (we, wo) = make(pair, dt)
+
+                        def hoist(we=we, wo=wo):
+                            return torch.matmul(ca, we), torch.matmul(cb, wo)
+                        c = hoist()
+                        hoist_ms = _time_ms(hoist, 5)
+                        kw = dict(hoisted=True, int8=name.endswith("i8"))
+                        zi = (10, 11)
+                        bound = pf.pair_bound_ms(B, tk, r_in, c[0].shape[-1],
+                                                 int8=kw["int8"],
+                                                 hoisted=True)
+                    tt = pf.kernel_t_tile(dt, r_in)
+
+                    def kern(ops=ops, c=c, kw=kw):
+                        return pf.fused_pair_reverse(u, v, *c, ops, **kw)
+
+                    def plain(ops=ops, c=c, kw=kw, tt=tt):
+                        return pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt,
+                                                   **kw)
+                n0 = pf.LAUNCHES[name]
+                uk, vk = kern()
+                torch.cuda.synchronize()
+                check(pf.LAUNCHES[name] == n0 + 1, (name, "launch count"))
+                ur, vr = plain()
+                # zw, zb = 0: log_s = t = 0, the pair is its two ActNorms
+                passthru = plain(ops=tuple(
+                    torch.zeros_like(o) if i in zi else o
+                    for i, o in enumerate(ops)))
+                e_u, e_v = _errors(uk, ur), _errors(vk, vr)
+                err, rel = max(e_u[0], e_v[0]), max(e_u[1], e_v[1])
+                corr = min(e_u[2], e_v[2])
+                upd = _update_err((uk, vk), (ur, vr), passthru)
+                ms = _time_ms(kern, 3)
+                plain_ms = _time_ms(plain, 1)
+                print(f"{name} block {bi} {mode:4s} T_k={tk:6d} R_in="
+                      f"{r_in:3d} Cc={cc:5d}: max_abs={err:.3e} rel={rel:.3e} "
+                      f"corr={corr:.7f} update_err={upd:.3e} kernel={ms:.3f}"
+                      f" ms plain={plain_ms:.3f} ms bound={bound[0]:.4f} ms"
+                      + (f" hoist_matmul={hoist_ms:.3f} ms" if hoist_ms
+                         is not None else ""), flush=True)
+                bars = {"fp32": (1e-4, -1.0), "bf16": (1e-2, 0.999),
+                        "int8": (1e-2, 0.9999)}[mode]
+                check(rel <= bars[0] and corr >= bars[1] and upd <= bars[0],
+                      f"{name} block {bi} {mode} vs plain: rel {rel} corr "
+                      f"{corr} update {upd}")
+                rows.append({"name": name, "block": bi, "mode": mode,
+                             "max_abs_err": err, "rel": rel, "corr": corr,
+                             "update_err": upd, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound[0],
+                             "bound_by": bound[1], "hoist_ms": hoist_ms})
     return rows
 
 
@@ -547,8 +678,26 @@ def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
             "n_route": n_route}
 
 
+# Routes of phase 3: (name, model switches, launches per reverse)
+ROUTES = (
+    ("int8", {}, {"pair_flow_i8": 15}),
+    ("FWN_INT8=0", {"PAIR_KERNEL_INT8": False},
+     {"pair_flow_wino": 9, "pair_flow": 3}),
+    ("FWN_INT8=0 FWN_WINO4=1", {"PAIR_KERNEL_INT8": False,
+                                "PAIR_KERNEL_WINO4": True},
+     {"pair_flow_wino4": 9, "pair_flow": 3}),
+    ("FWN_INT8=0 FWN_HOISTED=1", {"PAIR_KERNEL_INT8": False,
+                                  "PAIR_KERNEL_HOISTED": True},
+     {"pair_flow_wino": 9, "pair_flow": 3, "pair_flow_hoisted": 12}),
+    ("FWN_HOISTED=1", {"PAIR_KERNEL_HOISTED": True},
+     {"pair_flow_i8": 15, "pair_flow_hoisted_i8": 9}),
+    ("FWN_INT8_RS=1", {"INT8_RS": True}, {"pair_flow_i8rs": 15}),
+)
+
+
 def main_path(params, cfg, dev, frames):
-    """Phase 3: synthesize_mels through the user-facing entry points."""
+    """Phase 3: synthesize_mels through the user-facing entry points, on
+    every route of ``ROUTES`` and the plain route."""
     import torch
     from flowavenet_tpu_torch.checkpoint.bridge import save_params
     from flowavenet_tpu_torch.models import flowavenet as fwn
@@ -601,34 +750,247 @@ def main_path(params, cfg, dev, frames):
 
     on = cfg.model
     off = dataclasses.replace(cfg.model, use_pallas=False)
-    out = {}
-    wavs, wall, walls, counts = run("int8", on,
-                                    {"pair_flow": 0, "pair_flow_i8": 15})
-    out["launches_i8"] = counts["pair_flow_i8"]
-    out["wall_ms_i8"], out["walls_ms_i8"] = wall, walls
+    out = {"routes": {}}
+    routes = {}
+    for name, switches, expect in ROUTES:
+        saved = {k: getattr(fwn, k) for k in switches}
+        try:
+            for k, val in switches.items():
+                setattr(fwn, k, val)
+            wavs_r, wall, walls, counts = run(name, on, expect)
+        finally:
+            for k, val in saved.items():
+                setattr(fwn, k, val)
+        routes[name] = wavs_r
+        out["routes"][name] = {"ms": wall, "walls_ms": walls,
+                               "launches": {k: v for k, v in counts.items()
+                                            if v}}
+    wavs = routes["int8"]
     for i, (w, f) in enumerate(zip(wavs, frames)):
         check(w.shape == (f * hop,) and bool(np.all(np.isfinite(w))),
               f"row {i}: shape {w.shape} or non-finite values")
         z = np.random.RandomState(SEED + i).randn(pad * hop)[: f * hop]
         check(np.abs(w - z * cfg.train.temp).max() > 1e-2,
               f"row {i} equals its input noise")
-    fwn.PAIR_KERNEL_INT8 = False
-    try:
-        wavs_d, wall_d, walls_d, counts_d = run(
-            "FWN_INT8=0", on, {"pair_flow": 12, "pair_flow_i8": 0})
-    finally:
-        fwn.PAIR_KERNEL_INT8 = True
-    out["launches"] = counts_d["pair_flow"]
-    out["wall_ms"], out["walls_ms"] = wall_d, walls_d
-    wavs_p, wall_p, walls_p, _ = run("plain", off,
-                                     {"pair_flow": 0, "pair_flow_i8": 0})
+    wavs_p, wall_p, walls_p, _ = run("plain", off, {})
     out["wall_ms_plain"], out["walls_ms_plain"] = wall_p, walls_p
-    for name, ws in (("int8", wavs), ("FWN_INT8=0", wavs_d)):
+    for name, ws in routes.items():
         _, rel, corr = _errors(np.concatenate(ws), np.concatenate(wavs_p))
         print(f"{name} route vs plain route: rel {rel:.4e} corr {corr:.6f}",
               flush=True)
+        out["routes"][name].update(rel_to_plain=rel, corr_to_plain=corr)
         check(rel < 0.08 and corr > 0.998, (name, rel, corr))
-    out["khz_per_s_i8"] = samples / wall
+    out["khz_per_s_i8"] = samples / out["routes"]["int8"]["ms"]
+    out["loaded"] = loaded
+    return out
+
+
+SERVE_FRAMES = (180, 205, 231, 262, 289, 301, 322, 345)   # 8 requests
+STREAM_FRAMES = 800
+
+
+def _post(port: int, path: str, mel, seed: int, first_byte=None):
+    """POST one mel as .npy; returns (status, headers, body, seconds to the
+    first body byte, total seconds)."""
+    import io
+    from http.client import HTTPConnection
+    buf = io.BytesIO()
+    np.save(buf, mel)
+    body = buf.getvalue()
+    t0 = time.perf_counter()
+    c = HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("POST", path, body=body, headers={
+        "Content-Length": str(len(body)), "X-Seed": str(seed)})
+    r = c.getresponse()
+    head = r.read(45)                 # the WAV header and one more byte
+    t_first = time.perf_counter() - t0
+    rest = r.read()
+    return (r.status, dict(r.getheaders()), head + rest, t_first,
+            time.perf_counter() - t0)
+
+
+def _post_all(port: int, reqs):
+    """POST (mel, seed) pairs concurrently to /synthesize."""
+    import threading
+    out = [None] * len(reqs)
+
+    def go(i, mel, seed):
+        out[i] = _post(port, "/synthesize", mel, seed)
+
+    ts = [threading.Thread(target=go, args=(i, m, s_))
+          for i, (m, s_) in enumerate(reqs)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(all(o is not None and o[0] == 200 for o in out),
+          ("serving status", [o and o[0] for o in out]))
+    return out, wall
+
+
+def _pcm(wav_bytes) -> np.ndarray:
+    return np.frombuffer(wav_bytes[44:], "<i2")
+
+
+def serving_phase(loaded, cfg, dev):
+    """Phase 6: the HTTP service on the card, lj22k, bf16, the FWN_INT8=0
+    route (Winograd blocks 0-2, direct block 3, plain blocks 4-7), device
+    noise and pcm16 (the service's defaults).  Server A (the defaults,
+    max_batch 16, 10 ms window): a warm-up round, then 8 concurrent
+    /synthesize requests of 180-345 frames with distinct X-Seed (lengths
+    checked; requests/s, p50/p90 latency) and one /synthesize_stream of 800
+    frames (time to the first audio byte; held against the one-shot audio
+    of the same host noise).  Server B (max_batch 4, a 5 s window, so 4
+    requests posted together land in one drain, checked with /stats): 4
+    requests of one bucket (301-345 frames, padded to 360), then the first
+    again beside 3 other companions of that bucket: its bytes must be
+    identical.  Then synthesize_time_parallel, rows_per_pass 8: with host
+    noise against stream_reverse of the same mel, with device noise (and
+    pcm16) against a one-shot reverse of the same positional noise."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.serving.server import serve
+    from flowavenet_tpu_torch.synthesis import streaming
+    from flowavenet_tpu_torch.synthesis.noise import frame_noise
+    from flowavenet_tpu_torch.synthesis.synthesize import (pcm16_quantize,
+                                                           synthesize_mels)
+
+    hop, rate = cfg.audio.hop_size, cfg.audio.sample_rate
+    rng = np.random.RandomState(SEED + 1)
+
+    def mel(frames):
+        return rng.rand(frames, cfg.audio.num_mels).astype(np.float32)
+
+    def start(**kw):
+        httpd = serve(loaded, cfg, port=0, device=dev, **kw)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return httpd, httpd.server_address[1]
+
+    def stats(port):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats") as r:
+            return _json.loads(r.read())
+
+    out = {}
+    saved = fwn.PAIR_KERNEL_INT8
+    fwn.PAIR_KERNEL_INT8 = False
+    httpd_a = httpd_b = None
+    torch.cuda.synchronize()
+    for k in pf.LAUNCHES:
+        pf.LAUNCHES[k] = 0
+    try:
+        httpd_a, port = start()
+        reqs = [(mel(f), 1000 + i) for i, f in enumerate(SERVE_FRAMES)]
+        _post_all(port, reqs)                       # warm-up round
+        res, wall = _post_all(port, [(m, s_ + 100) for m, s_ in reqs])
+        for (m, _), r in zip(reqs, res):
+            check(len(_pcm(r[2])) == m.shape[0] * hop
+                  and int(r[1]["Content-Length"]) == len(r[2]),
+                  ("served length", m.shape, len(r[2])))
+        lat = sorted(r[4] * 1e3 for r in res)
+        out["serve_requests_per_s"] = len(res) / wall
+        out["serve_audio_s_per_s"] = sum(SERVE_FRAMES) * hop / rate / wall
+        out["serve_p50_ms"] = float(np.percentile(lat, 50))
+        out["serve_p90_ms"] = float(np.percentile(lat, 90))
+        out["serve_latencies_ms"] = lat
+        s_mel = mel(STREAM_FRAMES)
+        st = _post(port, "/synthesize_stream", s_mel, 7)
+        check(st[0] == 200 and int(st[1]["Content-Length"]) == len(st[2])
+              and len(_pcm(st[2])) == STREAM_FRAMES * hop,
+              ("stream", st[0], len(st[2])))
+        out["stream_first_byte_ms"] = st[3] * 1e3
+        out["stream_total_ms"] = st[4] * 1e3
+        a_stats = stats(port)
+        one = synthesize_mels(loaded, cfg, [s_mel], seed=7, bucket_frames=1,
+                              device=dev)[0]
+        one16 = np.clip(np.rint(one * 32768.0), -32768, 32767)
+        _, rel, corr = _errors(_pcm(st[2]).astype(np.float32),
+                               one16.astype(np.float32))
+        out["stream_vs_one_shot"] = {"rel": rel, "corr": corr}
+        print(f"serving: {out['serve_requests_per_s']:.2f} requests/s, "
+              f"{out['serve_audio_s_per_s']:.2f} s of audio per s, p50 "
+              f"{out['serve_p50_ms']:.1f} ms, p90 {out['serve_p90_ms']:.1f}"
+              f" ms (8 concurrent requests); stream of {STREAM_FRAMES} "
+              f"frames: first byte {out['stream_first_byte_ms']:.1f} ms, "
+              f"all {out['stream_total_ms']:.1f} ms; streamed vs one-shot "
+              f"rel {rel:.4e} corr {corr:.6f}; stats {a_stats}", flush=True)
+        check(rel < 0.08 and corr > 0.998, ("stream vs one-shot", rel, corr))
+
+        httpd_b, port_b = start(max_batch=4, batch_window_ms=5000.0)
+        same = [(mel(f), 2000 + i) for i, f in enumerate((301, 322, 345, 340))]
+        first, _ = _post_all(port_b, same)
+        s1 = stats(port_b)
+        others = [same[0]] + [(mel(f), 3000 + i)
+                              for i, f in enumerate((310, 333, 303))]
+        second, _ = _post_all(port_b, others)
+        s2 = stats(port_b)
+        check(s1["dispatches"] == 1 and s1["max_dispatch_rows_seen"] == 4
+              and s2["dispatches"] == 2, ("one drain per 4", s1, s2))
+        check(first[0][2] == second[0][2],
+              "re-served request differs in its pow2 batch and bucket")
+        out["composition_identical"] = True
+        print(f"serving: batch composition: 4 + 4 requests in 2 dispatches "
+              f"of 4 rows, the re-served request bit-identical", flush=True)
+
+        tp_mel = mel(STREAM_FRAMES)
+        t0 = time.perf_counter()
+        tpar = streaming.synthesize_time_parallel(
+            loaded, cfg, tp_mel, seed=9, rows_per_pass=8, device=dev)
+        torch.cuda.synchronize()
+        t_tp = time.perf_counter() - t0
+        ser = streaming.synthesize_streaming(loaded, cfg, tp_mel, seed=9,
+                                             device=dev)
+        _, rel_h, corr_h = _errors(tpar, ser)
+        t0 = time.perf_counter()
+        tdev = streaming.synthesize_time_parallel(
+            loaded, cfg, tp_mel, seed=9, rows_per_pass=8, noise="device",
+            pcm16=True, device=dev)
+        t_tpd = time.perf_counter() - t0
+        with torch.no_grad():
+            z = frame_noise(9, [0], [cfg.train.temp], STREAM_FRAMES, hop,
+                            device=dev)
+            c = torch.from_numpy(tp_mel)[None].to(dev, torch.bfloat16)
+            ref = pcm16_quantize(fwn.reverse(
+                loaded, cfg.model, z.to(torch.bfloat16), c,
+                compute_dtype=torch.bfloat16))[0, :, 0].cpu().numpy()
+        _, rel_d, corr_d = _errors(tdev.astype(np.float32),
+                                   ref.astype(np.float32))
+        out["time_parallel"] = {"ms_host_noise": t_tp * 1e3,
+                                "ms_device_noise_pcm16": t_tpd * 1e3,
+                                "vs_stream": {"rel": rel_h, "corr": corr_h},
+                                "device_noise_vs_one_shot": {
+                                    "rel": rel_d, "corr": corr_d}}
+        print(f"time-parallel ({STREAM_FRAMES} frames, 8 rows per pass): "
+              f"host noise {t_tp * 1e3:.1f} ms, vs stream rel {rel_h:.4e} "
+              f"corr {corr_h:.6f}; device noise + pcm16 {t_tpd * 1e3:.1f} "
+              f"ms, vs one-shot of the same noise rel {rel_d:.4e} corr "
+              f"{corr_d:.6f}", flush=True)
+        check(tdev.dtype == np.int16 and tdev.shape == ref.shape,
+              ("time-parallel pcm16", tdev.dtype, tdev.shape))
+        check(rel_h < 0.08 and corr_h > 0.998, ("tp vs stream", rel_h,
+                                                corr_h))
+        check(rel_d < 0.08 and corr_d > 0.998, ("tp device noise", rel_d,
+                                                corr_d))
+        torch.cuda.synchronize()
+        out["serve_launches"] = {k: v for k, v in pf.LAUNCHES.items() if v}
+        print(f"serving phase launches: {out['serve_launches']}", flush=True)
+        check(out["serve_launches"].get("pair_flow_wino", 0) > 0
+              and out["serve_launches"].get("pair_flow", 0) > 0
+              and set(out["serve_launches"]) == {"pair_flow_wino",
+                                                 "pair_flow"},
+              ("serving launches", out["serve_launches"]))
+    finally:
+        fwn.PAIR_KERNEL_INT8 = saved
+        for h in (httpd_a, httpd_b):
+            if h is not None:
+                h.shutdown()
+                h.service.close()
     return out
 
 
@@ -651,8 +1013,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; card: {smi}", flush=True)
-    # phase 1: both sources at once, one nvcc each
-    libs = ("pair_flow", "pair_flow_train")
+    # phase 1: all three sources at once, one nvcc each
+    libs = ("pair_flow", "pair_flow_wino", "pair_flow_train")
     t0 = time.perf_counter()
     _build.build_all(libs)
     print(f"build {' + '.join(libs)} in parallel: "
@@ -670,8 +1032,13 @@ def main() -> int:
     B, T = len(FRAMES), padded_frames(max(FRAMES), cfg) * cfg.audio.hop_size
     # phase 2: blocks 0-4 take the int8 kernel, blocks 0-3 the bf16 one
     rows = kernel_checks(params, cfg, B, T, range(5), dev)
-    # phase 3: synthesis, the first slice's main path
+    # phase 2b: the Winograd, hoisted and int8 res/skip pairs
+    vrows = variant_checks(params, cfg, B, T, dev)
+    # phase 3: synthesis on every route, the first slice's main path
     main_out = main_path(params, cfg, dev, FRAMES)
+    # phase 6 (run here, on the loaded bf16 params): serving, this slice's
+    # main path
+    serve_out = serving_phase(main_out.pop("loaded"), cfg, dev)
     # phase 4: the training kernels at the training geometry of blocks 0-3
     tB, tT = cfg.data.batch_size, cfg.data.max_time_steps
     trows = train_kernel_checks(params, cfg, tB, tT, range(4), dev)
@@ -715,10 +1082,40 @@ def main() -> int:
                 "library_ms": None}
 
     n_tr = tr["n_route"] // (cfg.model.n_flow // 2)
+    launches = {}
+    for r in main_out["routes"].values():
+        for k, v in r["launches"].items():
+            launches[k] = max(launches.get(k, 0), v)
+
+    def ventry(name, src_line, mode, source="pair_flow.cu"):
+        """Per reverse on its route: the sum over the routed blocks' pairs
+        (3 per block)."""
+        sel = [r for r in vrows if r["name"] == name and r["mode"] == mode]
+        n_pair = cfg.model.n_flow // 2
+        e = {"name": name, "route": "cuda",
+             "source": f"flowavenet_tpu_torch/ops/csrc/{source}",
+             "replaces": f"flowavenet_tpu/ops/pallas_flow.py:{src_line}",
+             "launches": launches.get(name, 0),
+             "max_abs_err": max(r["max_abs_err"] for r in sel),
+             "ms": n_pair * sum(r["ms"] for r in sel),
+             "plain_ms": n_pair * sum(r["plain_ms"] for r in sel),
+             "bound_ms": n_pair * sum(r["bound_ms"] for r in sel),
+             "bound_by": "operations" if all(
+                 r["bound_by"] == "operations" for r in sel) else "bytes",
+             "library_ms": None}
+        if sel[0]["hoist_ms"] is not None:
+            e["hoist_matmul_ms"] = n_pair * sum(r["hoist_ms"] for r in sel)
+        return e
+
     kernels = [
-        entry("pair_flow", "bf16", 410, main_out["launches"], range(4)),
-        entry("pair_flow_i8", "int8", 514, main_out["launches_i8"],
+        entry("pair_flow", "bf16", 410, launches["pair_flow"], range(3, 4)),
+        entry("pair_flow_i8", "int8", 514, launches["pair_flow_i8"],
               range(5)),
+        ventry("pair_flow_i8rs", 546, "int8"),
+        ventry("pair_flow_hoisted", 591, "bf16"),
+        ventry("pair_flow_hoisted_i8", 575, "int8"),
+        ventry("pair_flow_wino", 1279, "bf16", "pair_flow_wino.cu"),
+        ventry("pair_flow_wino4", 1279, "bf16", "pair_flow_wino.cu"),
         tentry("pair_fwd", "flowavenet_tpu/ops/pallas_flow.py:1565", "pfw",
                "pfw_err", tr["eval"]["fwd_kernel"]["launches"], range(4)),
         tentry("pair_train_fwd",
@@ -732,13 +1129,18 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels),
           ("a kernel of the main paths was never launched", kernels))
     rk, rp = tr["routes"]["kernel"], tr["routes"]["plain"]
+    routes = main_out["routes"]
     print(json.dumps({"main_path": {
+        **{k: v for k, v in serve_out.items()},
         "khz_per_s_int8_route": main_out["khz_per_s_i8"],
-        "reverse_ms_int8_route": main_out["wall_ms_i8"],
-        "reverse_ms_bf16_route": main_out["wall_ms"],
+        "reverse_ms_int8_route": routes["int8"]["ms"],
+        "reverse_ms_bf16_route": routes["FWN_INT8=0"]["ms"],
         "reverse_ms_plain_route": main_out["wall_ms_plain"],
-        "calls_ms_int8_route": main_out["walls_ms_i8"],
-        "calls_ms_bf16_route": main_out["walls_ms"],
+        "reverse_ms_by_route": {k: r["ms"] for k, r in routes.items()},
+        "route_agreement": {k: (r["rel_to_plain"], r["corr_to_plain"])
+                            for k, r in routes.items()},
+        "calls_ms_int8_route": routes["int8"]["walls_ms"],
+        "calls_ms_bf16_route": routes["FWN_INT8=0"]["walls_ms"],
         "calls_ms_plain_route": main_out["walls_ms_plain"],
         "train_step_ms_kernel_route": rk["ms"],
         "train_step_ms_plain_route": rp["ms"],

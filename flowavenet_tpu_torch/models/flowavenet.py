@@ -9,13 +9,21 @@ Scope: affine couplings, non-causal convs, n_layer == 2, even n_flow, no
 global conditioning, logs_clamp == 0 — the lj22k path.  Anything else
 raises ``NotImplementedError`` naming the JAX code path it would need.
 
-Synthesis routes (as in the JAX package):
+Synthesis routes, per block, as the JAX package's ``_pair_kernel_mode``
+picks them (``ops/pair_flow.py`` holds the pairs):
 * ``cfg.use_pallas=False``: the plain pair-scan on every block.
-* default (``FWN_INT8`` on): blocks with cc_half <= 1280 run the fused pair
-  (``ops/pair_flow.py``) with int8 fg convs and conditioning; deeper blocks
-  run the plain pair-scan with int8 conditioning 1x1s.
-* ``FWN_INT8=0``: blocks with cc_half <= 640 run the fused pair in the
-  compute dtype; deeper blocks run the plain pair-scan.
+* ``int8`` (``FWN_INT8`` on, the default; cc_half <= 1280 unless
+  ``FWN_MAX_CC``): the fused pair with int8 fg convs and conditioning
+  (``FWN_INT8_RS=1``: also int8 res/skip);
+* ``wino`` / ``wino4`` (``FWN_WINO``, on; cc_half <= ``FWN_WINO_MAX_CC``,
+  320, where int8 does not route): the Winograd F(2,3) / F(4,3) pair;
+* ``direct`` (cc_half <= 640 unless ``FWN_MAX_CC``): the fused pair in the
+  compute dtype;
+* ``hoisted`` (``FWN_HOISTED=1``, wider blocks): one matmul per c half for
+  all pairs' conditioning, then the hoisted-conditioning pair (int8 fg
+  convs with ``FWN_INT8``);
+* otherwise the plain pair-scan, with int8 conditioning 1x1s on the int8
+  route.
 
 Forward (likelihood) routes, per block, in this order:
 * ``FWN_TRAIN_KERNEL=1`` and cc_half <= ``FWN_TRAIN_MAX_CC`` (80): the
@@ -45,6 +53,7 @@ from ..ops.conv import quantize_act
 from ..ops.squeeze import (change_order, squeeze, squeeze_level_cond_perm,
                            squeeze_to_level, unsqueeze)
 from ..utils import flags as _flags
+from ..utils.device import constant
 from ..utils.tree import leaves, rebuild, tree_map
 from .modules import apply_wavenet, init_wavenet
 from .upsample import apply_upsample, init_upsample
@@ -54,6 +63,12 @@ LOG_2PI = math.log(2.0 * math.pi)
 # Live routing switches (tests flip them at runtime, as in the JAX
 # package).
 PAIR_KERNEL_INT8 = _flags.INT8
+PAIR_KERNEL_WINO = _flags.WINO
+PAIR_KERNEL_WINO4 = _flags.WINO4
+PAIR_KERNEL_WINO_MAX_CC = _flags.WINO_MAX_CC
+PAIR_KERNEL_MAX_CC = _flags.MAX_CC or None
+PAIR_KERNEL_HOISTED = _flags.HOISTED
+INT8_RS = _flags.INT8_RS
 TRAIN_KERNEL = _flags.TRAIN_KERNEL
 TRAIN_KERNEL_MAX_CC = _flags.TRAIN_MAX_CC
 PAIR_KERNEL_FWD = _flags.FWD_KERNEL
@@ -63,8 +78,11 @@ LOGS_HINGE_MARGIN = _flags.HINGE_MARGIN
 
 
 def _pair_max_cc() -> int:
-    """Conditioning-width bound of the fused pair route: 1280 int8, 640
-    otherwise (the JAX package's defaults)."""
+    """Conditioning-width bound of the fused pair routes: FWN_MAX_CC when
+    set, else 1280 int8 and 640 otherwise (the JAX package's
+    ``_pair_max_cc``)."""
+    if PAIR_KERNEL_MAX_CC is not None:
+        return PAIR_KERNEL_MAX_CC
     return 1280 if PAIR_KERNEL_INT8 else 640
 
 
@@ -277,7 +295,7 @@ def _permute_cond_rows(flows: dict, perm) -> dict:
         layer = dict(layer)
         for kk in ("filter_c", "gate_c"):
             v = layer[kk]["v"]
-            idx = torch.as_tensor(perm, device=v.device)
+            idx = constant(perm, v.device)
             layer[kk] = {**layer[kk], "v": v.index_select(v.dim() - 2, idx)}
         layers.append(layer)
     return {**flows, "coupling": {**coup, "layers": layers}}
@@ -316,11 +334,23 @@ def _check_scope(cfg: ModelConfig) -> None:
 
 
 def _pair_kernel_mode(cfg: ModelConfig, cc_half: int) -> Optional[str]:
-    """'int8' | 'direct' | None (the plain pair-scan), by conditioning
-    width and the live int8 switch."""
-    if not cfg.use_pallas or cc_half > _pair_max_cc():
+    """'int8' | 'wino' | 'wino4' | 'direct' | 'hoisted' | None (the plain
+    pair-scan), by conditioning width and the live switches, exactly as the
+    JAX package's ``_pair_kernel_mode`` (models/flowavenet.py:534-547)."""
+    eligible = (cfg.use_pallas and cfg.gin_channels <= 0 and cfg.affine
+                and not cfg.causal and cfg.n_layer == 2
+                and cfg.logs_clamp == 0.0)
+    if not eligible:
         return None
-    return "int8" if PAIR_KERNEL_INT8 else "direct"
+    if PAIR_KERNEL_INT8 and cc_half <= _pair_max_cc():
+        return "int8"
+    if PAIR_KERNEL_WINO and cc_half <= PAIR_KERNEL_WINO_MAX_CC:
+        return "wino4" if PAIR_KERNEL_WINO4 else "wino"
+    if cc_half <= _pair_max_cc():
+        return "direct"
+    if PAIR_KERNEL_HOISTED:
+        return "hoisted"
+    return None
 
 
 def block_reverse(p: dict, cfg: ModelConfig, x: torch.Tensor, c_halves,
@@ -331,7 +361,8 @@ def block_reverse(p: dict, cfg: ModelConfig, x: torch.Tensor, c_halves,
     free reshape views of the mel halves when ``cond_perm`` is given (the
     cond weight rows are permuted to match).  On the int8 fused-pair route
     they are int8 with per-row scales ``c_scales=(s_a, s_b)`` ([B, 1, 1]
-    each); on the int8 scan route they are ``(q, scale)`` pairs."""
+    each); on the int8 scan route they are ``(q, scale)`` pairs; the
+    Winograd and hoisted routes take them in the compute dtype."""
     if cond_perm is not None:
         p = {**p, "flows": _permute_cond_rows(p["flows"], cond_perm)}
     u, v = torch.chunk(x, 2, dim=2)
@@ -341,15 +372,43 @@ def block_reverse(p: dict, cfg: ModelConfig, x: torch.Tensor, c_halves,
     mode = _pair_kernel_mode(cfg, cc_half)
     pp = _pair_params(p)
     n_pair = cfg.n_flow // 2
-    if mode is not None:
+    dt = x.dtype
+    if mode == "hoisted":
+        # one matmul per c half for every pair's conditioning (K = Cc up to
+        # 10240), rounded to the compute dtype as the JAX package does
+        # (models/flowavenet.py:740-761); then one launch per pair
+        make = (pf.pair_reverse_operands_hoisted_int8 if PAIR_KERNEL_INT8
+                else pf.pair_reverse_operands_hoisted)
+        ops, we, wo = [], [], []
+        for i in range(n_pair):
+            o, (w_e, w_o) = make(_index(pp, i), dtype=dt)
+            ops.append(o)
+            we.append(w_e)
+            wo.append(w_o)
+        pw = we[0].shape[-1]                  # n_layer * 2R per pair
+
+        ce = torch.matmul(c_a, torch.cat(we, -1))
+        co = torch.matmul(c_b, torch.cat(wo, -1))
+        for i in reversed(range(n_pair)):
+            sl = slice(i * pw, (i + 1) * pw)
+            u, v = pf.fused_pair_reverse(
+                u, v, ce[..., sl].contiguous(), co[..., sl].contiguous(),
+                ops[i], int8=PAIR_KERNEL_INT8, hoisted=True)
+    elif mode in ("wino", "wino4"):
+        make = (pf.pair_reverse_operands_wino4 if mode == "wino4"
+                else pf.pair_reverse_operands_wino)
+        for i in reversed(range(n_pair)):
+            u, v = pf.fused_pair_reverse_wino(u, v, c_a, c_b,
+                                              make(_index(pp, i), dtype=dt))
+    elif mode is not None:
         int8 = mode == "int8"
         crs = None
         if int8:
             crs = torch.cat([s.float().reshape(-1, 1) for s in c_scales], 1)
-        make_ops = (pf.pair_reverse_operands_int8 if int8
-                    else pf.pair_reverse_operands)
         for i in reversed(range(n_pair)):
-            ops = make_ops(_index(pp, i), dtype=x.dtype)
+            pair = _index(pp, i)
+            ops = (pf.pair_reverse_operands_int8(pair, dtype=dt, rs=INT8_RS)
+                   if int8 else pf.pair_reverse_operands(pair, dtype=dt))
             u, v = pf.fused_pair_reverse(u, v, c_a, c_b, ops, int8=int8,
                                          c_row_scales=crs)
     else:
@@ -385,7 +444,8 @@ def reverse(params: dict, cfg: ModelConfig, z: torch.Tensor,
     takes its conditioning as a free reshape view of those halves, with
     the cond weight rows permuted to match.  On the int8 routes the halves
     are quantized once, with one scale per batch row, and shared by every
-    block."""
+    int8 block; the Winograd and hoisted blocks take the unquantized
+    halves, as in the JAX package (models/flowavenet.py:1072-1108)."""
     _check_scope(cfg)
     _check_shapes(cfg, z, c)
     z = z.to(compute_dtype)
@@ -410,7 +470,7 @@ def reverse(params: dict, cfg: ModelConfig, z: torch.Tensor,
         if q8 is not None and mode == "int8":
             c_halves = (lvl(q8[0][0]), lvl(q8[1][0]))
             c_scales = (q8[0][1], q8[1][1])
-        elif q8 is not None:
+        elif q8 is not None and mode is None:
             c_halves = ((lvl(q8[0][0]), q8[0][1]), (lvl(q8[1][0]), q8[1][1]))
         else:
             c_halves = (lvl(c_lo), lvl(c_hi))

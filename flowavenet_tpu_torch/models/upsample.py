@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv import he_uniform
+from ..utils.device import constant
 
 _WN_EPS = 1e-12
 
@@ -53,12 +54,12 @@ def _dense_upsample(x: torch.Tensor, kern: torch.Tensor, s: int
     D = len(offsets)
     B, H, W = x.shape
     kpad = torch.cat([kern, kern.new_zeros(1, 3)], dim=0)
-    wsub = kpad[torch.as_tensor(idx, device=kern.device)]      # [s, D, 3]
+    wsub = kpad[constant(idx, kern.device)]                # [s, D, 3]
     # A[d, j, p, w] = wsub[p, d, u] where frame column j = w + 2 - u
     A = sum(torch.einsum(
         "pd,jw->djpw", wsub[:, :, u],
-        torch.as_tensor(np.eye(W + 2, W, k=u - 2), dtype=wsub.dtype,
-                        device=wsub.device)) for u in range(3))
+        constant(np.eye(W + 2, W, k=u - 2), wsub.device, wsub.dtype))
+        for u in range(3))
     A2 = A.reshape(D * (W + 2), s * W).to(x.dtype)
     d_lo, d_hi = -min(offsets), max(offsets)
     xp = F.pad(x, (1, 1, d_lo, d_hi))                      # [B, H+D-1, W+2]

@@ -2,8 +2,8 @@
 through ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/flowavenet_tpu_torch/lib<name>-
-<hash>.so`` beside the package (the hash covers the source and the flags,
-so an edited source rebuilds).  The sources expose a plain C interface;
+<hash>.so`` beside the package (the hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source rebuilds).  The sources expose a plain C interface;
 nothing here includes PyTorch's headers, which keeps a build to seconds.
 """
 
@@ -43,9 +43,11 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists."""
+    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists (the
+    hash covers the source, every header in ``csrc`` and the flags)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():

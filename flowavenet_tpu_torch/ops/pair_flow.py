@@ -1,8 +1,12 @@
-"""Fused reverse flow pair: operand folding, the plain tiled version, and
-the wrapper around the CUDA kernel ``csrc/pair_flow.cu``.
+"""Fused reverse flow pair: operand folding, the plain tiled versions, and
+the wrappers around the CUDA kernels ``csrc/pair_flow.cu`` and
+``csrc/pair_flow_wino.cu``.
 
-Twin of ``flowavenet_tpu/ops/pallas_flow.py`` (``_pair_kernel`` and
-``_pair_kernel_i8`` through ``fused_pair_reverse``).  One pair applies
+Twin of ``flowavenet_tpu/ops/pallas_flow.py``: ``_pair_kernel``,
+``_pair_kernel_i8``, ``_pair_kernel_i8rs``, ``_pair_kernel_hoisted`` and
+``_pair_kernel_hoisted_i8`` through :func:`fused_pair_reverse`, and
+``_pair_kernel_wino`` (F(2,3) and F(4,3)) through
+:func:`fused_pair_reverse_wino`.  One pair applies
 
     u <- u * exp(log_s(v; odd)) + t(v; odd)       coupling (odd flow)
     v <- v * sA - bA ; u <- u * sB - bB           ActNorm reverse (odd)
@@ -10,10 +14,10 @@ Twin of ``flowavenet_tpu/ops/pallas_flow.py`` (``_pair_kernel`` and
     u <- u * sC - bC ; v <- v * sD - bD           ActNorm reverse (even)
 
 over time tiles plus a halo, where each (log_s, t) is a WaveNet coupling
-net.  :func:`pair_reverse_ref` is the plain PyTorch version of exactly
-that tiled math (tile, halo, edge masks, per-window int8 scales, cast
-points); :func:`fused_pair_reverse` runs it for CPU tensors and launches
-the kernel for CUDA tensors.
+net.  :func:`pair_reverse_ref` and :func:`pair_reverse_wino_ref` are the
+plain PyTorch versions of exactly that tiled math (tile, halo, edge masks,
+per-window int8 scales, Winograd groups, cast points); the wrappers run
+them for CPU tensors and launch the kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -33,17 +37,30 @@ KERNEL_HALO = 10
 SQRT_HALF = 0.7071067811865476
 
 # Launches of the CUDA kernels, by name; each wrapper adds one per launch.
-# pair_flow* are the reverse pair (csrc/pair_flow.cu); pair_fwd,
-# pair_train_fwd and pair_train_bwd the forward and training pairs
-# (csrc/pair_flow_train.cu, ops/pair_flow_train.py).
-LAUNCHES = {"pair_flow": 0, "pair_flow_i8": 0, "pair_fwd": 0,
+# pair_flow* are the reverse pair (csrc/pair_flow.cu; pair_flow_wino[4] in
+# csrc/pair_flow_wino.cu); pair_fwd, pair_train_fwd and pair_train_bwd the
+# forward and training pairs (csrc/pair_flow_train.cu,
+# ops/pair_flow_train.py).
+LAUNCHES = {"pair_flow": 0, "pair_flow_i8": 0, "pair_flow_i8rs": 0,
+            "pair_flow_hoisted": 0, "pair_flow_hoisted_i8": 0,
+            "pair_flow_wino": 0, "pair_flow_wino4": 0, "pair_fwd": 0,
             "pair_train_fwd": 0, "pair_train_bwd": 0}
 
 
-def kernel_t_tile(dtype: torch.dtype) -> int:
-    """Output rows per CTA: 64 in bf16; 32 in fp32, whose shared-memory
-    buffers are twice as wide."""
-    return 32 if dtype == torch.float32 else 64
+def kernel_t_tile(dtype: torch.dtype, r_in: int = 1) -> int:
+    """Output rows per CTA of the direct pair: 64 in bf16, 32 in fp32
+    (twice as wide shared-memory buffers); halved for R_in > 32 (the deep
+    blocks' u/v windows)."""
+    tt = 32 if dtype == torch.float32 else 64
+    return tt if r_in <= 32 else tt // 2
+
+
+def wino_t_tile(dtype: torch.dtype, phases: int) -> int:
+    """Output rows per CTA of the Winograd pair, a multiple of the phase
+    count: the window is the tile plus 2 * phases rows per side."""
+    if dtype == torch.float32:
+        return 48 if phases == 6 else 24
+    return 72 if phases == 6 else 60
 
 
 # ---------------------------------------------------------------------------
@@ -129,15 +146,102 @@ def _quant_w(w: torch.Tensor, reduce_dims: tuple):
     return wq, scale
 
 
-def pair_reverse_operands_int8(pair: dict, dtype=torch.bfloat16) -> tuple:
+def pair_reverse_operands_int8(pair: dict, dtype=torch.bfloat16,
+                               rs: bool = False) -> tuple:
     """Operands for the int8 kernel: the 15 of :func:`pair_reverse_operands`
     with kfg [2, nl, 3, R, 2R] and cond_w [2, nl, Cc, 2R] quantized to int8
     (after the cast to ``dtype``), plus their per-(flow, layer, out-channel)
-    scales kfg_scale and cond_scale appended."""
+    scales kfg_scale and cond_scale appended.  ``rs`` (the FWN_INT8_RS
+    route, ``_pair_kernel_i8rs``) also quantizes res_w [2, R, R] and skip_w
+    [2, nl, R, R] and appends res_scale [2, R] and skip_scale [2, nl, R]:
+    19 operands."""
     ops = list(pair_reverse_operands(pair, dtype))
     ops[2], s_fg = _quant_w(ops[2], (2, 3))
     ops[3], s_c = _quant_w(ops[3], (2,))
-    return tuple(ops) + (s_fg, s_c)
+    scales = [s_fg, s_c]
+    if rs:
+        ops[5], s_r = _quant_w(ops[5], (1,))
+        ops[7], s_s = _quant_w(ops[7], (2,))
+        scales += [s_r, s_s]
+    return tuple(ops) + tuple(scales)
+
+
+def pair_reverse_operands_hoisted(pair: dict, dtype=torch.bfloat16):
+    """Operands for the hoisted-conditioning pair (``_pair_kernel_hoisted``):
+    returns (operands, (w_even, w_odd)), where ``operands`` are the 15 of
+    :func:`pair_reverse_operands` without cond_w (14) and w_flow is the
+    [Cc, n_layer*2R] hoist weight (layer 0 || layer 1 on the output axis),
+    applied as ``c_half @ w_flow`` outside the kernel."""
+    ops = list(pair_reverse_operands(pair, dtype))
+    cond_w = ops.pop(3)                        # [2(flow), n_layer, Cc, 2R]
+    hoist = torch.cat([cond_w[:, l] for l in range(cond_w.shape[1])], -1)
+    return tuple(ops), (hoist[0], hoist[1])
+
+
+def pair_reverse_operands_hoisted_int8(pair: dict, dtype=torch.bfloat16):
+    """Hoisted operands with int8 fg convs only (``_pair_kernel_hoisted_i8``):
+    kfg quantized per (flow, layer, out-channel) and kfg_scale appended
+    (15 operands); res/skip/final and the hoist weights stay in
+    ``dtype``."""
+    ops, hoist = pair_reverse_operands_hoisted(pair, dtype)
+    ops = list(ops)
+    ops[2], s = _quant_w(ops[2], (2, 3))
+    return tuple(ops) + (s,), hoist
+
+
+def _wino_weights(w: torch.Tensor) -> torch.Tensor:
+    """F(2,3) G-transform of 3-tap kernels: [..., 3, Cin, Cout] ->
+    [..., 4, Cin, Cout] with U = (W0, (W0+W1+W2)/2, (W0-W1+W2)/2, W2)."""
+    w0, w1, w2 = w[..., 0, :, :], w[..., 1, :, :], w[..., 2, :, :]
+    return torch.stack([w0, (w0 + w1 + w2) * 0.5, (w0 - w1 + w2) * 0.5, w2],
+                       dim=-3)
+
+
+def _wino4_weights(w: torch.Tensor) -> torch.Tensor:
+    """F(4,3) G-transform (Lavin & Gray): [..., 3, Cin, Cout] ->
+    [..., 6, Cin, Cout]."""
+    w0, w1, w2 = w[..., 0, :, :], w[..., 1, :, :], w[..., 2, :, :]
+    return torch.stack([
+        w0 * 0.25,
+        (-w0 - w1 - w2) * (1.0 / 6.0),
+        (-w0 + w1 - w2) * (1.0 / 6.0),
+        w0 * (1.0 / 24.0) + w1 * (1.0 / 12.0) + w2 * (1.0 / 6.0),
+        w0 * (1.0 / 24.0) - w1 * (1.0 / 12.0) + w2 * (1.0 / 6.0),
+        w2,
+    ], dim=-3)
+
+
+# operand indices of the weights cast to the storage dtype (the rest are
+# fp32 biases, ActNorm halves and scales)
+_WEIGHT_OPERANDS = (0, 2, 3, 5, 7, 9, 11)
+
+
+def pair_reverse_operands_wino(pair: dict, dtype=torch.bfloat16) -> tuple:
+    """Like :func:`pair_reverse_operands` with the fg conv kernels
+    G-transformed for F(2,3): kfg becomes [2, n_layer, 4, R, 2R].  The
+    transform runs in fp32 (the 0.5 factors are exact); weights are cast to
+    ``dtype`` after, biases stay fp32."""
+    ops = list(pair_reverse_operands(pair, dtype=torch.float32))
+    ops[2] = _wino_weights(ops[2])
+    return tuple(o.to(dtype) if i in _WEIGHT_OPERANDS else o
+                 for i, o in enumerate(ops))
+
+
+def pair_reverse_operands_wino4(pair: dict, dtype=torch.bfloat16,
+                                hoisted: bool = False):
+    """F(4,3) operands: kfg becomes [2, n_layer, 6, R, 2R] (G-transform in
+    fp32; the 1/6, 1/12, 1/24 factors round once into ``dtype``).
+    ``hoisted`` pops cond_w and returns (operands, (w_even, w_odd)) like
+    :func:`pair_reverse_operands_hoisted`."""
+    ops = list(pair_reverse_operands(pair, dtype=torch.float32))
+    ops[2] = _wino4_weights(ops[2])
+    ops = [o.to(dtype) if i in _WEIGHT_OPERANDS else o
+           for i, o in enumerate(ops)]
+    if not hoisted:
+        return tuple(ops)
+    cond_w = ops.pop(3)
+    hoist = torch.cat([cond_w[:, l] for l in range(cond_w.shape[1])], -1)
+    return tuple(ops), (hoist[0], hoist[1])
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +253,8 @@ def _windows(x: torch.Tensor, t_tile: int, n_t: int, halo: int
     """[B, T, C] -> [B*n_t, t_tile + 2*halo, C]; rows outside [0, T) are
     zeros."""
     B, T, C = x.shape
-    xp = F.pad(x.float(), (0, 0, halo, n_t * t_tile - T + halo))
+    x = x if x.dtype == torch.float64 else x.float()
+    xp = F.pad(x, (0, 0, halo, n_t * t_tile - T + halo))
     w = xp.unfold(1, t_tile + 2 * halo, t_tile)         # [B, n_t, C, L]
     return w.permute(0, 1, 3, 2).reshape(B * n_t, t_tile + 2 * halo, C)
 
@@ -175,11 +280,22 @@ def _int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), w.double()).float()
 
 
+def _gate_q8(fg: torch.Tensor) -> torch.Tensor:
+    """tanh(f)*sigmoid(g) as int8 codes (held in float) at the fixed scale
+    1/127 (the JAX ``_gated_q8``: |tanh*sigmoid| < 1, no max-abs pass)."""
+    r = fg.shape[-1] // 2
+    return torch.round(torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
+                       * 127.0)
+
+
 def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
-                  p0, T: int, w: dict, rnd, int8: bool, c_scale=None):
+                  p0, T: int, w: dict, rnd, int8: bool, c_scale=None,
+                  hoisted: bool = False, rs: bool = False):
     """One coupling net over windows, mirroring the JAX ``_coupling_net``:
     x_buf[:, j] holds position j - x_off relative to output row 0, whose
-    global position is p0 [N]; likewise c_buf with c_off."""
+    global position is p0 [N]; likewise c_buf with c_off.  ``hoisted``:
+    c_buf holds the precomputed conditioning pre-activations (layer 0 ||
+    layer 1).  ``rs``: res/skip on int8 gate codes (``_gated_q8``)."""
     wt = x_buf.dtype            # fp32 (fp64 for an fp64 reference run)
     def conv3(buf, wk, off, length, dil):
         acc = None
@@ -203,6 +319,9 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
 
     def cond(layer, off, length):
         tap = c_buf[:, off:off + length]
+        if hoisted:
+            w2r = tap.shape[-1] // 2
+            return tap[..., layer * w2r:(layer + 1) * w2r]
         if int8:
             return _int_dot(tap, w["cond_w"][layer]) * (
                 c_scale * w["cond_s"][layer])
@@ -220,16 +339,26 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
     fg0 = fg0 + cond(0, c_off - 3, l_g0)
     fg0 = fg0 + w["cond_b"][0]
     r = fg0.shape[-1] // 2
-    rs_w = torch.cat([w["res_w"], w["skip_w"][0]], -1).to(wt)
-    rs = torch.matmul(gate(fg0), rs_w)
-    res0 = rs[..., :r] + w["res_b"]
+    if rs:
+        rs_s = torch.cat([w["res_s"], w["skip_s"][0]], -1) * (1.0 / 127.0)
+        rsk = _int_dot(_gate_q8(fg0), torch.cat(
+            [w["res_w"], w["skip_w"][0]], -1)) * rs_s
+    else:
+        rs_w = torch.cat([w["res_w"], w["skip_w"][0]], -1).to(wt)
+        rsk = torch.matmul(gate(fg0), rs_w)
+    res0 = rsk[..., :r] + w["res_b"]
     h1 = rnd((h0[:, 1:1 + l_g0] + res0) * SQRT_HALF)
     h1 = _mask(h1, p0 - 3, T)
     fg1 = conv_fg(h1, 1, 3, out_len, 3)
     fg1 = fg1 + cond(1, c_off, out_len)
     fg1 = fg1 + w["cond_b"][1]
-    sk0 = rs[:, 3:3 + out_len, r:] + w["skip_b"][0]
-    sk1 = torch.matmul(gate(fg1), w["skip_w"][1].to(wt)) + w["skip_b"][1]
+    sk0 = rsk[:, 3:3 + out_len, r:] + w["skip_b"][0]
+    if rs:
+        sk1 = _int_dot(_gate_q8(fg1), w["skip_w"][1]) * (
+            w["skip_s"][1] * (1.0 / 127.0))
+    else:
+        sk1 = torch.matmul(gate(fg1), w["skip_w"][1].to(wt))
+    sk1 = sk1 + w["skip_b"][1]
     out = rnd(torch.relu(sk0 + sk1))
     out = rnd(torch.relu(torch.matmul(out, w["fin_w"].to(wt))
                          + w["fin_b"]))
@@ -240,9 +369,32 @@ _OP_NAMES = ("front_w", "front_b", "kfg", "cond_w", "cond_b", "res_w",
              "res_b", "skip_w", "skip_b", "fin_w", "fin_b", "zw", "zb")
 
 
+def _operand_names(n_ops: int, int8: bool, hoisted: bool) -> tuple:
+    """Names of a pair's operands, in order, for each operand family:
+    direct (15), int8 (17), int8 with int8 res/skip (19), hoisted (14),
+    hoisted int8 (15)."""
+    names = [n for n in _OP_NAMES if not (hoisted and n == "cond_w")]
+    names += ["an_s", "an_b"]
+    if int8:
+        names += ["kfg_s"] if hoisted else ["kfg_s", "cond_s"]
+        if n_ops == 19 and not hoisted:
+            names += ["res_s", "skip_s"]
+    if len(names) != n_ops:
+        raise ValueError(f"expected {len(names)} operands for int8={int8}, "
+                         f"hoisted={hoisted}; got {n_ops}")
+    return tuple(names)
+
+
+def _flow_weights(operands, names, fi: int, wt) -> dict:
+    """One flow's operands by name; int8 weights stay int8 (their products
+    are taken exactly), the rest in the working type ``wt``."""
+    return {n: o[fi] if o.dtype == torch.int8 else o[fi].to(wt)
+            for n, o in zip(names, operands)}
+
+
 def pair_reverse_ref(u, v, c_a, c_b, operands, *, t_tile: int,
                      halo: int = KERNEL_HALO, int8: bool = False,
-                     c_row_scales=None):
+                     c_row_scales=None, hoisted: bool = False):
     """Plain version of the fused pair: the same tiles (``t_tile`` output
     rows plus ``halo`` rows per side), edge masks, per-window int8 scales
     and cast points as the kernel.  On the card, run it with TF32 off
@@ -252,7 +404,11 @@ def pair_reverse_ref(u, v, c_a, c_b, operands, *, t_tile: int,
     each window's h0 / h1 buffer, so they depend on ``t_tile`` and
     ``halo``: (t_tile, 10) reproduces the CUDA kernel, (JAX tile, 16) the
     JAX kernel.  c_a/c_b are then int8 with per-row scales
-    ``c_row_scales`` [B, 2]."""
+    ``c_row_scales`` [B, 2]; 19 operands (``pair_reverse_operands_int8``
+    with ``rs``) also run res/skip on int8 gate codes.  With ``hoisted``
+    c_a/c_b are the precomputed conditioning pre-activations [B, T,
+    n_layer*2R] of the even / odd flow and ``operands`` come from
+    ``pair_reverse_operands_hoisted[_int8]``."""
     B, T, r_in = u.shape
     dt = u.dtype
     n_t = -(-T // t_tile)
@@ -260,36 +416,32 @@ def pair_reverse_ref(u, v, c_a, c_b, operands, *, t_tile: int,
     if halo < 10 or t_tile < 1:
         raise ValueError(f"need halo >= 10 and t_tile >= 1, got {halo}, "
                          f"{t_tile}")
+    names = _operand_names(len(operands), int8, hoisted)
+    rs = "res_s" in names
+    wt = torch.float64 if u.dtype == torch.float64 else torch.float32
 
     def rnd(x):
-        return x.to(dt).float()
+        return x.to(dt).to(wt)
 
-    uw, vw = _windows(u, t_tile, n_t, halo), _windows(v, t_tile, n_t, halo)
-    caw = _windows(c_a, t_tile, n_t, halo)
-    cbw = _windows(c_b, t_tile, n_t, halo)
+    def win(x):
+        return _windows(x, t_tile, n_t, halo).to(wt)
+
+    uw, vw, caw, cbw = win(u), win(v), win(c_a), win(c_b)
     p_win = ((torch.arange(n_t, device=u.device) * t_tile - halo)
              .repeat(B))                                 # [B*n_t]
-    crs = None
-    if int8:
-        crs = c_row_scales.float().repeat_interleave(n_t, dim=0)  # [N, 2]
-
-    def flow_w(fi):
-        # int8 weights stay int8 (their products are taken exactly)
-        w = {name: operands[i][fi] for i, name in enumerate(_OP_NAMES)}
-        w = {k: t if t.dtype == torch.int8 else t.float()
-             for k, t in w.items()}
-        if int8:
-            w["kfg_s"], w["cond_s"] = operands[15][fi], operands[16][fi]
-        return w
-
-    an_s, an_b = operands[13].float(), operands[14].float()
+    c_sc = [None, None]
+    if int8 and not hoisted:
+        crs = c_row_scales.to(wt).repeat_interleave(n_t, dim=0)  # [N, 2]
+        c_sc = [crs[:, 0, None, None], crs[:, 1, None, None]]
+    an_s, an_b = operands[names.index("an_s")], operands[names.index("an_b")]
+    an_s, an_b = an_s.to(wt), an_b.to(wt)
+    kw = dict(T=T, rnd=rnd, int8=int8, hoisted=hoisted, rs=rs)
 
     # odd flow over window rows [5, L-5)
     l_mid = L - 10
-    net = _coupling_net(
-        vw, cbw, x_off=5, c_off=5, out_len=l_mid, p0=p_win + 5, T=T,
-        w=flow_w(1), rnd=rnd, int8=int8,
-        c_scale=None if crs is None else crs[:, 1, None, None])
+    net = _coupling_net(vw, cbw, x_off=5, c_off=5, out_len=l_mid,
+                        p0=p_win + 5, w=_flow_weights(operands, names, 1, wt),
+                        c_scale=c_sc[1], **kw)
     log_s, t = net[..., :r_in], net[..., r_in:]
     u_mid = uw[:, 5:5 + l_mid] * torch.exp(log_s) + t
     v_an = vw[:, 5:5 + l_mid] * an_s[1, 0] - an_b[1, 0]
@@ -297,10 +449,10 @@ def pair_reverse_ref(u, v, c_a, c_b, operands, *, t_tile: int,
 
     # even flow over window rows [10, L-10)
     l_out = L - 20
-    net2 = _coupling_net(
-        u_mid, caw, x_off=5, c_off=10, out_len=l_out, p0=p_win + 10, T=T,
-        w=flow_w(0), rnd=rnd, int8=int8,
-        c_scale=None if crs is None else crs[:, 0, None, None])
+    net2 = _coupling_net(u_mid, caw, x_off=5, c_off=10, out_len=l_out,
+                         p0=p_win + 10,
+                         w=_flow_weights(operands, names, 0, wt),
+                         c_scale=c_sc[0], **kw)
     log_s2, t2 = net2[..., :r_in], net2[..., r_in:]
     v_new = v_an[:, 5:5 + l_out] * torch.exp(log_s2) + t2
     u_fin = u_mid[:, 5:5 + l_out] * an_s[0, 0] - an_b[0, 0]
@@ -310,6 +462,161 @@ def pair_reverse_ref(u, v, c_a, c_b, operands, *, t_tile: int,
     def untile(x):
         x = x[:, extra:extra + t_tile].reshape(B, n_t * t_tile, r_in)
         return x[:, :T].to(dt)
+    return untile(u_fin), untile(v_fin)
+
+
+# ---------------------------------------------------------------------------
+# Plain version of the Winograd pair (_pair_kernel_wino)
+# ---------------------------------------------------------------------------
+
+# (phases, dilation) -> (outputs per group, group starts within a period)
+_WINO_GROUPS = {(6, 1): (2, (0, 2, 4)), (6, 3): (2, (0, 1, 2)),
+                (12, 1): (4, (0, 4, 8)), (12, 3): (4, (0, 1, 2))}
+
+
+def _wino_in(d: list, rnd) -> list:
+    """Input transform B^T d in the storage type: each operation rounds, as
+    on the Pallas kernel's storage-type planes (pallas_flow.py:1105-1108,
+    :1129-1134)."""
+    if len(d) == 4:
+        return [rnd(d[0] - d[2]), rnd(d[1] + d[2]), rnd(d[2] - d[1]),
+                rnd(d[1] - d[3])]
+    return [
+        rnd(rnd(rnd(4.0 * d[0]) - rnd(5.0 * d[2])) + d[4]),
+        rnd(rnd(rnd(-4.0 * rnd(d[1] + d[2])) + d[3]) + d[4]),
+        rnd(rnd(rnd(4.0 * rnd(d[1] - d[2])) - d[3]) + d[4]),
+        rnd(rnd(rnd(rnd(-2.0 * d[1]) - d[2]) + rnd(2.0 * d[3])) + d[4]),
+        rnd(rnd(rnd(rnd(2.0 * d[1]) - d[2]) - rnd(2.0 * d[3])) + d[4]),
+        rnd(rnd(rnd(4.0 * d[1]) - rnd(5.0 * d[3])) + d[5]),
+    ]
+
+
+def _wino_out(m: list) -> list:
+    """Output transform A^T m in fp32."""
+    if len(m) == 4:
+        return [m[0] + m[1] + m[2], m[1] - m[2] - m[3]]
+    return [m[0] + m[1] + m[2] + m[3] + m[4],
+            m[1] - m[2] + 2.0 * (m[3] - m[4]),
+            m[1] + m[2] + 4.0 * (m[3] + m[4]),
+            m[1] - m[2] + 8.0 * (m[3] - m[4]) + m[5]]
+
+
+def _wino_conv(buf, buf0: int, U, out0: int, out_len: int, step: int,
+               P: int, rnd) -> torch.Tensor:
+    """Winograd 3-tap conv at dilation ``step`` over window rows [out0,
+    out0 + out_len) (both multiples of P; window row 0 has phase 0).
+    buf[:, i] holds window row buf0 + i; U: [K, Cin, Cout] G-transformed.
+    A group's outputs share its transformed taps, so groups follow absolute
+    position: F(2,3) d=1 (2j, 2j+1), d=3 (6j+r, 6j+r+3); F(4,3) d=1
+    4j..4j+3, d=3 (12j+r, +3, +6, +9)."""
+    m, starts = _WINO_GROUPS[P, step]
+    base = torch.tensor([out0 + P * j + r for j in range(out_len // P)
+                         for r in starts], device=buf.device)
+    d = [buf.index_select(1, base + (k - 1) * step - buf0)
+         for k in range(m + 2)]
+    mm = [torch.matmul(t, U[k].to(buf.dtype))
+          for k, t in enumerate(_wino_in(d, rnd))]
+    out = buf.new_empty(buf.shape[0], out_len, U.shape[-1])
+    for e, y in enumerate(_wino_out(mm)):
+        out[:, base + e * step - out0] = y
+    return out
+
+
+def _coupling_net_wino(x_buf, x_a: int, c_buf, *, a_h0: int, p_win, T: int,
+                       w: dict, rnd, P: int):
+    """Plain mirror of the JAX ``_coupling_net_wino`` in window rows (a
+    plane row a of the Pallas kernel is window row a*P): x_buf covers
+    window rows [x_a*P, L - x_a*P), c_buf the whole window, p_win [N] the
+    global position of window row 0.  h0 runs over region a_h0, layer 0
+    over a_h0 + 1, layer 1 and the output over a_h0 + 2."""
+    wt = x_buf.dtype
+    L = c_buf.shape[1]
+    s0, s1, s2 = a_h0 * P, (a_h0 + 1) * P, (a_h0 + 2) * P
+    L0, L1, L2 = L - 2 * s0, L - 2 * s1, L - 2 * s2
+
+    def gate(fg):
+        r = fg.shape[-1] // 2
+        return rnd(torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:]))
+
+    h0 = None
+    for k in range(3):
+        st = s0 - 1 + k - x_a * P
+        o = torch.matmul(x_buf[:, st:st + L0], w["front_w"][k])
+        h0 = o if h0 is None else h0 + o
+    h0 = _mask(rnd(torch.relu(h0 + w["front_b"])), p_win + s0, T)
+
+    fg0 = _wino_conv(h0, s0, w["kfg"][0], s1, L1, 1, P, rnd)
+    fg0 = fg0 + torch.matmul(c_buf[:, s1:s1 + L1], w["cond_w"][0])
+    fg0 = fg0 + w["cond_b"][0]
+    r = fg0.shape[-1] // 2
+    rsk = torch.matmul(gate(fg0),
+                       torch.cat([w["res_w"], w["skip_w"][0]], -1))
+    h1 = rnd((h0[:, P:P + L1] + rsk[..., :r] + w["res_b"]) * SQRT_HALF)
+    h1 = _mask(h1, p_win + s1, T)
+
+    fg1 = _wino_conv(h1, s1, w["kfg"][1], s2, L2, 3, P, rnd)
+    fg1 = fg1 + torch.matmul(c_buf[:, s2:s2 + L2], w["cond_w"][1])
+    fg1 = fg1 + w["cond_b"][1]
+    sk = (rsk[:, P:P + L2, r:] + w["skip_b"][0]
+          + torch.matmul(gate(fg1), w["skip_w"][1]) + w["skip_b"][1])
+    out = rnd(torch.relu(sk))
+    out = rnd(torch.relu(torch.matmul(out, w["fin_w"]) + w["fin_b"]))
+    return torch.matmul(out, w["zw"]) + w["zb"]
+
+
+def pair_reverse_wino_ref(u, v, c_a, c_b, operands, *, t_tile: int):
+    """Plain version of the Winograd pair (the JAX ``_pair_kernel_wino``
+    with ``n_pair = 1``, ``nb = 1``): ``operands`` from
+    :func:`pair_reverse_operands_wino` (F(2,3), P = 6) or
+    :func:`pair_reverse_operands_wino4` (F(4,3), P = 12).  Windows of
+    ``t_tile`` rows (a multiple of P) plus the JAX kernel's 6P-row halo;
+    every stage runs over the JAX kernel's plane-row regions, with its edge
+    masks and cast points.  The output does not depend on ``t_tile``: the
+    Winograd groups follow absolute position.  On the card, run it with
+    TF32 off."""
+    P = 6 if operands[2].shape[2] == 4 else 12
+    if t_tile % P or t_tile < P:
+        raise ValueError(f"t_tile={t_tile} must be a positive multiple of "
+                         f"{P}")
+    B, T, r_in = u.shape
+    dt = u.dtype
+    halo = 6 * P
+    n_t = -(-T // t_tile)
+    wt = torch.float64 if dt == torch.float64 else torch.float32
+
+    def rnd(x):
+        return x.to(dt).to(wt)
+
+    def win(x):
+        return _windows(x, t_tile, n_t, halo).to(wt)
+
+    uw, vw, caw, cbw = win(u), win(v), win(c_a), win(c_b)
+    L = uw.shape[1]
+    p_win = ((torch.arange(n_t, device=u.device) * t_tile - halo)
+             .repeat(B))
+    names = _operand_names(len(operands), False, False)
+    an_s = operands[13].to(wt)
+    an_b = operands[14].to(wt)
+
+    # odd flow: u' at region 3 (window rows [3P, L-3P))
+    net = _coupling_net_wino(vw, 0, cbw, a_h0=1, p_win=p_win, T=T,
+                             w=_flow_weights(operands, names, 1, wt),
+                             rnd=rnd, P=P)
+    s3 = 3 * P
+    u_mid = uw[:, s3:L - s3] * torch.exp(net[..., :r_in]) + net[..., r_in:]
+    u_mid = _mask(rnd(u_mid * an_s[1, 1] - an_b[1, 1]), p_win + s3, T)
+    # even flow: v' at region 6, the tile
+    net2 = _coupling_net_wino(u_mid, 3, caw, a_h0=4, p_win=p_win, T=T,
+                              w=_flow_weights(operands, names, 0, wt),
+                              rnd=rnd, P=P)
+    s6 = 6 * P
+    v_an = vw[:, s6:L - s6] * an_s[1, 0] - an_b[1, 0]
+    v_new = v_an * torch.exp(net2[..., :r_in]) + net2[..., r_in:]
+    v_fin = v_new * an_s[0, 1] - an_b[0, 1]
+    u_fin = u_mid[:, s3:s3 + t_tile] * an_s[0, 0] - an_b[0, 0]
+
+    def untile(x):
+        return x.reshape(B, n_t * t_tile, r_in)[:, :T].to(dt)
     return untile(u_fin), untile(v_fin)
 
 
@@ -326,33 +633,49 @@ def _pack_int8(wq: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    """The built kernel library, with every C signature declared."""
+def _library(name: str = "pair_flow"):
+    """The built kernel library ``pair_flow`` (direct pairs) or
+    ``pair_flow_wino``, with every C signature declared."""
     from . import _build
 
-    lib = _build.load("pair_flow")
+    lib = _build.load(name)
+    pre = "pair_reverse" if name == "pair_flow" else "pair_wino"
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-    lib.pair_reverse_threads.argtypes = []
-    lib.pair_reverse_threads.restype = c_int
-    lib.pair_reverse_smem_bytes.argtypes = [c_int] * 5
-    lib.pair_reverse_smem_bytes.restype = c_int
-    lib.pair_reverse_launch.argtypes = [c_int, c_int, c_ptr, c_ptr, c_ptr]
-    lib.pair_reverse_launch.restype = c_int
+    getattr(lib, f"{pre}_threads").argtypes = []
+    getattr(lib, f"{pre}_threads").restype = c_int
+    getattr(lib, f"{pre}_smem_bytes").argtypes = [c_int] * 5
+    getattr(lib, f"{pre}_smem_bytes").restype = c_int
+    getattr(lib, f"{pre}_launch").argtypes = [c_int, c_int, c_ptr, c_ptr,
+                                              c_ptr]
+    getattr(lib, f"{pre}_launch").restype = c_int
     return lib
 
 
-def _launch(u, v, c_a, c_b, operands, *, int8: bool, c_row_scales):
-    lib = _library()
+# the kernels' 19 operand slots, in order (absent ones are null pointers)
+_SLOTS = _OP_NAMES + ("an_s", "an_b", "kfg_s", "cond_s", "res_s", "skip_s")
+# direct-pair variant number and launch counter by (int8, rs, hoisted)
+_VARIANTS = {(False, False, False): (0, "pair_flow"),
+             (True, False, False): (1, "pair_flow_i8"),
+             (True, True, False): (2, "pair_flow_i8rs"),
+             (False, False, True): (3, "pair_flow_hoisted"),
+             (True, False, True): (4, "pair_flow_hoisted_i8")}
+
+
+def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
+            c_row_scales, phases: int = 0):
+    """Check the inputs and launch one pair kernel on the current stream:
+    the direct variants of csrc/pair_flow.cu (``phases`` 0) or the
+    Winograd pair of csrc/pair_flow_wino.cu (``phases`` 6 or 12)."""
     B, T, r_in = u.shape
     dt = u.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"pair kernel takes fp32 or bf16, got {dt}")
-    R = operands[5].shape[-1]
-    Cc = c_a.shape[-1]
-    n_ops = 17 if int8 else 15
-    if len(operands) != n_ops:
-        raise ValueError(f"expected {n_ops} operands, got {len(operands)}")
-    c_dt = torch.int8 if int8 else dt
+    names = _operand_names(len(operands), int8, hoisted)
+    rs = "res_s" in names
+    ops = dict(zip(names, operands))
+    R = ops["res_w"].shape[-1]
+    R2, Cc = 2 * R, c_a.shape[-1]
+    c_dt = torch.int8 if int8 and not hoisted else dt
     for name, x in (("u", u), ("v", v), ("c_a", c_a), ("c_b", c_b)):
         if not (x.is_cuda and x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
@@ -362,77 +685,115 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, c_row_scales):
                          f"{tuple(c_b.shape)}")
     if c_a.dtype != c_dt or c_b.dtype != c_dt or v.dtype != dt:
         raise TypeError(f"u/v must be {dt} and c {c_dt}")
-    threads = lib.pair_reverse_threads()
+    lib = _library("pair_flow_wino" if phases else "pair_flow")
+    pre = "pair_wino" if phases else "pair_reverse"
+    threads = getattr(lib, f"{pre}_threads")()
     if threads % R or Cc % 4 or R % 4:
         raise ValueError(f"kernel takes R dividing {threads} and Cc, R "
                          f"multiples of 4; got R={R}, Cc={Cc}")
-    R2 = 2 * R
-    want = [(2, 3, r_in, R), (2, R), (2, 2, 3, R, R2), (2, 2, Cc, R2),
-            (2, 2, R2), (2, R, R), (2, R), (2, 2, R, R), (2, 2, R),
-            (2, R, R), (2, R), (2, R, 2 * r_in), (2, 2 * r_in),
-            (2, 2, r_in), (2, 2, r_in), (2, 2, R2), (2, 2, R2)]
-    for i, shp in enumerate(want[:n_ops]):
-        if tuple(operands[i].shape) != shp:
-            raise ValueError(f"operand {i} has shape "
-                             f"{tuple(operands[i].shape)}, expected {shp}")
-    ops = [o.contiguous() for o in operands]
-    for i, o in enumerate(ops):
+    if hoisted and Cc != 2 * R2:
+        raise ValueError(f"hoisted c must be n_layer*2R = {2 * R2} wide, got "
+                         f"{Cc}")
+    K = {0: 3, 6: 4, 12: 6}[phases]
+    want = {"front_w": (2, 3, r_in, R), "front_b": (2, R),
+            "kfg": (2, 2, K, R, R2), "cond_w": (2, 2, Cc, R2),
+            "cond_b": (2, 2, R2), "res_w": (2, R, R), "res_b": (2, R),
+            "skip_w": (2, 2, R, R), "skip_b": (2, 2, R), "fin_w": (2, R, R),
+            "fin_b": (2, R), "zw": (2, R, 2 * r_in), "zb": (2, 2 * r_in),
+            "an_s": (2, 2, r_in), "an_b": (2, 2, r_in),
+            "kfg_s": (2, 2, R2), "cond_s": (2, 2, R2), "res_s": (2, R),
+            "skip_s": (2, 2, R)}
+    weights = ("front_w", "kfg", "cond_w", "res_w", "skip_w", "fin_w", "zw")
+    int8_w = (("kfg", "cond_w") if int8 else ()) + (
+        ("res_w", "skip_w") if rs else ())
+    for name, o in ops.items():
+        if tuple(o.shape) != want[name]:
+            raise ValueError(f"operand {name} has shape {tuple(o.shape)}, "
+                             f"expected {want[name]}")
         if o.device != u.device:
-            raise ValueError(f"operand {i} is on {o.device}, not {u.device}")
-        w_dt = (torch.int8 if int8 and i in (2, 3) else
-                dt if i in (0, 2, 3, 5, 7, 9, 11) else torch.float32)
+            raise ValueError(f"operand {name} is on {o.device}, not "
+                             f"{u.device}")
+        w_dt = (torch.int8 if name in int8_w else
+                dt if name in weights else torch.float32)
         if o.dtype != w_dt:
-            raise TypeError(f"operand {i} is {o.dtype}, expected {w_dt}")
+            raise TypeError(f"operand {name} is {o.dtype}, expected {w_dt}")
+    ops = {k: (_pack_int8(o) if k in int8_w else o).contiguous()
+           for k, o in ops.items()}
     crs = None
-    if int8:
-        ops[2], ops[3] = _pack_int8(ops[2]), _pack_int8(ops[3])
+    if int8 and not hoisted:
+        if c_row_scales is None:
+            raise ValueError("the int8 pair takes per-row c scales [B, 2]")
         crs = c_row_scales.to(device=u.device, dtype=torch.float32
                               ).reshape(B, 2).contiguous()
-    t_tile = kernel_t_tile(dt)
-    smem = lib.pair_reverse_smem_bytes(0 if dt == torch.float32 else 1,
-                                       int(int8), R, r_in, t_tile)
-    if smem > 232448:
+    dcode = 0 if dt == torch.float32 else 1
+    if phases:
+        variant, counter = phases, ("pair_flow_wino" if phases == 6
+                                    else "pair_flow_wino4")
+        t_tile = wino_t_tile(dt, phases)
+    else:
+        variant, counter = _VARIANTS[int8, rs, hoisted]
+        t_tile = kernel_t_tile(dt, r_in)
+    smem = getattr(lib, f"{pre}_smem_bytes")(dcode, variant, R, r_in, t_tile)
+    if not 0 < smem <= 232448:
         raise ValueError(f"t_tile={t_tile} needs {smem} bytes of shared "
                          "memory per CTA (at most 232448)")
     u_out, v_out = torch.empty_like(u), torch.empty_like(v)
     # the kernel runs on the current stream, so the caching allocator may
     # reuse these temporaries only for work queued after it
-    ptrs = [u, v, c_a, c_b, u_out, v_out, *ops]
-    ptr_arr = (ctypes.c_void_p * 24)(
-        *[x.data_ptr() for x in ptrs],
-        *([0] * (17 - len(ops))),
-        crs.data_ptr() if crs is not None else 0)
+    ptrs = [u, v, c_a, c_b, u_out, v_out,
+            *[ops.get(n) for n in _SLOTS], crs]
+    ptr_arr = (ctypes.c_void_p * len(ptrs))(
+        *[0 if x is None else x.data_ptr() for x in ptrs])
     dims = (ctypes.c_int * 6)(B, T, r_in, R, Cc, t_tile)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.pair_reverse_launch(
-            0 if dt == torch.float32 else 1, int(int8),
-            ctypes.cast(ptr_arr, ctypes.c_void_p),
+        err = getattr(lib, f"{pre}_launch")(
+            dcode, variant, ctypes.cast(ptr_arr, ctypes.c_void_p),
             ctypes.cast(dims, ctypes.c_void_p), stream)
     if err != 0:
-        raise RuntimeError(f"pair_flow kernel launch failed: cudaError {err}")
-    LAUNCHES["pair_flow_i8" if int8 else "pair_flow"] += 1
+        raise RuntimeError(f"{counter} kernel launch failed: cudaError {err}")
+    LAUNCHES[counter] += 1
     return u_out, v_out
 
 
 def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,
-                       c_row_scales=None):
+                       c_row_scales=None, hoisted: bool = False):
     """Apply one reverse flow pair.  u, v: [B, T, R_in]; c_*: [B, T, Cc]
     (int8 with ``c_row_scales`` [B, 2] when ``int8``); ``operands`` from
-    :func:`pair_reverse_operands` or :func:`pair_reverse_operands_int8`.
-    Returns (u', v').
+    :func:`pair_reverse_operands` or :func:`pair_reverse_operands_int8`
+    (17, or 19 with int8 res/skip).  With ``hoisted``, c_* are the
+    precomputed conditioning pre-activations [B, T, n_layer*2R] of the even
+    / odd flow and ``operands`` come from
+    :func:`pair_reverse_operands_hoisted` (or its ``_int8`` twin, with
+    ``int8``).  Returns (u', v').
 
     A CPU tensor runs the plain version at the kernel's tile
     (:func:`kernel_t_tile`); a CUDA tensor launches the kernel (or
     raises)."""
-    if int8 and c_row_scales is None:
+    if int8 and not hoisted and c_row_scales is None:
         raise ValueError("the int8 pair takes per-row c scales [B, 2]")
     if u.device.type == "cpu":
         return pair_reverse_ref(u, v, c_a, c_b, operands,
-                                t_tile=kernel_t_tile(u.dtype), int8=int8,
-                                c_row_scales=c_row_scales)
-    return _launch(u, v, c_a, c_b, operands, int8=int8,
+                                t_tile=kernel_t_tile(u.dtype, u.shape[-1]),
+                                int8=int8, c_row_scales=c_row_scales,
+                                hoisted=hoisted)
+    return _launch(u, v, c_a, c_b, operands, int8=int8, hoisted=hoisted,
                    c_row_scales=c_row_scales)
+
+
+def fused_pair_reverse_wino(u, v, c_a, c_b, operands):
+    """Apply one reverse flow pair with Winograd filter|gate convs (port of
+    ``_pair_kernel_wino``); ``operands`` from
+    :func:`pair_reverse_operands_wino` (F(2,3)) or
+    :func:`pair_reverse_operands_wino4` (F(4,3)).  A CPU tensor runs
+    :func:`pair_reverse_wino_ref` at the kernel's tile; a CUDA tensor
+    launches ``pair_flow_wino`` / ``pair_flow_wino4`` (or raises)."""
+    P = 6 if operands[2].shape[2] == 4 else 12
+    if u.device.type == "cpu":
+        return pair_reverse_wino_ref(u, v, c_a, c_b, operands,
+                                     t_tile=wino_t_tile(u.dtype, P))
+    return _launch(u, v, c_a, c_b, operands, int8=False, hoisted=False,
+                   c_row_scales=None, phases=P)
 
 
 def fused_pair_forward(u, v, c_a, c_b, operands):
@@ -452,34 +813,47 @@ def fused_pair_forward(u, v, c_a, c_b, operands):
 
 
 def pair_cost(B: int, T: int, r_in: int, cc: int, r: int = 256,
-              int8: bool = False) -> dict:
+              int8: bool = False, fg_mults: float = 1.0,
+              hoisted: bool = False) -> dict:
     """Work of one pair over [B, T] output rows: operations by type and the
     bytes that must move (each input read once, each output written once),
     from the shapes.  Per net per row: 2*(2*3*R*2R + 2*Cc*2R + R*2R + R*R
     + R*R + 3*R_in*R + R*2R_in) operations (the count behind
-    pallas_flow.py:944-946, plus the final 1x1)."""
+    pallas_flow.py:944-946, plus the final 1x1).  ``fg_mults`` scales the
+    fg convs to a Winograd's own multiplies (4/6 for F(2,3), 6/12 for
+    F(4,3), JAX's count at pallas_flow.py:1484-1488); ``hoisted`` drops the
+    cond 1x1s (they run outside the kernel) and reads ``cc`` = n_layer*2R
+    wide pre-activations instead of c."""
     rows = 2 * B * T                      # two nets per pair
-    fg_cond = rows * 2 * (2 * 3 * r * 2 * r + 2 * cc * 2 * r)
+    fg = rows * 2 * 2 * 3 * r * 2 * r * fg_mults
+    cond = 0 if hoisted else rows * 2 * 2 * cc * 2 * r
     rest = rows * 2 * (r * 2 * r + 2 * r * r + 3 * r_in * r + r * 2 * r_in)
     es = 2                                # bf16 storage
-    c_bytes = 2 * B * T * cc * (1 if int8 else es)
+    c_bytes = 2 * B * T * cc * (1 if int8 and not hoisted else es)
     uv_bytes = 4 * B * T * r_in * es
-    w_el = 2 * (2 * 3 * r * 2 * r + 2 * cc * 2 * r)
-    w_bytes = w_el * (1 if int8 else es) + 2 * es * (
-        3 * r_in * r + 3 * r * r + r * 2 * r_in)
-    return {"fg_cond_ops": fg_cond, "other_ops": rest,
-            "bytes": c_bytes + uv_bytes + w_bytes}
+    w_fg = 2 * 2 * 3 * r * 2 * r * fg_mults * (1 if int8 else es)
+    w_cond = 0 if hoisted else 2 * 2 * cc * 2 * r * (1 if int8 else es)
+    w_bytes = w_fg + w_cond + 2 * es * (3 * r_in * r + 3 * r * r
+                                        + r * 2 * r_in)
+    return {"fg_ops": fg, "cond_ops": cond, "fg_cond_ops": fg + cond,
+            "other_ops": rest, "bytes": c_bytes + uv_bytes + w_bytes}
 
 
 def pair_bound_ms(B: int, T: int, r_in: int, cc: int, r: int = 256,
-                  int8: bool = False) -> tuple[float, str]:
+                  int8: bool = False, fg_mults: float = 1.0,
+                  hoisted: bool = False, rs: bool = False
+                  ) -> tuple[float, str]:
     """Least time an H100 SXM could take for one bf16 pair: the larger of
     bytes over 3.35 TB/s and operations over the dense peaks (989 TFLOP/s
-    bf16; 1979 TOP/s int8 for the fg convs and cond 1x1s of the int8
-    route).  Returns (ms, "bytes" or "operations")."""
-    c = pair_cost(B, T, r_in, cc, r, int8)
-    ops_s = (c["fg_cond_ops"] / (1979e12 if int8 else 989e12)
-             + c["other_ops"] / 989e12)
+    bf16; 1979 TOP/s int8 for the fg convs and, on the int8 route, the
+    cond 1x1s; with ``rs`` also the res/skip 1x1s).  Returns (ms, "bytes"
+    or "operations")."""
+    c = pair_cost(B, T, r_in, cc, r, int8, fg_mults, hoisted)
+    i8, bf = 1979e12, 989e12
+    rs_ops = 2 * B * T * 2 * (r * 2 * r + r * r) if rs else 0
+    ops_s = (c["fg_ops"] / (i8 if int8 else bf)
+             + c["cond_ops"] / (i8 if int8 and not hoisted else bf)
+             + rs_ops / i8 + (c["other_ops"] - rs_ops) / bf)
     mem_s = c["bytes"] / 3.35e12
     return (max(ops_s, mem_s) * 1e3,
             "operations" if ops_s >= mem_s else "bytes")

@@ -3,8 +3,10 @@
 
 Mels are padded to the longest item (rounded up to ``bucket_frames``),
 batched through one ``reverse`` and cropped back.  Each item's noise comes
-from its own seed on the host (``np.random.RandomState(seed).randn``), so
+from its own seed, on the host (``np.random.RandomState(seed).randn``) or
+on the device (the JAX package's threefry stream, ``noise="device"``), so
 the noise, and an item's audio, never depend on its batch companions.
+``--stream`` and ``--time_parallel`` run ``synthesis/streaming.py``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 without CUDA they raise.
@@ -22,6 +24,8 @@ import torch
 from ..checkpoint.bridge import latest_checkpoint, load_params_npz, to_torch
 from ..config import Config, get_config
 from ..models.flowavenet import reverse
+from ..utils.device import upload
+from .noise import row_noise
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -81,73 +85,108 @@ def padded_frames(frames: int, cfg: Config, bucket_frames: int = 60) -> int:
     return pad
 
 
+def pcm16_quantize(wav: torch.Tensor) -> torch.Tensor:
+    """float audio -> int16 PCM on its device: clip(round(x * 32768),
+    -32768, 32767) with round-half-even (the WAV layer's quantization)."""
+    return torch.clamp(torch.round(wav.float() * 32768.0), -32768, 32767
+                       ).to(torch.int16)
+
+
 def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
-                  seed: int | list[int] = 0, compute_dtype=None,
-                  temp: float | None = None, bucket_frames: int = 60,
+                  seed: int | list[int] = 0, speaker_ids=None,
+                  compute_dtype=None,
+                  temp: float | list[float] | None = None,
+                  bucket_frames: int = 60, pad_batch: bool = False,
                   noise: str = "host", pcm16: bool = False,
-                  data_sharding=None, device: str | torch.device = "cuda"):
-    """Queue one batched reverse on ``device``; returns ``(wav, frames)``
-    with ``wav`` still on the device (the caller crops it with
-    :func:`materialize_wavs`)."""
-    if noise != "host":
+                  data_sharding=None, batch_multiple: int = 1,
+                  device: str | torch.device = "cuda"):
+    """Queue one batched reverse on ``device`` without waiting for the card;
+    returns ``(wav, frames)`` with ``wav`` still on the device (the caller
+    crops it with :func:`materialize_wavs`, which is where the host waits).
+
+    ``seed`` / ``temp`` may be per-item lists (``None`` items take
+    cfg.train.temp); a scalar seed expands to ``seed + i``.  ``pad_batch``
+    pads the row count to the next power of two with zero rows.
+    ``noise='device'`` draws each row's z on the device as the JAX package
+    does (``normal(PRNGKey(seed)) * temp``, synthesis/noise.py) instead of
+    uploading host RandomState noise; ``pcm16`` (device noise only)
+    quantizes to int16 on the device.  ``speaker_ids`` is accepted for the
+    JAX signature; global conditioning itself is not ported (reverse
+    raises)."""
+    if noise not in ("host", "device"):
+        raise ValueError(f"noise must be 'host' or 'device', got {noise!r}")
+    if pcm16 and noise != "device":
+        raise ValueError("pcm16=True requires noise='device'")
+    if data_sharding is not None or batch_multiple > 1:
         raise NotImplementedError(
-            "device noise is not ported yet (flowavenet_tpu/synthesis/"
-            "synthesize.py:_jitted_reverse_devnoise)")
-    if pcm16:
-        raise NotImplementedError(
-            "pcm16 output is not ported yet (flowavenet_tpu/synthesis/"
-            "synthesize.py:_jitted_reverse_devnoise, pcm16)")
-    if data_sharding is not None:
-        raise NotImplementedError(
-            "sharded synthesis is not ported yet (flowavenet_tpu/synthesis/"
-            "synthesize.py:dispatch_mels, data_sharding)")
+            "sharded synthesis is not ported yet (ROADMAP Queue 1 item 8; "
+            "flowavenet_tpu/synthesis/synthesize.py:dispatch_mels, "
+            "data_sharding)")
     dev = resolve_device(device)
     dt = resolve_compute_dtype(cfg, compute_dtype)
     n = len(mels)
     seeds = [seed + i for i in range(n)] if isinstance(seed, int) else seed
-    if len(seeds) != n:
-        raise ValueError(f"need {n} seeds, got {len(seeds)}")
-    temp = cfg.train.temp if temp is None else float(temp)
+    if temp is None or isinstance(temp, (int, float)):
+        temps = [cfg.train.temp if temp is None else float(temp)] * n
+    else:
+        temps = [cfg.train.temp if t is None else float(t) for t in temp]
+    if len(seeds) != n or len(temps) != n:
+        raise ValueError(f"need {n} seeds/temps, got {len(seeds)}/"
+                         f"{len(temps)}")
 
     hop = cfg.audio.hop_size
     frames = [_usable_frames(m.shape[0], cfg) for m in mels]
     pad_frames = padded_frames(max(frames), cfg, bucket_frames)
-    batch = np.zeros((n, pad_frames, cfg.audio.num_mels), np.float32)
+    n_rows = 1 << (n - 1).bit_length() if pad_batch else n
+    batch = np.zeros((n_rows, pad_frames, cfg.audio.num_mels), np.float32)
     for i, m in enumerate(mels):
         batch[i, : frames[i]] = m[: frames[i]]
-    z = np.zeros((n, pad_frames * hop, 1), np.float32)
-    for i, s in enumerate(seeds):
-        z[i, :, 0] = np.random.RandomState(s % (2 ** 32)).randn(
-            pad_frames * hop) * temp
     # cast on the host first: rounding to bf16 is the same on either side
     # and halves the upload
-    z_t = torch.from_numpy(z).to(dt).to(dev)
-    c_t = torch.from_numpy(batch).to(dt).to(dev)
+    c_t = upload(torch.from_numpy(batch), dt, dev)
+    if noise == "device":
+        s_arr = np.zeros((n_rows,), np.int64)
+        t_arr = np.zeros((n_rows,), np.float32)
+        s_arr[:n] = [s % (2 ** 32) for s in seeds]
+        t_arr[:n] = temps
+        z_t = row_noise(s_arr, t_arr, pad_frames * hop, dev)
+    else:
+        z = np.zeros((n_rows, pad_frames * hop, 1), np.float32)
+        for i, (s, t) in enumerate(zip(seeds, temps)):
+            z[i, :, 0] = np.random.RandomState(s % (2 ** 32)).randn(
+                pad_frames * hop) * t
+        z_t = upload(torch.from_numpy(z), dt, dev)
     wav = reverse(params, cfg.model, z_t, c_t, compute_dtype=dt)
+    if pcm16:
+        wav = pcm16_quantize(wav)
     return wav, frames
 
 
 def materialize_wavs(wav: torch.Tensor, frames, cfg: Config
                      ) -> list[np.ndarray]:
-    """Bring a :func:`dispatch_mels` result to the host (float32) and crop
-    each row to its true length."""
+    """Bring a :func:`dispatch_mels` result to the host and crop each row to
+    its true length: float32 rows, or int16 when it was dispatched with
+    ``pcm16``.  Padding rows are dropped on the device first."""
     hop = cfg.audio.hop_size
-    w = wav.float().cpu().numpy()
+    wav = wav[: len(frames)]
+    w = (wav if wav.dtype == torch.int16 else wav.float()).cpu().numpy()
     return [w[i, : frames[i] * hop, 0] for i in range(len(frames))]
 
 
 def synthesize_mels(params, cfg: Config, mels: list[np.ndarray],
-                    seed: int | list[int] = 0, compute_dtype=None,
-                    temp: float | None = None, bucket_frames: int = 60,
+                    seed: int | list[int] = 0, speaker_ids=None,
+                    compute_dtype=None,
+                    temp: float | list[float] | None = None,
+                    bucket_frames: int = 60, pad_batch: bool = False,
                     noise: str = "host", pcm16: bool = False,
                     device: str | torch.device = "cuda"
                     ) -> list[np.ndarray]:
-    """Synthesize a list of [T_mel, num_mels] mels into float32 wavs.
-    ``seed`` may be a per-item list; a scalar seed expands to ``seed + i``
-    per item."""
+    """Synthesize a list of [T_mel, num_mels] mels into float32 wavs (int16
+    with ``pcm16``); the options are :func:`dispatch_mels`'."""
     wav, frames = dispatch_mels(
-        params, cfg, mels, seed=seed, compute_dtype=compute_dtype, temp=temp,
-        bucket_frames=bucket_frames, noise=noise, pcm16=pcm16, device=device)
+        params, cfg, mels, seed=seed, speaker_ids=speaker_ids,
+        compute_dtype=compute_dtype, temp=temp, bucket_frames=bucket_frames,
+        pad_batch=pad_batch, noise=noise, pcm16=pcm16, device=device)
     return materialize_wavs(wav, frames, cfg)
 
 
@@ -166,18 +205,28 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--stream", action="store_true",
-                        help="not ported yet")
+                        help="chunked streaming synthesis (streaming.py): "
+                             "one window shape for any length, bounded "
+                             "memory")
+    parser.add_argument("--chunk_frames", type=int, default=None,
+                        help="--stream / --time_parallel window advance, "
+                             "in mel frames")
     parser.add_argument("--time_parallel", type=int, default=0,
-                        help="not ported yet")
+                        help="batch each utterance's halo windows through "
+                             "one reverse (1, or -1 for every device; "
+                             "several devices are not ported yet)")
     args = parser.parse_args(argv)
-    if args.stream:
-        raise NotImplementedError(
-            "--stream is not ported yet (flowavenet_tpu/synthesis/"
-            "streaming.py:synthesize_streaming)")
+    if args.stream and args.time_parallel:
+        parser.error("--stream and --time_parallel are exclusive")
     if args.time_parallel:
-        raise NotImplementedError(
-            "--time_parallel is not ported yet (flowavenet_tpu/synthesis/"
-            "streaming.py:synthesize_time_parallel)")
+        n_dev = (torch.cuda.device_count() if args.time_parallel < 0
+                 and resolve_device(args.device).type == "cuda"
+                 else abs(args.time_parallel))
+        if n_dev > 1:
+            raise NotImplementedError(
+                "time-parallel synthesis over several devices is not ported "
+                "yet (ROADMAP Queue 1 item 8; flowavenet_tpu/synthesis/"
+                "synthesize.py:main, --time_parallel)")
 
     cfg = get_config(args.config)
     params, _ = load_params(args.saved_dir, cfg, device=args.device)
@@ -193,10 +242,20 @@ def main(argv=None):
         chunk = names[i: i + args.batch_size]
         mels = [np.load(os.path.join(args.mels_dir, n)) for n in chunk]
         t0 = time.time()
-        wavs = synthesize_mels(params, cfg, mels, seed=args.seed + i,
-                               temp=args.temp,
-                               bucket_frames=args.bucket_frames,
-                               device=args.device)
+        if args.stream or args.time_parallel:
+            from .streaming import (synthesize_streaming,
+                                    synthesize_time_parallel)
+            run = (synthesize_streaming if args.stream
+                   else synthesize_time_parallel)
+            wavs = [run(params, cfg, m.astype(np.float32),
+                        seed=args.seed + i + j, temp=args.temp,
+                        chunk_frames=args.chunk_frames, device=args.device)
+                    for j, m in enumerate(mels)]
+        else:
+            wavs = synthesize_mels(params, cfg, mels, seed=args.seed + i,
+                                   temp=args.temp,
+                                   bucket_frames=args.bucket_frames,
+                                   device=args.device)
         dt = time.time() - t0
         for n, w in zip(chunk, wavs):
             write_wav(os.path.join(args.output_dir, n[:-4] + ".wav"), w,

@@ -53,6 +53,19 @@ def env_int(name: str, default: int, *, multiple_of: int = 1) -> int:
 # The int8 pair-kernel route, on by default as in the JAX package.
 # FWN_INT8=0 runs the pair kernel in the storage dtype instead.
 INT8 = env_flag("FWN_INT8", default=True)
+# Reverse-pair route switches, with the JAX package's defaults
+# (flowavenet_tpu/models/flowavenet.py:326-365, ops/pallas_flow.py:112):
+# Winograd F(2,3) pairs on blocks with cc_half <= FWN_WINO_MAX_CC when the
+# int8 route does not take them (F(4,3) with FWN_WINO4); FWN_MAX_CC (0 =
+# unset) overrides the fused-pair width bound; FWN_HOISTED routes the
+# deep blocks through the hoisted-conditioning pair; FWN_INT8_RS adds int8
+# res/skip products to the int8 pair.
+WINO = env_flag("FWN_WINO", default=True)
+WINO4 = env_flag("FWN_WINO4")
+WINO_MAX_CC = env_int("FWN_WINO_MAX_CC", 320)
+MAX_CC = env_int("FWN_MAX_CC", 0)
+HOISTED = env_flag("FWN_HOISTED")
+INT8_RS = env_flag("FWN_INT8_RS")
 # Training routes (off by default, as in the JAX package): the fused
 # training pair (forward with log_s statistics + hand-written backward) on
 # blocks whose conditioning half is at most FWN_TRAIN_MAX_CC wide, and the

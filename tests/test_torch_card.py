@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the CUDA pair kernel against its plain version
-and the fused-pair route of ``reverse`` against the CPU.  Every test here
+"""PyTorch port on the card: the CUDA pair kernels against their plain
+versions, the fused-pair routes of ``reverse`` against the CPU, and the
+device noise against the CPU's.  Every test here
 needs a CUDA device and skips without one.  This file imports neither JAX
 nor the JAX package, so it also runs where JAX is absent:
 
@@ -107,6 +108,7 @@ def test_reverse_direct_route_on_card_matches_cpu(cuda, monkeypatch):
     the plain tiled version on the CPU, same tile: 1e-4 (summation order
     over 2 blocks)."""
     monkeypatch.setattr(fwn, "PAIR_KERNEL_INT8", False)
+    monkeypatch.setattr(fwn, "PAIR_KERNEL_WINO", False)
     cfg = tiny().model
     params = fwn.init_flowavenet(torch.Generator().manual_seed(0), cfg)
     r = torch.Generator().manual_seed(1)
@@ -120,6 +122,117 @@ def test_reverse_direct_route_on_card_matches_cpu(cuda, monkeypatch):
                       z.to(cuda), mel.to(cuda)).cpu().numpy()
     assert pf.LAUNCHES["pair_flow"] == n0 + cfg.n_block * cfg.n_flow // 2
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _check(got, want, passthru, bar, corr_min):
+    """rel-to-max <= bar, corr >= corr_min (None: not checked) and the error
+    as a share of what the coupling nets add (RMS ratio) <= bar."""
+    err2 = upd2 = 0.0
+    for a, b, p in zip(got, want, passthru):
+        a, b, p = (x.float().cpu().numpy() for x in (a, b, p))
+        assert np.all(np.isfinite(a))
+        assert np.abs(a - b).max() <= bar * np.abs(b).max()
+        if corr_min is not None:
+            assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= corr_min
+        err2 += float(np.square(a - b).sum())
+        upd2 += float(np.square(b - p).sum())
+    assert np.sqrt(err2 / upd2) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phases", [6, 12])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_wino_kernel_matches_plain(cuda, phases, mode):
+    """pair_flow_wino / pair_flow_wino4 vs pair_reverse_wino_ref at block 1's
+    lj22k widths, two rows, T = 1000 (not a multiple of the tile or of P):
+    the bars of test_kernel_matches_plain (bf16 corr >= 0.999)."""
+    r_in, cc, T = 2, 160, 1000
+    dt = torch.float32 if mode == "fp32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(8)
+    u, v = (torch.randn(2, T, r_in, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    c = [torch.rand(2, T, cc, generator=g, device=cuda).to(dt)
+         for _ in range(2)]
+    make = (pf.pair_reverse_operands_wino if phases == 6
+            else pf.pair_reverse_operands_wino4)
+    ops = make(_pair(1, cuda), dt)
+    name = "pair_flow_wino" if phases == 6 else "pair_flow_wino4"
+    n0 = pf.LAUNCHES[name]
+    got = pf.fused_pair_reverse_wino(u, v, *c, ops)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES[name] == n0 + 1
+    want = pf.pair_reverse_wino_ref(u, v, *c, ops, t_tile=60)
+    ops_pass = tuple(torch.zeros_like(o) if i in (11, 12) else o
+                     for i, o in enumerate(ops))
+    passthru = pf.pair_reverse_wino_ref(u, v, *c, ops_pass, t_tile=60)
+    _check(got, want, passthru, 1e-4 if mode == "fp32" else 1e-2,
+           None if mode == "fp32" else 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hoisted", "hoisted_i8", "i8rs"])
+def test_hoisted_and_rs_kernels_match_plain(cuda, kind):
+    """pair_flow_hoisted (fp32 and bf16), pair_flow_hoisted_i8 and
+    pair_flow_i8rs (bf16) vs pair_reverse_ref at the kernel's tile, block
+    5's widths (R_in 32, hoisted c 1024 wide) or block 0's (i8rs): rel <=
+    1e-4 in fp32, <= 1e-2 with corr >= 0.9999 otherwise, and the update
+    bar."""
+    bi = 0 if kind == "i8rs" else 5
+    r_in, cc, T = 1 << bi, 80 << bi, 600
+    pair = _pair(bi, cuda)
+    for dt in ((torch.float32, torch.bfloat16) if kind == "hoisted"
+               else (torch.bfloat16,)):
+        g = torch.Generator(device=cuda).manual_seed(9)
+        u, v = (torch.randn(2, T, r_in, generator=g, device=cuda).to(dt)
+                for _ in range(2))
+        ca, cb = (torch.rand(2, T, cc, generator=g, device=cuda).to(dt)
+                  for _ in range(2))
+        kw = {}
+        if kind == "i8rs":
+            q = [quantize_act(x, per_row=True) for x in (ca, cb)]
+            c = [q[0][0], q[1][0]]
+            kw = dict(int8=True, c_row_scales=torch.cat(
+                [q[0][1].reshape(-1, 1), q[1][1].reshape(-1, 1)], 1))
+            ops = pf.pair_reverse_operands_int8(pair, dt, rs=True)
+            name = "pair_flow_i8rs"
+        else:
+            make = (pf.pair_reverse_operands_hoisted if kind == "hoisted"
+                    else pf.pair_reverse_operands_hoisted_int8)
+            ops, (we, wo) = make(pair, dt)
+            c = [(ca @ we).to(dt), (cb @ wo).to(dt)]
+            kw = dict(hoisted=True, int8=kind == "hoisted_i8")
+            name = "pair_flow_" + kind
+        n0 = pf.LAUNCHES[name]
+        got = pf.fused_pair_reverse(u, v, *c, ops, **kw)
+        torch.cuda.synchronize()
+        assert pf.LAUNCHES[name] == n0 + 1
+        tt = pf.kernel_t_tile(dt, r_in)
+        want = pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt, **kw)
+        # zw = zb = 0 (operands 11, 12; 10, 11 without cond_w)
+        zi = (11, 12) if kind == "i8rs" else (10, 11)
+        ops_pass = tuple(torch.zeros_like(o) if i in zi else o
+                         for i, o in enumerate(ops))
+        passthru = pf.pair_reverse_ref(u, v, *c, ops_pass, t_tile=tt, **kw)
+        fp32 = dt == torch.float32
+        _check(got, want, passthru, 1e-4 if fp32 else 1e-2,
+               None if fp32 else 0.9999)
+
+
+@pytest.mark.cuda
+def test_device_noise_on_card_matches_cpu(cuda):
+    """threefry bits on the card equal the CPU's exactly; the normals agree
+    to 1e-6 (log1p/sqrt may round differently on the card)."""
+    from flowavenet_tpu_torch.synthesis import noise
+    seeds = [0, 5, 2 ** 32 - 1]
+    b_gpu = noise.random_bits(noise.prng_key(seeds, cuda), 5000).cpu()
+    b_cpu = noise.random_bits(noise.prng_key(seeds), 5000)
+    assert torch.equal(b_gpu, b_cpu)
+    z_gpu = noise.row_noise(seeds, [1.0, 0.5, 0.7], 5000, cuda).cpu()
+    z_cpu = noise.row_noise(seeds, [1.0, 0.5, 0.7], 5000)
+    assert float((z_gpu - z_cpu).abs().max()) <= 1e-6
+    f_gpu = noise.frame_noise(9, [0, 100], [0.7, 0.7], 4, 256, cuda).cpu()
+    f_cpu = noise.frame_noise(9, [0, 100], [0.7, 0.7], 4, 256)
+    assert float((f_gpu - f_cpu).abs().max()) <= 1e-6
 
 
 def _train_case(bi: int, dt, dev, T: int = 300, B: int = 2):

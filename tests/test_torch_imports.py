@@ -37,6 +37,7 @@ def test_sources_found():
     assert len(SOURCES) > 15
     assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow.cu").exists()
     assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow_train.cu").exists()
+    assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow_wino.cu").exists()
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"flowavenet_tpu_torch/ops/pair_flow_train.py",
             "flowavenet_tpu_torch/training/optimizer.py",
@@ -45,7 +46,11 @@ def test_sources_found():
             "flowavenet_tpu_torch/training/train.py",
             "flowavenet_tpu_torch/checkpoint/checkpoint.py",
             "flowavenet_tpu_torch/data/records.py",
-            "flowavenet_tpu_torch/data/dataset.py"} <= names
+            "flowavenet_tpu_torch/data/dataset.py",
+            "flowavenet_tpu_torch/synthesis/noise.py",
+            "flowavenet_tpu_torch/synthesis/streaming.py",
+            "flowavenet_tpu_torch/serving/server.py",
+            "flowavenet_tpu_torch/utils/device.py"} <= names
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
@@ -68,3 +73,27 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--config", "tiny", "--data_dir", str(tmp_path),
                      "--logdir", str(tmp_path / "logs")])
+
+
+def test_serving_entry_points_need_cuda_unless_cpu(monkeypatch):
+    """Without CUDA, dispatch_mels, stream_reverse, synthesize_time_parallel,
+    SynthesisService and serve raise rather than fall back to the CPU."""
+    import numpy as np
+
+    from flowavenet_tpu_torch.config import tiny
+    from flowavenet_tpu_torch.serving import server
+    from flowavenet_tpu_torch.synthesis import streaming
+    from flowavenet_tpu_torch.synthesis import synthesize as tsyn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny()
+    mel = np.zeros((16, 80), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsyn.dispatch_mels({}, cfg, [mel])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(streaming.stream_reverse({}, cfg, mel))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        streaming.synthesize_time_parallel({}, cfg, mel)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.SynthesisService({}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.serve({}, cfg, port=0)

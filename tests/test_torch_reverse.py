@@ -72,6 +72,7 @@ def test_pair_routes_match_jax_routes(model, monkeypatch, int8):
     monkeypatch.setattr(jfwn, "PAIR_KERNEL_INT8", int8)
     monkeypatch.setattr(jfwn, "PAIR_KERNEL_WINO", False)
     monkeypatch.setattr(tfwn, "PAIR_KERNEL_INT8", int8)
+    monkeypatch.setattr(tfwn, "PAIR_KERNEL_WINO", False)
     want = np.asarray(jfwn.reverse(params, CFG, jnp.asarray(z),
                                    jnp.asarray(mel)))
     got = tfwn.reverse(tp, CFG, torch.from_numpy(z), torch.from_numpy(mel))
@@ -101,7 +102,8 @@ def test_reverse_recovers_tf_golden_audio(monkeypatch, variant, use_pallas):
     """TF golden weights (imported with the JAX importer, then bridged):
     the port's fp32 reverse of TF's latent recovers x at atol 5e-4 (the JAX
     package's own bar, test_tf_parity.py:89), on the plain route and on
-    the direct pair route."""
+    the FWN_INT8=0 pair route (Winograd pairs on the golden's narrow
+    blocks)."""
     from flowavenet_tpu.checkpoint.tf_import import import_tf_checkpoint
     from flowavenet_tpu.config import ModelConfig
     from flowavenet_tpu_torch.config import ModelConfig as TModelConfig
@@ -135,6 +137,7 @@ def test_int8_route_batch_composition_invariant(model, monkeypatch, deep):
     monkeypatch.setattr(tfwn, "PAIR_KERNEL_INT8", True)
     if deep:
         monkeypatch.setattr(tfwn, "_pair_max_cc", lambda: 0)
+        monkeypatch.setattr(tfwn, "PAIR_KERNEL_WINO", False)
     quiet = np.random.RandomState(3).rand(*mel[1:].shape).astype(np.float32)
     outs = [tfwn.reverse(tp, CFG, torch.from_numpy(z), torch.from_numpy(
         np.concatenate([mel[:1], comp]))) for comp in (quiet, 5.0 * quiet)]

@@ -138,14 +138,23 @@ def test_cli_writes_wavs_on_cpu(setup, tmp_path):
             assert w.getsampwidth() == 2
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(noise="device"), "device noise"), (dict(pcm16=True), "pcm16")])
-def test_later_slices_raise(setup, kw, match):
+@pytest.mark.parametrize("kw", [
+    dict(noise="device", data_sharding=object()),
+    dict(noise="device", pcm16=True, batch_multiple=2)],
+    ids=["kw0-device noise", "kw1-pcm16"])
+def test_later_slices_raise(setup, kw):
+    """Device noise and pcm16 are ported; sharded dispatch (a mesh's
+    data_sharding or batch_multiple) stays with scale-out and raises,
+    naming the ROADMAP item."""
     _, cfg, _, tp, mels = setup
-    with pytest.raises(NotImplementedError, match=match):
-        tsyn.synthesize_mels(tp, cfg, mels, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        tsyn.dispatch_mels(tp, cfg, mels, device="cpu", **kw)
 
 
 def test_cli_stream_raises():
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tsyn.main(["--stream", "--device", "cpu"])
+    """--stream and --time_parallel exclude each other (as in the JAX
+    CLI); several time-parallel devices are scale-out, not ported."""
+    with pytest.raises(SystemExit):
+        tsyn.main(["--stream", "--time_parallel", "1", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        tsyn.main(["--time_parallel", "2", "--device", "cpu"])
