@@ -39,10 +39,12 @@
    plain route from the same params (checks in ``training_phase``), and
    one FWN_FWD_KERNEL=1 eval step.
 6. Serves lj22k over HTTP on the card (run after step 3, on its loaded
-   params; checks in ``serving_phase``): 8 concurrent requests (lengths,
-   requests/s, p50/p90 latency), batch-composition invariance within a pow2
-   batch and length bucket, an 800-frame stream (time to the first byte;
-   against one-shot audio), and time-parallel synthesis.
+   params; checks in ``serving_phase``): ``SERVE_ROUNDS`` rounds of 8
+   concurrent requests (lengths; requests/s, p50/p90 latency over all of
+   them, with the spread), batch-composition invariance within a pow2
+   batch and length bucket, ``STREAM_REQS`` 800-frame streams (time to
+   the first byte, median and range; against one-shot audio), and
+   time-parallel synthesis.
 7. Prints a JSON line of main-path numbers, one JSON line of per-kernel
    numbers (per reverse for the reverse pairs, per train step for the
    training pair, per eval step for the forward pair: the sum over the
@@ -289,7 +291,7 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                         ops, (we, wo) = make(pair, dt)
 
                         def hoist(we=we, wo=wo):
-                            return torch.matmul(ca, we), torch.matmul(cb, wo)
+                            return pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo)
                         c = hoist()
                         hoist_ms = _time_ms(hoist, 5)
                         kw = dict(hoisted=True, int8=name.endswith("i8"))
@@ -786,7 +788,9 @@ def main_path(params, cfg, dev, frames):
 
 
 SERVE_FRAMES = (180, 205, 231, 262, 289, 301, 322, 345)   # 8 requests
+SERVE_ROUNDS = 8                    # timed rounds of SERVE_FRAMES
 STREAM_FRAMES = 800
+STREAM_REQS = 5                     # timed /synthesize_stream requests
 
 
 def _post(port: int, path: str, mel, seed: int, first_byte=None):
@@ -838,12 +842,17 @@ def serving_phase(loaded, cfg, dev):
     """Phase 6: the HTTP service on the card, lj22k, bf16, the FWN_INT8=0
     route (Winograd blocks 0-2, direct block 3, plain blocks 4-7), device
     noise and pcm16 (the service's defaults).  Server A (the defaults,
-    max_batch 16, 10 ms window): a warm-up round, then 8 concurrent
-    /synthesize requests of 180-345 frames with distinct X-Seed (lengths
-    checked; requests/s, p50/p90 latency) and one /synthesize_stream of 800
-    frames (time to the first audio byte; held against the one-shot audio
-    of the same host noise).  Server B (max_batch 4, a 5 s window, so 4
-    requests posted together land in one drain, checked with /stats): 4
+    max_batch 16, 10 ms window): a warm-up round, then SERVE_ROUNDS rounds,
+    one after another, of 8 concurrent /synthesize requests of 180-345
+    frames with distinct X-Seed (lengths checked; requests/s over all
+    rounds and per round, p50/p90 latency over every request; the 8 fall
+    into 4 length buckets that dispatch one after another, so a latency
+    includes the wait for the buckets ahead of it) and STREAM_REQS
+    /synthesize_stream requests of 800 frames, one after another (time to
+    the first audio byte, median and range; the first held against the
+    one-shot audio of the same host noise).  Server B (max_batch 4, a 5 s
+    window, so 4 requests posted together land in one drain, checked with
+    /stats): 4
     requests of one bucket (301-345 frames, padded to 360), then the first
     again beside 3 other companions of that bucket: its bytes must be
     identical.  Then synthesize_time_parallel, rows_per_pass 8: with host
@@ -888,38 +897,61 @@ def serving_phase(loaded, cfg, dev):
         httpd_a, port = start()
         reqs = [(mel(f), 1000 + i) for i, f in enumerate(SERVE_FRAMES)]
         _post_all(port, reqs)                       # warm-up round
-        res, wall = _post_all(port, [(m, s_ + 100) for m, s_ in reqs])
-        for (m, _), r in zip(reqs, res):
-            check(len(_pcm(r[2])) == m.shape[0] * hop
-                  and int(r[1]["Content-Length"]) == len(r[2]),
-                  ("served length", m.shape, len(r[2])))
-        lat = sorted(r[4] * 1e3 for r in res)
-        out["serve_requests_per_s"] = len(res) / wall
-        out["serve_audio_s_per_s"] = sum(SERVE_FRAMES) * hop / rate / wall
+        lat, walls = [], []
+        for rnd in range(SERVE_ROUNDS):
+            res, wall = _post_all(port, [(m, s_ + 100 * (rnd + 1))
+                                         for m, s_ in reqs])
+            for (m, _), r in zip(reqs, res):
+                check(len(_pcm(r[2])) == m.shape[0] * hop
+                      and int(r[1]["Content-Length"]) == len(r[2]),
+                      ("served length", m.shape, len(r[2])))
+            lat += [r[4] * 1e3 for r in res]
+            walls.append(wall)
+        lat.sort()
+        rps = [len(reqs) / w for w in walls]
+        out["serve_rounds"] = SERVE_ROUNDS
+        out["serve_requests"] = len(lat)
+        out["serve_requests_per_s"] = len(lat) / sum(walls)
+        out["serve_requests_per_s_by_round"] = rps
+        out["serve_audio_s_per_s"] = (SERVE_ROUNDS * sum(SERVE_FRAMES) * hop
+                                      / rate / sum(walls))
         out["serve_p50_ms"] = float(np.percentile(lat, 50))
         out["serve_p90_ms"] = float(np.percentile(lat, 90))
-        out["serve_latencies_ms"] = lat
+        out["serve_latency_min_max_ms"] = [lat[0], lat[-1]]
         s_mel = mel(STREAM_FRAMES)
-        st = _post(port, "/synthesize_stream", s_mel, 7)
-        check(st[0] == 200 and int(st[1]["Content-Length"]) == len(st[2])
-              and len(_pcm(st[2])) == STREAM_FRAMES * hop,
-              ("stream", st[0], len(st[2])))
-        out["stream_first_byte_ms"] = st[3] * 1e3
-        out["stream_total_ms"] = st[4] * 1e3
+        firsts, totals, streamed = [], [], None
+        for k in range(STREAM_REQS):
+            st = _post(port, "/synthesize_stream", s_mel, 7 + k)
+            check(st[0] == 200 and int(st[1]["Content-Length"]) == len(st[2])
+                  and len(_pcm(st[2])) == STREAM_FRAMES * hop,
+                  ("stream", st[0], len(st[2])))
+            firsts.append(st[3] * 1e3)
+            totals.append(st[4] * 1e3)
+            streamed = streamed if streamed is not None else st[2]
+        out["stream_requests"] = STREAM_REQS
+        out["stream_first_byte_ms"] = float(np.median(firsts))
+        out["stream_first_byte_min_max_ms"] = [min(firsts), max(firsts)]
+        out["stream_first_byte_ms_each"] = firsts
+        out["stream_total_ms"] = float(np.median(totals))
+        out["stream_total_min_max_ms"] = [min(totals), max(totals)]
         a_stats = stats(port)
         one = synthesize_mels(loaded, cfg, [s_mel], seed=7, bucket_frames=1,
                               device=dev)[0]
         one16 = np.clip(np.rint(one * 32768.0), -32768, 32767)
-        _, rel, corr = _errors(_pcm(st[2]).astype(np.float32),
+        _, rel, corr = _errors(_pcm(streamed).astype(np.float32),
                                one16.astype(np.float32))
         out["stream_vs_one_shot"] = {"rel": rel, "corr": corr}
-        print(f"serving: {out['serve_requests_per_s']:.2f} requests/s, "
-              f"{out['serve_audio_s_per_s']:.2f} s of audio per s, p50 "
-              f"{out['serve_p50_ms']:.1f} ms, p90 {out['serve_p90_ms']:.1f}"
-              f" ms (8 concurrent requests); stream of {STREAM_FRAMES} "
-              f"frames: first byte {out['stream_first_byte_ms']:.1f} ms, "
-              f"all {out['stream_total_ms']:.1f} ms; streamed vs one-shot "
-              f"rel {rel:.4e} corr {corr:.6f}; stats {a_stats}", flush=True)
+        print(f"serving, {SERVE_ROUNDS} rounds of {len(reqs)} concurrent "
+              f"requests: {out['serve_requests_per_s']:.2f} requests/s "
+              f"(rounds {min(rps):.2f}-{max(rps):.2f}), "
+              f"{out['serve_audio_s_per_s']:.2f} s of audio per s; latency "
+              f"over {len(lat)} requests p50 {out['serve_p50_ms']:.1f} ms, "
+              f"p90 {out['serve_p90_ms']:.1f} ms (min {lat[0]:.1f}, max "
+              f"{lat[-1]:.1f}); {STREAM_REQS} streams of {STREAM_FRAMES} "
+              f"frames: first byte median {out['stream_first_byte_ms']:.1f}"
+              f" ms (min {min(firsts):.1f}, max {max(firsts):.1f}), all "
+              f"median {out['stream_total_ms']:.1f} ms; streamed vs one-shot"
+              f" rel {rel:.4e} corr {corr:.6f}; stats {a_stats}", flush=True)
         check(rel < 0.08 and corr > 0.998, ("stream vs one-shot", rel, corr))
 
         httpd_b, port_b = start(max_batch=4, batch_window_ms=5000.0)

@@ -375,8 +375,9 @@ def block_reverse(p: dict, cfg: ModelConfig, x: torch.Tensor, c_halves,
     dt = x.dtype
     if mode == "hoisted":
         # one matmul per c half for every pair's conditioning (K = Cc up to
-        # 10240), rounded to the compute dtype as the JAX package does
-        # (models/flowavenet.py:740-761); then one launch per pair
+        # 10240), summed in fp32 and rounded once to the compute dtype as
+        # the JAX package does (models/flowavenet.py:740-761); then one
+        # launch per pair
         make = (pf.pair_reverse_operands_hoisted_int8 if PAIR_KERNEL_INT8
                 else pf.pair_reverse_operands_hoisted)
         ops, we, wo = [], [], []
@@ -386,9 +387,8 @@ def block_reverse(p: dict, cfg: ModelConfig, x: torch.Tensor, c_halves,
             we.append(w_e)
             wo.append(w_o)
         pw = we[0].shape[-1]                  # n_layer * 2R per pair
-
-        ce = torch.matmul(c_a, torch.cat(we, -1))
-        co = torch.matmul(c_b, torch.cat(wo, -1))
+        ce = pf.hoist_cond(c_a, torch.cat(we, -1))
+        co = pf.hoist_cond(c_b, torch.cat(wo, -1))
         for i in reversed(range(n_pair)):
             sl = slice(i * pw, (i + 1) * pw)
             u, v = pf.fused_pair_reverse(

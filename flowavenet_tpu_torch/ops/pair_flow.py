@@ -189,6 +189,19 @@ def pair_reverse_operands_hoisted_int8(pair: dict, dtype=torch.bfloat16):
     return tuple(ops) + (s,), hoist
 
 
+def hoist_cond(c: torch.Tensor, w_flow: torch.Tensor) -> torch.Tensor:
+    """The hoisted cond pre-activations ``c @ w_flow``: fp32 products and
+    sums, rounded once to ``c``'s dtype, as the JAX package computes them
+    (``preferred_element_type=float32``, then the cast).  On the card a
+    16-bit product runs on the tensor cores into an fp32 result; the CPU
+    has no such matmul, so it multiplies the fp32 copies."""
+    if c.is_cuda and c.dtype in (torch.bfloat16, torch.float16):
+        out = torch.mm(c.reshape(-1, c.shape[-1]), w_flow.to(c.dtype),
+                       out_dtype=torch.float32)
+        return out.reshape(*c.shape[:-1], -1).to(c.dtype)
+    return torch.matmul(c.float(), w_flow.float()).to(c.dtype)
+
+
 def _wino_weights(w: torch.Tensor) -> torch.Tensor:
     """F(2,3) G-transform of 3-tap kernels: [..., 3, Cin, Cout] ->
     [..., 4, Cin, Cout] with U = (W0, (W0+W1+W2)/2, (W0-W1+W2)/2, W2)."""
@@ -227,21 +240,13 @@ def pair_reverse_operands_wino(pair: dict, dtype=torch.bfloat16) -> tuple:
                  for i, o in enumerate(ops))
 
 
-def pair_reverse_operands_wino4(pair: dict, dtype=torch.bfloat16,
-                                hoisted: bool = False):
+def pair_reverse_operands_wino4(pair: dict, dtype=torch.bfloat16) -> tuple:
     """F(4,3) operands: kfg becomes [2, n_layer, 6, R, 2R] (G-transform in
-    fp32; the 1/6, 1/12, 1/24 factors round once into ``dtype``).
-    ``hoisted`` pops cond_w and returns (operands, (w_even, w_odd)) like
-    :func:`pair_reverse_operands_hoisted`."""
+    fp32; the 1/6, 1/12, 1/24 factors round once into ``dtype``)."""
     ops = list(pair_reverse_operands(pair, dtype=torch.float32))
     ops[2] = _wino4_weights(ops[2])
-    ops = [o.to(dtype) if i in _WEIGHT_OPERANDS else o
-           for i, o in enumerate(ops)]
-    if not hoisted:
-        return tuple(ops)
-    cond_w = ops.pop(3)
-    hoist = torch.cat([cond_w[:, l] for l in range(cond_w.shape[1])], -1)
-    return tuple(ops), (hoist[0], hoist[1])
+    return tuple(o.to(dtype) if i in _WEIGHT_OPERANDS else o
+                 for i, o in enumerate(ops))
 
 
 # ---------------------------------------------------------------------------

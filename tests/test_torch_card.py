@@ -199,7 +199,7 @@ def test_hoisted_and_rs_kernels_match_plain(cuda, kind):
             make = (pf.pair_reverse_operands_hoisted if kind == "hoisted"
                     else pf.pair_reverse_operands_hoisted_int8)
             ops, (we, wo) = make(pair, dt)
-            c = [(ca @ we).to(dt), (cb @ wo).to(dt)]
+            c = [pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo)]
             kw = dict(hoisted=True, int8=kind == "hoisted_i8")
             name = "pair_flow_" + kind
         n0 = pf.LAUNCHES[name]
@@ -216,6 +216,25 @@ def test_hoisted_and_rs_kernels_match_plain(cuda, kind):
         fp32 = dt == torch.float32
         _check(got, want, passthru, 1e-4 if fp32 else 1e-2,
                None if fp32 else 0.9999)
+
+
+@pytest.mark.cuda
+def test_hoist_cond_rounds_once(cuda):
+    """The hoist matmul on the card (bf16 in, fp32 sums on the tensor
+    cores) vs the fp32 product of the same bf16 values rounded once to
+    bf16, at block 7's K = 10240: every element within one bf16 step
+    (2^-7 relative) plus 1e-5 of the largest, the fp32 summation order
+    being the only difference."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    c = torch.rand(2, 360, 10240, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(10240, 1536, generator=g, device=cuda)
+         * 0.01).bfloat16()
+    got = pf.hoist_cond(c, w)
+    want = torch.matmul(c.float(), w.float())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want).abs()
+    assert torch.all(err <= want.abs() * 2 ** -7
+                     + 1e-5 * want.abs().max()), float(err.max())
 
 
 @pytest.mark.cuda

@@ -92,11 +92,12 @@ def jax_runs(params):
 @pytest.mark.parametrize("name", ["hoisted", "hoisted_i8", "i8rs"])
 def test_plain_version_matches_jax_kernel(jax_runs, name):
     """Each plain version at the JAX kernel's geometry (tile 64, halo 16:
-    the same int8 activation windows) vs the JAX kernel, fp32 storage.
-    hoisted: rel-to-max <= 1e-5; the int8 kernels: rel < 0.008 and corr >
-    0.9998, 10x inside the JAX package's int8 bar (test_pallas_flow.py:698;
-    measured rel 2.4e-7, only summation order differs).  The operands
-    equal JAX's folding: int8 codes exactly, floats to 1e-6."""
+    the same int8 activation windows) vs the JAX kernel, fp32 storage:
+    rel-to-max <= 1e-5 for all three.  The int8 plain versions quantize
+    the same windows with the same scales, so only the fp32 summation
+    order differs (measured rel 2.4e-7); a wrong res/skip or gate-code
+    scale moves the output by far more.  The operands equal JAX's
+    folding: int8 codes exactly, floats to 1e-6."""
     tpair, (u, v, ca, cb), out = jax_runs
     ce, co, jops, want = out[name]
     f32 = torch.float32
@@ -112,7 +113,7 @@ def test_plain_version_matches_jax_kernel(jax_runs, name):
         make = (tpf.pair_reverse_operands_hoisted if name == "hoisted"
                 else tpf.pair_reverse_operands_hoisted_int8)
         tops, (we, wo) = make(tpair, f32)
-        ce_t = torch.from_numpy(ca) @ we
+        ce_t = tpf.hoist_cond(torch.from_numpy(ca), we)
         np.testing.assert_allclose(ce_t.numpy(), ce, rtol=1e-5, atol=1e-5)
         got = tpf.pair_reverse_ref(
             *map(torch.from_numpy, (u, v, ce, co)), tops, t_tile=JAX_TILE,
@@ -125,11 +126,8 @@ def test_plain_version_matches_jax_kernel(jax_runs, name):
         else:
             np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=1e-7)
     for g, w in zip(got, want):
-        rel, corr = _rel_corr(g, w)
-        if name == "hoisted":
-            assert rel <= 1e-5, rel
-        else:
-            assert rel < 0.008 and corr > 0.9998, (rel, corr)
+        rel, _ = _rel_corr(g, w)
+        assert rel <= 1e-5, rel
 
 
 def _model_inputs():

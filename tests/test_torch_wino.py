@@ -112,9 +112,6 @@ def test_wino_operands_match_jax_folding(params):
         for a, b in zip(tops, jops):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                        atol=1e-7)
-    ops, (we, wo) = tpf.pair_reverse_operands_wino4(tpair, torch.float32,
-                                                    hoisted=True)
-    assert len(ops) == 14 and we.shape == (160, 4 * CFG.filter_size)
 
 
 def test_pair_kernel_mode_matches_jax_for_every_switch(monkeypatch):
