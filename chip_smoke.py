@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the three CUDA sources of ``flowavenet_tpu_torch/ops/csrc`` at
+1. Builds the four CUDA sources of ``flowavenet_tpu_torch/ops/csrc`` at
    once (one nvcc each) and prints the build times, ptxas' register and
    spill lines, the card's name and power limit, and the versions.
 2. Holds the direct reverse pair kernel against its plain PyTorch version
@@ -18,9 +18,15 @@
    pass-through (the same pair with its zero convs zeroed, i.e. ActNorm
    only).  Prints the errors, the kernel's and the plain version's ms,
    and the H100 bound.  Phase 2b (``variant_checks``) does the same for
-   the Winograd pairs (F(2,3), F(4,3); blocks 0-2, fp32 and bf16), the
-   hoisted pairs (blocks 4-7 fp32/bf16; int8 blocks 5-7, with the hoist
-   matmul's ms) and the int8 res/skip pair (blocks 0-4).
+   the Winograd pairs (F(2,3), F(4,3), also with hoisted conditioning;
+   blocks 0-2, fp32 and bf16), the hoisted pairs (blocks 4-7 fp32/bf16;
+   int8 blocks 5-7, with the hoist matmul's ms) and the int8 res/skip
+   pair (blocks 0-4).  Phase 2c (``resblock_checks``) runs one coupling
+   net per lj22k block through the fused ResBlock route
+   (``coupling_reverse(use_pallas=True)``, launches checked exactly), a
+   causal net and an lj8k_gin net with g, holds ``resblock`` and
+   ``resblock_v2`` against their plain versions, and the route's fp32
+   gradients at the training geometry against use_pallas=False.
 3. Drives ``synthesize_mels`` at the full lj22k width on 4 mels of unequal
    length, in bf16: seeded random weights written to a JAX-layout npz and
    read back with ``load_params``; every route of ``ROUTES`` (launches per
@@ -45,6 +51,8 @@
    batch and length bucket, ``STREAM_REQS`` 800-frame streams (time to
    the first byte, median and range; against one-shot audio), and
    time-parallel synthesis.
+   Then (phase 7, ``gin_phase``) lj8k_gin at full width with speaker ids:
+   synthesis, serving with X-Speaker-Id, DDI and training steps.
 7. Prints a JSON line of main-path numbers, one JSON line of per-kernel
    numbers (per reverse for the reverse pairs, per train step for the
    training pair, per eval step for the forward pair: the sum over the
@@ -98,6 +106,24 @@ def _update_err(got, want, passthru) -> float:
     a = [(w.float() - p.float()).pow(2).sum()
          for w, p in zip(want, passthru)]
     return float((sum(d) / sum(a)).sqrt())
+
+
+def _reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.ops import resblock as rb
+    for counts in (pf.LAUNCHES, rb.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _counts(nonzero: bool = True) -> dict:
+    """The launches of every kernel since the last reset, by name (those
+    launched at least once, unless ``nonzero`` is False)."""
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.ops import resblock as rb
+    return {k: v for k, v in {**pf.LAUNCHES, **rb.LAUNCHES}.items()
+            if v or not nonzero}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -218,23 +244,29 @@ def kernel_checks(params, cfg, B: int, T: int, blocks, dev):
     return rows
 
 
-# New reverse-pair kernels of the third slice: name -> (blocks, modes)
+# The other reverse-pair kernels: name -> (blocks, modes)
 VARIANTS = {"pair_flow_wino": (range(3), ("fp32", "bf16")),
             "pair_flow_wino4": (range(3), ("fp32", "bf16")),
+            "pair_flow_wino_hoisted": (range(3), ("fp32", "bf16")),
+            "pair_flow_wino4_hoisted": (range(3), ("fp32", "bf16")),
             "pair_flow_hoisted": (range(4, 8), ("fp32", "bf16")),
             "pair_flow_hoisted_i8": (range(5, 8), ("int8",)),
             "pair_flow_i8rs": (range(5), ("int8",))}
 
 
 def variant_checks(params, cfg, B: int, T: int, dev):
-    """Phase 2b: the Winograd, hoisted and int8 res/skip pairs vs their
-    plain versions (TF32 off) at the lj22k geometry of the blocks each
-    routes, at the batch shape of phase 3, with PR 1's bars (fp32 rel <=
-    1e-4; bf16 rel <= 1e-2, corr >= 0.999; int8 rel <= 1e-2, corr >=
-    0.9999; update_err <= 1e-2, fp32 1e-4).  The Winograd plain version
-    runs at a wider tile than the kernel (its output does not depend on
-    the tile); the int8 ones at the kernel's tile.  Hoisted rows also time
-    the cuBLAS hoist matmul of one pair (c_half @ w_flow, both halves)."""
+    """Phase 2b: the Winograd (also with hoisted conditioning, the port of
+    _pair_kernel_wino_hoisted, which no model route runs), hoisted and
+    int8 res/skip pairs vs their plain versions (TF32 off) at the lj22k
+    geometry of the blocks each routes, at the batch shape of phase 3, with
+    the kernel bars of phase 2 (fp32 rel <= 1e-4; bf16 rel <= 1e-2, corr
+    >= 0.999; int8 rel <= 1e-2, corr >= 0.9999; update_err <= 1e-2, fp32
+    1e-4).  The
+    Winograd plain version runs at a wider tile than the kernel (its output
+    does not depend on the tile); the int8 ones at the kernel's tile.
+    Hoisted rows also time the cuBLAS hoist matmul of one pair (c_half @
+    w_flow, both halves).  Each row's correctness call runs with the counts
+    set to 0 just before it and must launch its kernel once."""
     import torch
     from flowavenet_tpu_torch.models import flowavenet as fwn
     from flowavenet_tpu_torch.ops import pair_flow as pf
@@ -262,18 +294,30 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                 ca, cb = ca32.to(dt), cb32.to(dt)
                 kw, hoist_ms, zi = {}, None, (11, 12)
                 if name.startswith("pair_flow_wino"):
-                    P = 12 if name.endswith("4") else 6
+                    P = 12 if "wino4" in name else 6
                     ops = (pf.pair_reverse_operands_wino4(pair, dt) if P == 12
                            else pf.pair_reverse_operands_wino(pair, dt))
+                    hoisted = name.endswith("hoisted")
+                    c = (ca, cb)
+                    if hoisted:
+                        ops, (we, wo) = pf.pop_cond_w(ops)
 
-                    def kern(ops=ops):
-                        return pf.fused_pair_reverse_wino(u, v, ca, cb, ops)
+                        def hoist(we=we, wo=wo):
+                            return pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo)
+                        c = hoist()
+                        hoist_ms = _time_ms(hoist, 5)
+                        zi = (10, 11)
 
-                    def plain(ops=ops, P=P):
+                    def kern(ops=ops, c=c, hoisted=hoisted):
+                        return pf.fused_pair_reverse_wino(u, v, *c, ops,
+                                                          hoisted=hoisted)
+
+                    def plain(ops=ops, P=P, c=c, hoisted=hoisted):
                         return pf.pair_reverse_wino_ref(
-                            u, v, ca, cb, ops, t_tile=160 * P)
+                            u, v, *c, ops, t_tile=160 * P, hoisted=hoisted)
                     bound = pf.pair_bound_ms(
-                        B, tk, r_in, cc, fg_mults=4 / 6 if P == 6 else 0.5)
+                        B, tk, r_in, c[0].shape[-1],
+                        fg_mults=4 / 6 if P == 6 else 0.5, hoisted=hoisted)
                 else:
                     if name == "pair_flow_i8rs":
                         (qa, sa), (qb, sb) = (quantize_act(ca, per_row=True),
@@ -307,10 +351,12 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                     def plain(ops=ops, c=c, kw=kw, tt=tt):
                         return pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt,
                                                    **kw)
-                n0 = pf.LAUNCHES[name]
+                torch.cuda.synchronize()
+                _reset_counts()
                 uk, vk = kern()
                 torch.cuda.synchronize()
-                check(pf.LAUNCHES[name] == n0 + 1, (name, "launch count"))
+                check(_counts() == {name: 1}, (name, "launch count",
+                                                _counts()))
                 ur, vr = plain()
                 # zw, zb = 0: log_s = t = 0, the pair is its two ActNorms
                 passthru = plain(ops=tuple(
@@ -494,18 +540,197 @@ def train_kernel_checks(params, cfg, B: int, T: int, blocks, dev):
     return rows
 
 
-def _write_corpus(d: str, cfg, n: int = 16) -> None:
+def resblock_checks(params, cfg, B: int, T: int, dev):
+    """Phase 2c: the fused ResBlock route (no model route runs it, as in
+    the JAX package).  One coupling net (flow 0, 0.05-scale zero conv) of
+    each lj22k block b = 0-7 at the synthesis geometry of phase 3 (T_k = T
+    >> (b+1), Cc = 80 * 2^b), through ``coupling_reverse(use_pallas=True)``
+    with the counts set to 0 just before and read just after: exactly one
+    ``resblock_v2`` launch on blocks 0-5 and one ``resblock`` on blocks 6-7
+    (Cc > V2_MAX_CC).  Against use_pallas=False: fp32 update_err <= 1e-4
+    (the error as a share of what the net adds to the pass-through x); in
+    bf16 each route against the fp32 result, the kernel route's update_err
+    at most 1.5x the plain route's (or 1e-2), as the two round at other
+    points.  The kernel on the inputs the route gave it vs its plain
+    version: fp32 rel <= 1e-4, bf16 rel <= 1e-2 and corr >= 0.999, with
+    kernel, plain and bound ms.  Then a causal net (block 0, v2), an
+    lj8k_gin net with g (block 0, v1) and, at the training geometry (8 x
+    6400), coupling_forward(use_pallas=True) plus backward against
+    use_pallas=False on blocks 0 (v2) and 6 (v1), fp32: cosine >= 0.999
+    for every parameter's gradient and for x and c."""
+    import torch
+    from flowavenet_tpu_torch.config import lj8k_gin
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import resblock as rb
+    from flowavenet_tpu_torch.utils.tree import leaves, tree_map
+
+    def net(p, bi):
+        cp = tree_map(lambda l: l.clone(),
+                      fwn._index(p["blocks"][bi]["flows"], 0)["coupling"])
+        cp["zero"]["w"] = 0.05 * torch.randn(
+            cp["zero"]["w"].shape,
+            generator=torch.Generator().manual_seed(SEED + 20 + bi))
+        return tree_map(lambda l: l.to(dev), cp)
+
+    real = {"resblock": rb.fused_gated_resblock,
+            "resblock_v2": rb.fused_gated_resblock_v2}
+    plain_of = {"resblock": rb.resblock_ref, "resblock_v2": rb.resblock_v2_ref}
+    seen = []
+
+    def spy(name):
+        def run(*a, **kw):
+            seen.append((name, a, kw))
+            return real[name](*a, **kw)
+        return run
+
+    rows, sweep_launches = [], {}
+    rb.fused_gated_resblock = spy("resblock")
+    rb.fused_gated_resblock_v2 = spy("resblock_v2")
+    try:
+        def one(tag, cp, x, c, g=None, causal=False, mode="fp32",
+                y32=None, x32=None, cc=0):
+            """One net through both routes; returns (kernel route output,
+            row)."""
+            kw = dict(affine=True, causal=causal)
+            torch.cuda.synchronize()
+            _reset_counts()
+            seen.clear()
+            with torch.no_grad():
+                yk = fwn.coupling_reverse(cp, x, c, g, use_pallas=True, **kw)
+            torch.cuda.synchronize()
+            counts = _counts()
+            name = seen[0][0]
+            want = "resblock_v2" if g is None and cc <= rb.V2_MAX_CC \
+                else "resblock"
+            check(counts == {want: 1} and name == want,
+                  (tag, "resblock launches", counts))
+            with torch.no_grad():
+                yp = fwn.coupling_reverse(cp, x, c, g, **kw)
+            if mode == "fp32":
+                upd = _update_err([yk], [yp], [x])
+                ok, upd_p = upd <= 1e-4, None
+            else:
+                upd = _update_err([yk], [y32], [x32])
+                upd_p = _update_err([yp], [y32], [x32])
+                ok = upd <= max(1.5 * upd_p, 1e-2)
+            _, a, akw = seen[0]
+            with torch.no_grad():
+                got = real[name](*a, **akw)
+                ref = plain_of[name](*a, **akw)
+                torch.cuda.synchronize()
+                errs = [_errors(g_, r_) for g_, r_ in zip(got, ref)]
+                ms = _time_ms(lambda: real[name](*a, **akw), 5)
+                plain_ms = _time_ms(lambda: plain_of[name](*a, **akw), 2)
+            err = max(e[0] for e in errs)
+            rel = max(e[1] for e in errs)
+            corr = min(e[2] for e in errs)
+            Bk, tk = a[0].shape[:2]
+            bound = rb.resblock_bound_ms(
+                Bk, tk, cc=a[1].shape[-1] if name == "resblock_v2" else 0,
+                dtype=a[0].dtype)
+            print(f"{tag} {mode}: {name} route vs plain route update_err "
+                  f"{upd:.3e}" + (f" (plain route {upd_p:.3e})" if upd_p
+                                  is not None else "")
+                  + f"; kernel vs plain version max_abs={err:.3e} "
+                  f"rel={rel:.3e} corr={corr:.7f} kernel={ms:.3f} ms "
+                  f"plain={plain_ms:.3f} ms bound={bound[0]:.4f} ms",
+                  flush=True)
+            check(ok, (tag, mode, "route agreement", upd, upd_p))
+            bars = (1e-4, -1.0) if mode == "fp32" else (1e-2, 0.999)
+            check(rel <= bars[0] and corr >= bars[1],
+                  (tag, mode, name, "kernel vs plain", rel, corr))
+            return yk, {"tag": tag, "name": name, "mode": mode,
+                        "max_abs_err": err, "rel": rel, "corr": corr,
+                        "update_err": upd, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1]}
+
+        for bi in range(cfg.model.n_block):
+            r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
+            cp = net(params, bi)
+            g = torch.Generator(device=dev).manual_seed(SEED + 30 + bi)
+            x32 = torch.randn(B, tk, 2 * r_in, generator=g, device=dev)
+            c32 = torch.rand(B, tk, 2 * cc, generator=g, device=dev)
+            y32, row = one(f"resblock block {bi}", cp, x32, c32, cc=cc)
+            rows.append({**row, "block": bi, "sweep": True})
+            _, row = one(f"resblock block {bi}", cp, x32.bfloat16(),
+                         c32.bfloat16(), mode="bf16", y32=y32, x32=x32,
+                         cc=cc)
+            rows.append({**row, "block": bi, "sweep": True})
+            sweep_launches[row["name"]] = sweep_launches.get(
+                row["name"], 0) + 1
+        # causal: block 0's net with causal convs (v2)
+        g = torch.Generator(device=dev).manual_seed(SEED + 40)
+        x0 = torch.randn(B, T >> 1, 2, generator=g, device=dev)
+        c0 = torch.rand(B, T >> 1, 160, generator=g, device=dev)
+        rows.append(one("resblock causal block 0", net(params, 0), x0, c0,
+                        causal=True, cc=80)[1])
+        # lj8k_gin block 0 with g (v1): g is the speaker embedding, constant
+        # in time, at the block's level (2 * gin channels)
+        gcfg = lj8k_gin()
+        gnet = net({"blocks": [fwn.init_block(
+            torch.Generator().manual_seed(SEED + 41), 1,
+            gcfg.model.num_mels, gcfg.model, gcfg.model.gin_channels)]}, 0)
+        tg = 360 * gcfg.audio.hop_size >> 1      # 360 frames, level 1
+        xg = torch.randn(B, tg, 2, generator=g, device=dev)
+        cg = torch.rand(B, tg, 160, generator=g, device=dev)
+        emb = torch.randn(B, 1, 2 * gcfg.model.gin_channels, generator=g,
+                          device=dev)
+        rows.append(one("resblock lj8k_gin block 0 with g", gnet, xg, cg,
+                        g=emb.expand(B, tg, emb.shape[-1]), cc=80)[1])
+    finally:
+        rb.fused_gated_resblock = real["resblock"]
+        rb.fused_gated_resblock_v2 = real["resblock_v2"]
+
+    # gradients at the training geometry, fp32
+    tB, tT = cfg.data.batch_size, cfg.data.max_time_steps
+    grads = {}
+    for bi in (0, 6):
+        r_in, cc, tk = 1 << bi, 80 << bi, tT >> (bi + 1)
+        cp = net(params, bi)
+        g = torch.Generator(device=dev).manual_seed(SEED + 50 + bi)
+        x = torch.randn(tB, tk, 2 * r_in, generator=g, device=dev)
+        c = torch.rand(tB, tk, 2 * cc, generator=g, device=dev)
+        ct = torch.randn(tB, tk, 2 * r_in, generator=g, device=dev)
+        gs = {}
+        for on in (True, False):
+            p = tree_map(lambda l: l.detach().clone().requires_grad_(), cp)
+            xs = [x.clone().requires_grad_(), c.clone().requires_grad_()]
+            _reset_counts()
+            out, ld = fwn.coupling_forward(p, *xs, affine=True, causal=False,
+                                           use_pallas=on)
+            ((out * ct).sum() + 100.0 * ld).backward()
+            torch.cuda.synchronize()
+            want = ({"resblock_v2" if cc <= rb.V2_MAX_CC else "resblock": 1}
+                    if on else {})
+            check(_counts() == want, ("train geometry launches", bi,
+                                      _counts()))
+            gs[on] = [l.grad for l in leaves(p)] + [t.grad for t in xs]
+        cos = [_cos(a, b) for a, b in zip(gs[True], gs[False])
+               if a is not None and b is not None
+               and float(b.abs().max()) > 0]
+        check(len(cos) >= 20, ("gradients compared", len(cos)))
+        grads[bi] = min(cos)
+        print(f"resblock training geometry block {bi} (T_k {tk}): "
+              f"{len(cos)} gradients, min cosine kernel vs plain route "
+              f"{min(cos):.8f}", flush=True)
+        check(min(cos) >= 0.999, ("resblock route gradient cosine", bi,
+                                  min(cos)))
+    return rows, sweep_launches, grads
+
+
+def _write_corpus(d: str, cfg, n: int = 16, speakers: int = 1) -> None:
     """A seeded fwrec corpus: random audio aligned to random 80-bin mels,
-    40-60 frames per utterance (longer than the 25-frame crop)."""
+    40-60 frames per utterance (longer than the crop), utterance i spoken
+    by speaker i % ``speakers``."""
     from flowavenet_tpu_torch.data.records import FwRecordWriter
     rng = np.random.RandomState(SEED)
     hop, mels = cfg.audio.hop_size, cfg.audio.num_mels
     for name, count in (("train", n), ("test", 4)):
         with FwRecordWriter(os.path.join(d, f"{name}.fwrec")) as w:
-            for _ in range(count):
+            for i in range(count):
                 f = int(rng.randint(40, 61))
                 w.write((0.1 * rng.randn(f * hop)).astype(np.float32),
-                        rng.rand(f, mels).astype(np.float32))
+                        rng.rand(f, mels).astype(np.float32), i % speakers)
 
 
 def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
@@ -569,13 +794,12 @@ def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
             walls, losses, counts = [], [], None
             for s in range(steps):
                 torch.cuda.synchronize()
-                for k in pf.LAUNCHES:
-                    pf.LAUNCHES[k] = 0
+                _reset_counts()
                 t0 = time.perf_counter()
                 state, m = step_fn(state, batches[s])
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
-                counts = dict(pf.LAUNCHES)
+                counts = _counts(nonzero=False)
                 losses.append(float(m["loss"]))
                 want = n_route if on else 0
                 check(counts["pair_train_fwd"] == want
@@ -643,13 +867,12 @@ def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
             fwn.PAIR_KERNEL_FWD = on
             eval_step(state0.params, batches[1])
             torch.cuda.synchronize()
-            for k in pf.LAUNCHES:
-                pf.LAUNCHES[k] = 0
+            _reset_counts()
             t0 = time.perf_counter()
             aux = eval_step(state0.params, batches[1])
             loss = float(aux["loss"])
             ms = (time.perf_counter() - t0) * 1e3
-            counts = dict(pf.LAUNCHES)
+            counts = _counts(nonzero=False)
             n_fwd = sum((cfg.model.num_mels << bi) <= fwn.PAIR_KERNEL_FWD_MAX_CC
                         for bi in range(cfg.model.n_block)
                         ) * cfg.model.n_flow // 2
@@ -732,14 +955,13 @@ def main_path(params, cfg, dev, frames):
         walls = []
         for i in range(REPS + 1):
             torch.cuda.synchronize()
-            for k in pf.LAUNCHES:
-                pf.LAUNCHES[k] = 0
+            _reset_counts()
             t0 = time.perf_counter()
             wavs = synthesize_mels(loaded, c, mels, seed=SEED,
                                    compute_dtype=torch.bfloat16, device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = dict(pf.LAUNCHES)
+            counts = _counts(nonzero=False)
             check(counts == {**{k: 0 for k in counts}, **expect},
                   (name, counts))
             if i:
@@ -793,9 +1015,10 @@ STREAM_FRAMES = 800
 STREAM_REQS = 5                     # timed /synthesize_stream requests
 
 
-def _post(port: int, path: str, mel, seed: int, first_byte=None):
-    """POST one mel as .npy; returns (status, headers, body, seconds to the
-    first body byte, total seconds)."""
+def _post(port: int, path: str, mel, seed: int, speaker=None):
+    """POST one mel as .npy (with X-Speaker-Id when ``speaker`` is given);
+    returns (status, headers, body, seconds to the first body byte, total
+    seconds)."""
     import io
     from http.client import HTTPConnection
     buf = io.BytesIO()
@@ -803,8 +1026,10 @@ def _post(port: int, path: str, mel, seed: int, first_byte=None):
     body = buf.getvalue()
     t0 = time.perf_counter()
     c = HTTPConnection("127.0.0.1", port, timeout=600)
-    c.request("POST", path, body=body, headers={
-        "Content-Length": str(len(body)), "X-Seed": str(seed)})
+    headers = {"Content-Length": str(len(body)), "X-Seed": str(seed)}
+    if speaker is not None:
+        headers["X-Speaker-Id"] = str(speaker)
+    c.request("POST", path, body=body, headers=headers)
     r = c.getresponse()
     head = r.read(45)                 # the WAV header and one more byte
     t_first = time.perf_counter() - t0
@@ -814,15 +1039,15 @@ def _post(port: int, path: str, mel, seed: int, first_byte=None):
 
 
 def _post_all(port: int, reqs):
-    """POST (mel, seed) pairs concurrently to /synthesize."""
+    """POST (mel, seed[, speaker]) tuples concurrently to /synthesize."""
     import threading
     out = [None] * len(reqs)
 
-    def go(i, mel, seed):
-        out[i] = _post(port, "/synthesize", mel, seed)
+    def go(i, *req):
+        out[i] = _post(port, "/synthesize", *req)
 
-    ts = [threading.Thread(target=go, args=(i, m, s_))
-          for i, (m, s_) in enumerate(reqs)]
+    ts = [threading.Thread(target=go, args=(i, *r))
+          for i, r in enumerate(reqs)]
     t0 = time.perf_counter()
     for t in ts:
         t.start()
@@ -891,8 +1116,7 @@ def serving_phase(loaded, cfg, dev):
     fwn.PAIR_KERNEL_INT8 = False
     httpd_a = httpd_b = None
     torch.cuda.synchronize()
-    for k in pf.LAUNCHES:
-        pf.LAUNCHES[k] = 0
+    _reset_counts()
     try:
         httpd_a, port = start()
         reqs = [(mel(f), 1000 + i) for i, f in enumerate(SERVE_FRAMES)]
@@ -1010,7 +1234,7 @@ def serving_phase(loaded, cfg, dev):
         check(rel_d < 0.08 and corr_d > 0.998, ("tp device noise", rel_d,
                                                 corr_d))
         torch.cuda.synchronize()
-        out["serve_launches"] = {k: v for k, v in pf.LAUNCHES.items() if v}
+        out["serve_launches"] = _counts()
         print(f"serving phase launches: {out['serve_launches']}", flush=True)
         check(out["serve_launches"].get("pair_flow_wino", 0) > 0
               and out["serve_launches"].get("pair_flow", 0) > 0
@@ -1023,6 +1247,148 @@ def serving_phase(loaded, cfg, dev):
             if h is not None:
                 h.shutdown()
                 h.service.close()
+    return out
+
+
+GIN_FRAMES = (180, 262, 301, 345)   # ~2.2-4.1 s of 8 kHz audio
+GIN_STEPS = 6                       # lj8k_gin training steps
+
+
+def gin_phase(dev, tmpdir: str):
+    """Phase 7: lj8k_gin at full width (5 blocks x 6 flows, R = 256, gin
+    256, 7 speakers), global conditioning through the entry points; a gin
+    model takes the plain scans everywhere, as in the JAX package (no
+    kernel launches, checked).  Seeded random weights through a JAX-layout
+    npz and ``load_params`` (bf16); ``synthesize_mels`` of 4 mels with
+    speakers 0-3, REPS calls after a warm-up (median and range); one mel
+    under speakers 0 and 5 must differ, and be identical under
+    parity_drop_global_cond; the HTTP service with X-Speaker-Id (4
+    concurrent requests, two ids on one mel that must differ, one stream);
+    DDI and GIN_STEPS training steps at batch 8 x 2320 samples on a seeded
+    7-speaker corpus (step time after WARMUP_STEPS, peak memory)."""
+    import threading
+
+    import torch
+    from flowavenet_tpu_torch.checkpoint.bridge import save_params
+    from flowavenet_tpu_torch.config import lj8k_gin
+    from flowavenet_tpu_torch.data.dataset import CropDataset
+    from flowavenet_tpu_torch.serving.server import serve
+    from flowavenet_tpu_torch.synthesis.synthesize import (load_params,
+                                                           synthesize_mels)
+    from flowavenet_tpu_torch.training.train import to_device
+    from flowavenet_tpu_torch.training.train_state import (
+        create_state, ddi_initialize, make_train_step)
+
+    cfg = lj8k_gin()
+    hop = cfg.audio.hop_size
+    ckdir = os.path.join(tmpdir, "gin_ckpt")
+    save_params(os.path.join(ckdir, "ckpt-0.npz"),
+                randomized_params(cfg, SEED + 2))
+    loaded, _ = load_params(ckdir, cfg, compute_dtype=torch.bfloat16,
+                            device=dev)
+    rng = np.random.RandomState(SEED + 3)
+    mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
+            for f in GIN_FRAMES]
+    out, walls = {}, []
+    for i in range(REPS + 1):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        wavs = synthesize_mels(loaded, cfg, mels, seed=SEED,
+                               speaker_ids=[0, 1, 2, 3],
+                               compute_dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+        check(_counts() == {}, ("gin synthesis launched", _counts()))
+    for w, f in zip(wavs, GIN_FRAMES):
+        check(w.shape == (f * hop,) and bool(np.all(np.isfinite(w))),
+              ("gin synthesis output", w.shape))
+    out["synthesis_ms"] = float(np.median(walls))
+    out["synthesis_calls_ms"] = walls
+    one = {}
+    for drop in (False, True):
+        c = cfg.replace(model=dataclasses.replace(
+            cfg.model, parity_drop_global_cond=drop))
+        one[drop] = [synthesize_mels(loaded, c, mels[:1], seed=SEED,
+                                     speaker_ids=[s_],
+                                     compute_dtype=torch.bfloat16,
+                                     device=dev)[0] for s_ in (0, 5)]
+    diff = float(np.abs(one[False][0] - one[False][1]).max())
+    check(diff > 1e-3, ("speakers 0 and 5 give the same audio", diff))
+    check(np.array_equal(*one[True]),
+          "parity_drop_global_cond audio depends on the speaker")
+    print(f"lj8k_gin synthesis (4 mels of {GIN_FRAMES} frames, speakers "
+          f"0-3, bf16): median {out['synthesis_ms']:.1f} ms (min "
+          f"{min(walls):.1f}, max {max(walls):.1f}, {REPS} calls); speakers "
+          f"0 vs 5 max |diff| {diff:.4f}; identical under "
+          f"parity_drop_global_cond", flush=True)
+
+    httpd = serve(loaded, cfg, port=0, device=dev)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    try:
+        _post_all(port, [(mels[0], 1, 0)])              # warm-up
+        res, wall = _post_all(port, [(m, 10 + i, i)
+                                     for i, m in enumerate(mels)])
+        for m, r in zip(mels, res):
+            check(len(_pcm(r[2])) == m.shape[0] * hop, ("gin served length",
+                                                        len(r[2])))
+        a, b = (_post(port, "/synthesize", mels[1], 3, sid)[2]
+                for sid in (1, 2))
+        check(a != b, "X-Speaker-Id did not change the served audio")
+        st = _post(port, "/synthesize_stream", mels[3], 4, 6)
+        check(st[0] == 200 and len(_pcm(st[2])) == mels[3].shape[0] * hop,
+              ("gin stream", st[0], len(st[2])))
+    finally:
+        httpd.shutdown()
+        httpd.service.close()
+    out["serve_4_requests_ms"] = wall * 1e3
+    out["stream_first_byte_ms"] = st[3] * 1e3
+    out["stream_total_ms"] = st[4] * 1e3
+    print(f"lj8k_gin serving: 4 concurrent requests with X-Speaker-Id 0-3 in "
+          f"{wall * 1e3:.1f} ms; ids 1 and 2 differ; stream of "
+          f"{GIN_FRAMES[3]} frames first byte {st[3] * 1e3:.1f} ms, all "
+          f"{st[4] * 1e3:.1f} ms", flush=True)
+
+    cdir = os.path.join(tmpdir, "gin_corpus")
+    os.makedirs(cdir)
+    _write_corpus(cdir, cfg, speakers=cfg.model.n_speakers)
+    ds = CropDataset(os.path.join(cdir, "train.fwrec"), hop_size=hop,
+                     max_time_steps=cfg.data.max_time_steps,
+                     batch_size=cfg.data.batch_size, seed=cfg.train.seed,
+                     with_speaker=True)
+    batches = [to_device(ds.batch_at(s_), dev) for s_ in range(GIN_STEPS)]
+    check(len(set(batches[0]["speaker"].tolist())) > 1, "one speaker only")
+    t0 = time.perf_counter()
+    state = create_state(torch.Generator(dev).manual_seed(SEED), cfg)
+    state = ddi_initialize(state, cfg, batches[0])
+    torch.cuda.synchronize()
+    out["ddi_s"] = time.perf_counter() - t0
+    step_fn = make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    swalls, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        swalls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        check(_counts() == {}, ("gin training launched", _counts()))
+    check(all(np.isfinite(losses)), ("gin losses", losses))
+    timed = swalls[WARMUP_STEPS:]
+    out["train_step_ms"] = float(np.median(timed))
+    out["train_steps_ms"] = swalls
+    out["train_max_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["train_losses"] = losses
+    print(f"lj8k_gin training, batch {cfg.data.batch_size} x "
+          f"{cfg.data.max_time_steps}: DDI {out['ddi_s']:.2f} s; median "
+          f"{out['train_step_ms']:.1f} ms/step (min {min(timed):.1f}, max "
+          f"{max(timed):.1f}, {len(timed)} steps after {WARMUP_STEPS} "
+          f"warm-up), max memory {out['train_max_mem_gb']:.2f} GB, losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
     return out
 
 
@@ -1045,8 +1411,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; card: {smi}", flush=True)
-    # phase 1: all three sources at once, one nvcc each
-    libs = ("pair_flow", "pair_flow_wino", "pair_flow_train")
+    # phase 1: all four sources at once, one nvcc each
+    libs = ("pair_flow", "pair_flow_wino", "pair_flow_train", "resblock")
     t0 = time.perf_counter()
     _build.build_all(libs)
     print(f"build {' + '.join(libs)} in parallel: "
@@ -1066,6 +1432,8 @@ def main() -> int:
     rows = kernel_checks(params, cfg, B, T, range(5), dev)
     # phase 2b: the Winograd, hoisted and int8 res/skip pairs
     vrows = variant_checks(params, cfg, B, T, dev)
+    # phase 2c: the fused ResBlock route, one coupling net per block
+    rrows, r_launches, r_grads = resblock_checks(params, cfg, B, T, dev)
     # phase 3: synthesis on every route, the first slice's main path
     main_out = main_path(params, cfg, dev, FRAMES)
     # phase 6 (run here, on the loaded bf16 params): serving, this slice's
@@ -1080,6 +1448,8 @@ def main() -> int:
             dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build")) as tmp:
         tr = training_phase(cfg, dev, tmp)
+        # phase 7: lj8k_gin, global conditioning end to end
+        gin = gin_phase(dev, tmp)
 
     def entry(name, mode, src_line, launches, blks):
         sel = [r for r in rows if r["mode"] == mode and r["block"] in blks]
@@ -1119,15 +1489,16 @@ def main() -> int:
         for k, v in r["launches"].items():
             launches[k] = max(launches.get(k, 0), v)
 
-    def ventry(name, src_line, mode, source="pair_flow.cu"):
+    def ventry(name, src_line, mode, source="pair_flow.cu", swept=False):
         """Per reverse on its route: the sum over the routed blocks' pairs
-        (3 per block)."""
+        (3 per block).  ``swept``: no route runs the kernel; one pair per
+        block of phase 2b, whose correctness launches are counted."""
         sel = [r for r in vrows if r["name"] == name and r["mode"] == mode]
-        n_pair = cfg.model.n_flow // 2
+        n_pair = 1 if swept else cfg.model.n_flow // 2
         e = {"name": name, "route": "cuda",
              "source": f"flowavenet_tpu_torch/ops/csrc/{source}",
              "replaces": f"flowavenet_tpu/ops/pallas_flow.py:{src_line}",
-             "launches": launches.get(name, 0),
+             "launches": len(sel) if swept else launches.get(name, 0),
              "max_abs_err": max(r["max_abs_err"] for r in sel),
              "ms": n_pair * sum(r["ms"] for r in sel),
              "plain_ms": n_pair * sum(r["plain_ms"] for r in sel),
@@ -1137,7 +1508,31 @@ def main() -> int:
              "library_ms": None}
         if sel[0]["hoist_ms"] is not None:
             e["hoist_matmul_ms"] = n_pair * sum(r["hoist_ms"] for r in sel)
+        if swept:
+            e["launches_from"] = ("phase 2b, one bf16 pair per lj22k block "
+                                  "0-2; no model route runs it")
         return e
+
+    def rentry(name, src_line):
+        """The bf16 sweep of phase 2c: one coupling net per lj22k block
+        through coupling_reverse(use_pallas=True), summed over the blocks
+        that take this kernel."""
+        sel = [r for r in rrows if r.get("sweep") and r["name"] == name
+               and r["mode"] == "bf16"]
+        return {"name": name, "route": "cuda",
+                "source": "flowavenet_tpu_torch/ops/csrc/resblock.cu",
+                "replaces": f"flowavenet_tpu/ops/pallas_resblock.py:{src_line}",
+                "launches": r_launches.get(name, 0),
+                "launches_from": ("phase 2c, one bf16 coupling net per lj22k "
+                                  "block through coupling_reverse(use_pallas"
+                                  "=True); no model route runs it"),
+                "max_abs_err": max(r["max_abs_err"] for r in sel),
+                "ms": sum(r["ms"] for r in sel),
+                "plain_ms": sum(r["plain_ms"] for r in sel),
+                "bound_ms": sum(r["bound_ms"] for r in sel),
+                "bound_by": "operations" if all(
+                    r["bound_by"] == "operations" for r in sel) else "bytes",
+                "library_ms": None}
 
     kernels = [
         entry("pair_flow", "bf16", 410, launches["pair_flow"], range(3, 4)),
@@ -1148,6 +1543,10 @@ def main() -> int:
         ventry("pair_flow_hoisted_i8", 575, "int8"),
         ventry("pair_flow_wino", 1279, "bf16", "pair_flow_wino.cu"),
         ventry("pair_flow_wino4", 1279, "bf16", "pair_flow_wino.cu"),
+        ventry("pair_flow_wino_hoisted", 1378, "bf16", "pair_flow_wino.cu",
+               swept=True),
+        ventry("pair_flow_wino4_hoisted", 1378, "bf16", "pair_flow_wino.cu",
+               swept=True),
         tentry("pair_fwd", "flowavenet_tpu/ops/pallas_flow.py:1565", "pfw",
                "pfw_err", tr["eval"]["fwd_kernel"]["launches"], range(4)),
         tentry("pair_train_fwd",
@@ -1157,7 +1556,9 @@ def main() -> int:
         tentry("pair_train_bwd",
                "flowavenet_tpu/ops/pallas_flow_train.py:462", "bwd",
                "bwd_err", tr["routes"]["kernel"]["launches"].get(
-                   "pair_train_bwd", 0), range(n_tr))]
+                   "pair_train_bwd", 0), range(n_tr)),
+        rentry("resblock", 58),
+        rentry("resblock_v2", 278)]
     check(all(k["launches"] > 0 for k in kernels),
           ("a kernel of the main paths was never launched", kernels))
     rk, rp = tr["routes"]["kernel"], tr["routes"]["plain"]
@@ -1189,6 +1590,8 @@ def main() -> int:
         "ddi_s": tr["ddi_s"],
         "eval_ms_fwd_kernel_route": tr["eval"]["fwd_kernel"]["ms"],
         "eval_ms_plain_route": tr["eval"]["plain"]["ms"],
+        "resblock_route_grad_cos_min": r_grads,
+        "gin": gin,
         "seconds": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

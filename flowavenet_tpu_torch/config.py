@@ -6,7 +6,7 @@ package loads in the other.  The port keeps its own copy because it may
 not import ``flowavenet_tpu`` (whose package import pulls in JAX).
 
 In the port, ``ModelConfig.use_pallas`` selects the hand-written CUDA pair
-kernel (``ops/pair_flow.py``) on the blocks it covers; ``False`` runs the
+kernels (``ops/pair_flow.py``) on the blocks they cover; ``False`` runs the
 plain pair-scan everywhere.
 """
 
@@ -55,10 +55,9 @@ class ModelConfig:
     # blocks it covers (the name is kept from the JAX package so configs
     # round-trip between the two).
     use_pallas: bool = True
-    # Rematerialize each flow step in the backward pass (jax.checkpoint).
-    # Measured on v5e: FASTER even at batch 32 (192 vs 225 ms/step — less
-    # memory pressure) and raises the max train batch from 32 to 128+
-    # (1.42 M samples/s at b128).  No effect on numerics or inference.
+    # Recompute each flow step in the backward pass instead of keeping its
+    # activations (torch.utils.checkpoint in the port): less device memory
+    # per step for more arithmetic.  No effect on numerics or inference.
     remat: bool = True
     # With remat on, rematerialize only the first N blocks' flow steps
     # (-1 = all).  The deep blocks' activations shrink geometrically
@@ -73,9 +72,9 @@ class ModelConfig:
     # logdet uses the bounded value — a structural fix for the measured
     # flagship divergence mode (unbounded log_s growth on an overfit
     # corpus, docs/benchmarks.md).  Changes the model family: checkpoints
-    # are only compatible across equal values, and the fused Pallas pair
-    # kernels (which bake exp(log_s) in-kernel) are bypassed when set —
-    # synthesis falls back to the XLA scans.
+    # are only compatible across equal values, and the fused pair kernels
+    # (which bake exp(log_s) in-kernel) are bypassed when set: synthesis
+    # and training run the plain scans.
     logs_clamp: float = 0.0
 
     @property
@@ -117,8 +116,8 @@ class TrainConfig:
     # measured flagship divergence: overfit logdet growth produced a NaN
     # step that poisoned params irrecoverably (docs/benchmarks.md, the
     # lj22k gate note).  A skipped step is recoverable; NaN params are not.
-    # Cost: XLA fuses the where-selects into the optimizer update — the
-    # flagship b128 train step measured 575.4 vs 574.8 ms (noise-level).
+    # In the port the skip is a torch.where per parameter and optimizer
+    # leaf inside the step, with no host readback.
     skip_nonfinite_updates: bool = True
     # L2 penalty weight on the couplings' log_s outputs (mean of log_s^2
     # added to the NLL; 0.0 = off).  Training-only — the model family and
@@ -153,7 +152,8 @@ class TrainConfig:
     adam_eps: float = 1e-8
     train_steps: int = 2_000_000
     # bf16 compute / fp32 params replaces the reference's fp16 + static loss
-    # scaling (utils.py:3-31, train.py:64,77); no loss scale needed on TPU.
+    # scaling (utils.py:3-31, train.py:64,77): bf16 keeps fp32's exponent
+    # range, so no loss scale is needed.
     compute_dtype: str = "bfloat16"
     seed: int = 75                 # reference tf_random_seed (hparams.py:47)
     temp: float = 0.7              # synthesis noise temperature (hparams.py:48)

@@ -7,14 +7,21 @@ is added by the block):
     front:      wn conv  [3, in, R]
     layers[i]:  filter, gate:     wn conv [3, R, R]
                 filter_c, gate_c: wn 1x1  [1, Cc, R]
+                filter_g, gate_g: wn 1x1  [1, Cg, R] (gin_channels > 0)
                 res, skip:        wn 1x1  [1, R, R]
     final:      wn 1x1  [1, R, R]
     zero:       zero-init 1x1 [1, R, out] + per-channel scale
+
+``use_pallas`` sends each gated layer that keeps its residual through the
+fused ResBlock (``ops/resblock.py``; CUDA kernels ``resblock_v2`` without
+global conditioning and Cc <= ``V2_MAX_CC``, else ``resblock``), as the
+JAX package routes its Pallas ResBlocks.  The model itself never sets it.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -27,7 +34,7 @@ SQRT_HALF = math.sqrt(0.5)
 
 def init_wavenet(gen: torch.Generator, in_channels: int, out_channels: int,
                  num_layers: int, residual_channels: int, cin_channels: int,
-                 kernel_size: int = 3) -> dict:
+                 gin_channels: int = 0, kernel_size: int = 3) -> dict:
     r = residual_channels
     params: dict = {
         "front": init_wn_conv1d(gen, in_channels, r, kernel_size),
@@ -36,14 +43,18 @@ def init_wavenet(gen: torch.Generator, in_channels: int, out_channels: int,
         "zero": init_zero_conv1d(r, out_channels, gen.device),
     }
     for _ in range(num_layers):
-        params["layers"].append({
+        layer = {
             "filter": init_wn_conv1d(gen, r, r, kernel_size),
             "gate": init_wn_conv1d(gen, r, r, kernel_size),
             "filter_c": init_wn_conv1d(gen, cin_channels, r, 1),
             "gate_c": init_wn_conv1d(gen, cin_channels, r, 1),
             "res": init_wn_conv1d(gen, r, r, 1),
             "skip": init_wn_conv1d(gen, r, r, 1),
-        })
+        }
+        if gin_channels > 0:
+            layer["filter_g"] = init_wn_conv1d(gen, gin_channels, r, 1)
+            layer["gate_g"] = init_wn_conv1d(gen, gin_channels, r, 1)
+        params["layers"].append(layer)
     return params
 
 
@@ -53,26 +64,50 @@ def _fused_fg_kernel(pf: dict, pg: dict):
     return k, b
 
 
-def _cond_fg(c, layer: dict, conv_bias: torch.Tensor, out_dtype
-             ) -> torch.Tensor:
+def _cond_fg(c, g: Optional[torch.Tensor], layer: dict,
+             conv_bias: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Conditioning pre-activations plus ``conv_bias``, one [B, T, 2R]
-    tensor.  ``c`` may be a pre-quantized ``(q_int8, fp32_scale)`` pair:
-    the 1x1 then runs on int8 operands (the deep-block int8 route)."""
+    tensor, with the global-conditioning term when ``g`` is given.  ``c``
+    may be a pre-quantized ``(q_int8, fp32_scale)`` pair: the 1x1 then runs
+    on int8 operands (the deep-block int8 route, which has no g)."""
     kc, bc = _fused_fg_kernel(layer["filter_c"], layer["gate_c"])
     if isinstance(c, tuple):
+        if g is not None:
+            raise ValueError("the int8 conditioning route takes no global "
+                             "conditioning")
         c_q, c_scale = c
         return conv1x1_int8(c_q, c_scale, kc,
                             bc + conv_bias.to(bc.dtype), out_dtype)
-    return conv1x1(c, kc, bc + conv_bias.to(bc.dtype))
+    fg = conv1x1(c, kc, bc + conv_bias.to(bc.dtype))
+    if g is not None and "filter_g" in layer:
+        kg, bg = _fused_fg_kernel(layer["filter_g"], layer["gate_g"])
+        fg = fg + conv1x1(g, kg, bg)
+    return fg
 
 
-def _res_layer(h: torch.Tensor, c, layer: dict, dilation: int,
+def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
+               dilation: int, causal: bool = False, use_pallas: bool = False,
                need_residual: bool = True):
     """One gated residual unit: returns (residual_out or None, skip)."""
     r = layer["res"]["b"].shape[0]
     k, b = _fused_fg_kernel(layer["filter"], layer["gate"])
-    fg = dilated_conv1d(h, k, b, dilation=dilation)
-    fg = fg + _cond_fg(c, layer, torch.zeros_like(b), out_dtype=h.dtype)
+    if use_pallas and need_residual:
+        if isinstance(c, tuple):
+            raise ValueError("pre-quantized conditioning takes the plain "
+                             "route (use_pallas=False)")
+        from ..ops import resblock as rb
+        res_w, skip_w = wn_kernel(layer["res"])[0], wn_kernel(layer["skip"])[0]
+        if g is None and c.shape[-1] <= rb.V2_MAX_CC:
+            # v2: the conditioning 1x1 runs inside the kernel
+            kc, bc = _fused_fg_kernel(layer["filter_c"], layer["gate_c"])
+            return rb.fused_gated_resblock_v2(
+                h, c, k, kc[0], bc + b, res_w, layer["res"]["b"], skip_w,
+                layer["skip"]["b"], dilation=dilation, causal=causal)
+        return rb.fused_gated_resblock(
+            h, _cond_fg(c, g, layer, b), k, res_w, layer["res"]["b"],
+            skip_w, layer["skip"]["b"], dilation=dilation, causal=causal)
+    fg = dilated_conv1d(h, k, b, dilation=dilation, causal=causal)
+    fg = fg + _cond_fg(c, g, layer, torch.zeros_like(b), out_dtype=h.dtype)
     out = torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
     skip = conv1x1(out, wn_kernel(layer["skip"]), layer["skip"]["b"])
     if not need_residual:
@@ -83,14 +118,18 @@ def _res_layer(h: torch.Tensor, c, layer: dict, dilation: int,
 
 
 def apply_wavenet(params: dict, x: torch.Tensor, c,
-                  kernel_size: int = 3) -> torch.Tensor:
+                  g: Optional[torch.Tensor] = None, *, causal: bool = False,
+                  kernel_size: int = 3, use_pallas: bool = False
+                  ) -> torch.Tensor:
     """Coupling net: x [B, T, in] half-tensor, c [B, T, Cc] half-condition
-    (or its int8 ``(q, scale)`` pair).  Returns [B, T, out] (log_s || t)."""
-    h = torch.relu(wn_conv1d(x, params["front"], dilation=1))
+    (or its int8 ``(q, scale)`` pair), g [B, T, Cg] half global condition
+    or None.  Returns [B, T, out] (log_s || t for affine couplings)."""
+    h = torch.relu(wn_conv1d(x, params["front"], dilation=1, causal=causal))
     skip_sum = None
     n_layers = len(params["layers"])
     for n, layer in enumerate(params["layers"]):
-        h, s = _res_layer(h, c, layer, dilation=kernel_size ** n,
+        h, s = _res_layer(h, c, g, layer, dilation=kernel_size ** n,
+                          causal=causal, use_pallas=use_pallas,
                           need_residual=n + 1 < n_layers)
         skip_sum = s if skip_sum is None else skip_sum + s
     out = torch.relu(skip_sum)

@@ -59,17 +59,20 @@ def wn_kernel(p: dict) -> torch.Tensor:
 def dilated_conv1d(x: torch.Tensor, kernel: torch.Tensor,
                    bias: Optional[torch.Tensor], dilation: int = 1,
                    causal: bool = False) -> torch.Tensor:
-    """Non-causal dilated conv with symmetric zero padding d*(k-1)//2,
-    accumulated in fp32 and cast back to x.dtype (on the GPU an fp32 conv
-    follows ``torch.backends.cudnn.allow_tf32``)."""
-    if causal:
-        raise NotImplementedError(
-            "causal convs are not ported yet "
-            "(flowavenet_tpu/ops/conv.py:dilated_conv1d, causal=True)")
+    """Dilated conv accumulated in fp32 and cast back to x.dtype (on the
+    GPU an fp32 conv follows ``torch.backends.cudnn.allow_tf32``).
+    Non-causal: symmetric zero padding d*(k-1)//2 (odd kernels).  Causal:
+    a left pad of d*(k-1), the reference's pad-both-sides-then-crop in
+    one step."""
     k = kernel.shape[0]
-    pad = dilation * (k - 1) // 2
     w = kernel.to(x.dtype).permute(2, 1, 0)             # [Cout, Cin, K]
-    out = F.conv1d(x.transpose(1, 2), w, padding=pad, dilation=dilation)
+    xt = x.transpose(1, 2)
+    if causal:
+        out = F.conv1d(F.pad(xt, (dilation * (k - 1), 0)), w,
+                       dilation=dilation)
+    else:
+        out = F.conv1d(xt, w, padding=dilation * (k - 1) // 2,
+                       dilation=dilation)
     out = out.transpose(1, 2)
     if bias is not None:
         out = out + bias.to(x.dtype)

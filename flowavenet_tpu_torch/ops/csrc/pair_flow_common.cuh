@@ -2,8 +2,9 @@
 // included by pair_flow.cu (direct 3-tap filter|gate convs: the ports of
 // _pair_kernel, _pair_kernel_i8, _pair_kernel_i8rs, _pair_kernel_hoisted
 // and _pair_kernel_hoisted_i8 of flowavenet_tpu/ops/pallas_flow.py) and by
-// pair_flow_wino.cu (Winograd F(2,3) / F(4,3) filter|gate convs: the port
-// of _pair_kernel_wino).  One launch applies
+// pair_flow_wino.cu (Winograd F(2,3) / F(4,3) filter|gate convs: the ports
+// of _pair_kernel_wino and _pair_kernel_wino_hoisted).  resblock.cu reuses
+// its CUDA-core product mm2.  One launch applies
 //
 //     u <- u * exp(log_s(v; odd)) + t(v; odd)       coupling (odd flow)
 //     v <- v * sA - bA ; u <- u * sB - bB           ActNorm reverse (odd)

@@ -1,10 +1,12 @@
 // Fused reverse flow PAIR with Winograd filter|gate convs for Hopper
-// (sm_90a): the CUDA port of the Pallas TPU kernel
-// flowavenet_tpu/ops/pallas_flow.py:_pair_kernel_wino, F(2,3) (P = 6,
-// 4 multiplies per 2 outputs) and F(4,3) (P = 12, 6 per 4) over the
-// G-transformed weights of ops/pair_flow.py pair_reverse_operands_wino[4].
-// The front conv, the conditioning 1x1s, gating, res/skip, the final 1x1
-// and the zero conv are those of the direct pair.
+// (sm_90a): the CUDA ports of the Pallas TPU kernels
+// flowavenet_tpu/ops/pallas_flow.py:_pair_kernel_wino and
+// :_pair_kernel_wino_hoisted, F(2,3) (P = 6, 4 multiplies per 2 outputs)
+// and F(4,3) (P = 12, 6 per 4) over the G-transformed weights of
+// ops/pair_flow.py pair_reverse_operands_wino[4].  The front conv, the
+// conditioning 1x1s (or, hoisted, the precomputed pre-activations read
+// per row), gating, res/skip, the final 1x1 and the zero conv are those of
+// the direct pair.
 //
 // The TPU kernel stores every intermediate as P de-interleaved phase planes
 // so that each Winograd tap is a whole shifted plane; here a thread reads
@@ -17,6 +19,21 @@
 // multiplies (4/6 or 6/12 of the direct fg-conv operations).
 
 #include "pair_flow_common.cuh"
+
+namespace {
+
+template <int COND>
+int launch_p(int dtype, int P, const pf::Params& p, cudaStream_t st) {
+  if (P == 6)
+    return dtype == 0 ? pf::launch<float, false, COND, false, 6>(p, st)
+                      : pf::launch<__nv_bfloat16, false, COND, false, 6>(p,
+                                                                        st);
+  return dtype == 0 ? pf::launch<float, false, COND, false, 12>(p, st)
+                    : pf::launch<__nv_bfloat16, false, COND, false, 12>(p,
+                                                                       st);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -33,23 +50,18 @@ int pair_wino_threads() { return pf::NT; }
 
 // ptrs and dims as pair_reverse_launch (pair_flow.cu) with the 15 operands
 // of pair_reverse_operands_wino[4] in the first 15 slots; TT a multiple of
-// P.  Returns the cudaError_t of the launch (0 = success).
-int pair_wino_launch(int dtype, int P, const void* const* ptrs,
+// P.  hoisted != 0: the port of _pair_kernel_wino_hoisted, c_a / c_b hold
+// the precomputed conditioning pre-activations [B, T, 2 layers * 2R] of
+// the even / odd flow (Cc = 4R) and the cond_w slot is null.  Returns the
+// cudaError_t of the launch (0 = success).
+int pair_wino_launch(int dtype, int P, int hoisted, const void* const* ptrs,
                      const int* dims, void* stream) {
   if ((P != 6 && P != 12) || dims[5] % P) return (int)cudaErrorInvalidValue;
   const pf::Params p = pf::make_params(ptrs, dims, P == 6 ? 4 : 6,
                                        dtype == 0 ? 4 : 2, false, false);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using pf::COND_DENSE;
-  if (P == 6)
-    return dtype == 0
-               ? pf::launch<float, false, COND_DENSE, false, 6>(p, st)
-               : pf::launch<__nv_bfloat16, false, COND_DENSE, false, 6>(p,
-                                                                        st);
-  return dtype == 0
-             ? pf::launch<float, false, COND_DENSE, false, 12>(p, st)
-             : pf::launch<__nv_bfloat16, false, COND_DENSE, false, 12>(p,
-                                                                       st);
+  if (hoisted) return launch_p<pf::COND_HOIST>(dtype, P, p, st);
+  return launch_p<pf::COND_DENSE>(dtype, P, p, st);
 }
 
 }  // extern "C"

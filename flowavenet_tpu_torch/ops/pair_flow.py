@@ -5,8 +5,8 @@ the wrappers around the CUDA kernels ``csrc/pair_flow.cu`` and
 Twin of ``flowavenet_tpu/ops/pallas_flow.py``: ``_pair_kernel``,
 ``_pair_kernel_i8``, ``_pair_kernel_i8rs``, ``_pair_kernel_hoisted`` and
 ``_pair_kernel_hoisted_i8`` through :func:`fused_pair_reverse`, and
-``_pair_kernel_wino`` (F(2,3) and F(4,3)) through
-:func:`fused_pair_reverse_wino`.  One pair applies
+``_pair_kernel_wino`` and ``_pair_kernel_wino_hoisted`` (F(2,3) and
+F(4,3)) through :func:`fused_pair_reverse_wino`.  One pair applies
 
     u <- u * exp(log_s(v; odd)) + t(v; odd)       coupling (odd flow)
     v <- v * sA - bA ; u <- u * sB - bB           ActNorm reverse (odd)
@@ -37,14 +37,15 @@ KERNEL_HALO = 10
 SQRT_HALF = 0.7071067811865476
 
 # Launches of the CUDA kernels, by name; each wrapper adds one per launch.
-# pair_flow* are the reverse pair (csrc/pair_flow.cu; pair_flow_wino[4] in
-# csrc/pair_flow_wino.cu); pair_fwd, pair_train_fwd and pair_train_bwd the
-# forward and training pairs (csrc/pair_flow_train.cu,
-# ops/pair_flow_train.py).
+# pair_flow* are the reverse pair (csrc/pair_flow.cu; pair_flow_wino[4] and
+# pair_flow_wino[4]_hoisted in csrc/pair_flow_wino.cu); pair_fwd,
+# pair_train_fwd and pair_train_bwd the forward and training pairs
+# (csrc/pair_flow_train.cu, ops/pair_flow_train.py).
 LAUNCHES = {"pair_flow": 0, "pair_flow_i8": 0, "pair_flow_i8rs": 0,
             "pair_flow_hoisted": 0, "pair_flow_hoisted_i8": 0,
-            "pair_flow_wino": 0, "pair_flow_wino4": 0, "pair_fwd": 0,
-            "pair_train_fwd": 0, "pair_train_bwd": 0}
+            "pair_flow_wino": 0, "pair_flow_wino4": 0,
+            "pair_flow_wino_hoisted": 0, "pair_flow_wino4_hoisted": 0,
+            "pair_fwd": 0, "pair_train_fwd": 0, "pair_train_bwd": 0}
 
 
 def kernel_t_tile(dtype: torch.dtype, r_in: int = 1) -> int:
@@ -166,16 +167,21 @@ def pair_reverse_operands_int8(pair: dict, dtype=torch.bfloat16,
     return tuple(ops) + tuple(scales)
 
 
-def pair_reverse_operands_hoisted(pair: dict, dtype=torch.bfloat16):
-    """Operands for the hoisted-conditioning pair (``_pair_kernel_hoisted``):
-    returns (operands, (w_even, w_odd)), where ``operands`` are the 15 of
-    :func:`pair_reverse_operands` without cond_w (14) and w_flow is the
-    [Cc, n_layer*2R] hoist weight (layer 0 || layer 1 on the output axis),
-    applied as ``c_half @ w_flow`` outside the kernel."""
-    ops = list(pair_reverse_operands(pair, dtype))
+def pop_cond_w(operands) -> tuple:
+    """Hoisted form of a pair's 15 operands: (the 14 without cond_w,
+    (w_even, w_odd)), where w_flow is the [Cc, n_layer*2R] hoist weight
+    (layer 0 || layer 1 on the output axis), applied as ``c_half @ w_flow``
+    outside the kernel."""
+    ops = list(operands)
     cond_w = ops.pop(3)                        # [2(flow), n_layer, Cc, 2R]
     hoist = torch.cat([cond_w[:, l] for l in range(cond_w.shape[1])], -1)
     return tuple(ops), (hoist[0], hoist[1])
+
+
+def pair_reverse_operands_hoisted(pair: dict, dtype=torch.bfloat16):
+    """Operands for the hoisted-conditioning pair (``_pair_kernel_hoisted``):
+    :func:`pop_cond_w` of :func:`pair_reverse_operands`."""
+    return pop_cond_w(pair_reverse_operands(pair, dtype))
 
 
 def pair_reverse_operands_hoisted_int8(pair: dict, dtype=torch.bfloat16):
@@ -240,13 +246,17 @@ def pair_reverse_operands_wino(pair: dict, dtype=torch.bfloat16) -> tuple:
                  for i, o in enumerate(ops))
 
 
-def pair_reverse_operands_wino4(pair: dict, dtype=torch.bfloat16) -> tuple:
+def pair_reverse_operands_wino4(pair: dict, dtype=torch.bfloat16,
+                                hoisted: bool = False):
     """F(4,3) operands: kfg becomes [2, n_layer, 6, R, 2R] (G-transform in
-    fp32; the 1/6, 1/12, 1/24 factors round once into ``dtype``)."""
+    fp32; the 1/6, 1/12, 1/24 factors round once into ``dtype``).
+    ``hoisted=True`` returns (operands, (w_even, w_odd)) as
+    :func:`pop_cond_w` does (``_pair_kernel_wino_hoisted``)."""
     ops = list(pair_reverse_operands(pair, dtype=torch.float32))
     ops[2] = _wino4_weights(ops[2])
-    return tuple(o.to(dtype) if i in _WEIGHT_OPERANDS else o
-                 for i, o in enumerate(ops))
+    ops = tuple(o.to(dtype) if i in _WEIGHT_OPERANDS else o
+                for i, o in enumerate(ops))
+    return pop_cond_w(ops) if hoisted else ops
 
 
 # ---------------------------------------------------------------------------
@@ -528,12 +538,14 @@ def _wino_conv(buf, buf0: int, U, out0: int, out_len: int, step: int,
 
 
 def _coupling_net_wino(x_buf, x_a: int, c_buf, *, a_h0: int, p_win, T: int,
-                       w: dict, rnd, P: int):
+                       w: dict, rnd, P: int, hoisted: bool = False):
     """Plain mirror of the JAX ``_coupling_net_wino`` in window rows (a
     plane row a of the Pallas kernel is window row a*P): x_buf covers
     window rows [x_a*P, L - x_a*P), c_buf the whole window, p_win [N] the
     global position of window row 0.  h0 runs over region a_h0, layer 0
-    over a_h0 + 1, layer 1 and the output over a_h0 + 2."""
+    over a_h0 + 1, layer 1 and the output over a_h0 + 2.  ``hoisted``:
+    c_buf holds the conditioning pre-activations (layer 0 || layer 1),
+    read instead of ``c @ cond_w``."""
     wt = x_buf.dtype
     L = c_buf.shape[1]
     s0, s1, s2 = a_h0 * P, (a_h0 + 1) * P, (a_h0 + 2) * P
@@ -543,6 +555,13 @@ def _coupling_net_wino(x_buf, x_a: int, c_buf, *, a_h0: int, p_win, T: int,
         r = fg.shape[-1] // 2
         return rnd(torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:]))
 
+    def cond(layer, s, length):
+        tap = c_buf[:, s:s + length]
+        if hoisted:
+            w2r = tap.shape[-1] // 2
+            return tap[..., layer * w2r:(layer + 1) * w2r]
+        return torch.matmul(tap, w["cond_w"][layer])
+
     h0 = None
     for k in range(3):
         st = s0 - 1 + k - x_a * P
@@ -551,7 +570,7 @@ def _coupling_net_wino(x_buf, x_a: int, c_buf, *, a_h0: int, p_win, T: int,
     h0 = _mask(rnd(torch.relu(h0 + w["front_b"])), p_win + s0, T)
 
     fg0 = _wino_conv(h0, s0, w["kfg"][0], s1, L1, 1, P, rnd)
-    fg0 = fg0 + torch.matmul(c_buf[:, s1:s1 + L1], w["cond_w"][0])
+    fg0 = fg0 + cond(0, s1, L1)
     fg0 = fg0 + w["cond_b"][0]
     r = fg0.shape[-1] // 2
     rsk = torch.matmul(gate(fg0),
@@ -560,7 +579,7 @@ def _coupling_net_wino(x_buf, x_a: int, c_buf, *, a_h0: int, p_win, T: int,
     h1 = _mask(h1, p_win + s1, T)
 
     fg1 = _wino_conv(h1, s1, w["kfg"][1], s2, L2, 3, P, rnd)
-    fg1 = fg1 + torch.matmul(c_buf[:, s2:s2 + L2], w["cond_w"][1])
+    fg1 = fg1 + cond(1, s2, L2)
     fg1 = fg1 + w["cond_b"][1]
     sk = (rsk[:, P:P + L2, r:] + w["skip_b"][0]
           + torch.matmul(gate(fg1), w["skip_w"][1]) + w["skip_b"][1])
@@ -569,11 +588,15 @@ def _coupling_net_wino(x_buf, x_a: int, c_buf, *, a_h0: int, p_win, T: int,
     return torch.matmul(out, w["zw"]) + w["zb"]
 
 
-def pair_reverse_wino_ref(u, v, c_a, c_b, operands, *, t_tile: int):
+def pair_reverse_wino_ref(u, v, c_a, c_b, operands, *, t_tile: int,
+                          hoisted: bool = False):
     """Plain version of the Winograd pair (the JAX ``_pair_kernel_wino``
     with ``n_pair = 1``, ``nb = 1``): ``operands`` from
     :func:`pair_reverse_operands_wino` (F(2,3), P = 6) or
-    :func:`pair_reverse_operands_wino4` (F(4,3), P = 12).  Windows of
+    :func:`pair_reverse_operands_wino4` (F(4,3), P = 12).  ``hoisted``
+    (``_pair_kernel_wino_hoisted``): c_a/c_b are the precomputed
+    conditioning pre-activations [B, T, n_layer*2R] of the even / odd flow
+    and ``operands`` the 14 of :func:`pop_cond_w`.  Windows of
     ``t_tile`` rows (a multiple of P) plus the JAX kernel's 6P-row halo;
     every stage runs over the JAX kernel's plane-row regions, with its edge
     masks and cast points.  The output does not depend on ``t_tile``: the
@@ -599,21 +622,21 @@ def pair_reverse_wino_ref(u, v, c_a, c_b, operands, *, t_tile: int):
     L = uw.shape[1]
     p_win = ((torch.arange(n_t, device=u.device) * t_tile - halo)
              .repeat(B))
-    names = _operand_names(len(operands), False, False)
-    an_s = operands[13].to(wt)
-    an_b = operands[14].to(wt)
+    names = _operand_names(len(operands), False, hoisted)
+    an_s = operands[names.index("an_s")].to(wt)
+    an_b = operands[names.index("an_b")].to(wt)
 
     # odd flow: u' at region 3 (window rows [3P, L-3P))
     net = _coupling_net_wino(vw, 0, cbw, a_h0=1, p_win=p_win, T=T,
                              w=_flow_weights(operands, names, 1, wt),
-                             rnd=rnd, P=P)
+                             rnd=rnd, P=P, hoisted=hoisted)
     s3 = 3 * P
     u_mid = uw[:, s3:L - s3] * torch.exp(net[..., :r_in]) + net[..., r_in:]
     u_mid = _mask(rnd(u_mid * an_s[1, 1] - an_b[1, 1]), p_win + s3, T)
     # even flow: v' at region 6, the tile
     net2 = _coupling_net_wino(u_mid, 3, caw, a_h0=4, p_win=p_win, T=T,
                               w=_flow_weights(operands, names, 0, wt),
-                              rnd=rnd, P=P)
+                              rnd=rnd, P=P, hoisted=hoisted)
     s6 = 6 * P
     v_an = vw[:, s6:L - s6] * an_s[1, 0] - an_b[1, 0]
     v_new = v_an * torch.exp(net2[..., :r_in]) + net2[..., r_in:]
@@ -650,8 +673,10 @@ def _library(name: str = "pair_flow"):
     getattr(lib, f"{pre}_threads").restype = c_int
     getattr(lib, f"{pre}_smem_bytes").argtypes = [c_int] * 5
     getattr(lib, f"{pre}_smem_bytes").restype = c_int
-    getattr(lib, f"{pre}_launch").argtypes = [c_int, c_int, c_ptr, c_ptr,
-                                              c_ptr]
+    # the Winograd launch also takes its hoisted flag
+    getattr(lib, f"{pre}_launch").argtypes = (
+        [c_int] * (3 if name == "pair_flow_wino" else 2)
+        + [c_ptr, c_ptr, c_ptr])
     getattr(lib, f"{pre}_launch").restype = c_int
     return lib
 
@@ -732,8 +757,9 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
                               ).reshape(B, 2).contiguous()
     dcode = 0 if dt == torch.float32 else 1
     if phases:
-        variant, counter = phases, ("pair_flow_wino" if phases == 6
-                                    else "pair_flow_wino4")
+        variant = phases
+        counter = ("pair_flow_wino" if phases == 6 else "pair_flow_wino4"
+                   ) + ("_hoisted" if hoisted else "")
         t_tile = wino_t_tile(dt, phases)
     else:
         variant, counter = _VARIANTS[int8, rs, hoisted]
@@ -752,8 +778,9 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
     dims = (ctypes.c_int * 6)(B, T, r_in, R, Cc, t_tile)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
+        args = (dcode, variant) + ((int(hoisted),) if phases else ())
         err = getattr(lib, f"{pre}_launch")(
-            dcode, variant, ctypes.cast(ptr_arr, ctypes.c_void_p),
+            *args, ctypes.cast(ptr_arr, ctypes.c_void_p),
             ctypes.cast(dims, ctypes.c_void_p), stream)
     if err != 0:
         raise RuntimeError(f"{counter} kernel launch failed: cudaError {err}")
@@ -786,18 +813,24 @@ def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,
                    c_row_scales=c_row_scales)
 
 
-def fused_pair_reverse_wino(u, v, c_a, c_b, operands):
+def fused_pair_reverse_wino(u, v, c_a, c_b, operands, *,
+                            hoisted: bool = False):
     """Apply one reverse flow pair with Winograd filter|gate convs (port of
     ``_pair_kernel_wino``); ``operands`` from
     :func:`pair_reverse_operands_wino` (F(2,3)) or
-    :func:`pair_reverse_operands_wino4` (F(4,3)).  A CPU tensor runs
-    :func:`pair_reverse_wino_ref` at the kernel's tile; a CUDA tensor
-    launches ``pair_flow_wino`` / ``pair_flow_wino4`` (or raises)."""
+    :func:`pair_reverse_operands_wino4` (F(4,3)).  ``hoisted`` (port of
+    ``_pair_kernel_wino_hoisted``): c_a/c_b are the precomputed
+    conditioning pre-activations [B, T, n_layer*2R] of the even / odd flow
+    (:func:`hoist_cond`) and ``operands`` come through :func:`pop_cond_w`.
+    A CPU tensor runs :func:`pair_reverse_wino_ref` at the kernel's tile; a
+    CUDA tensor launches ``pair_flow_wino[4]`` or
+    ``pair_flow_wino[4]_hoisted`` (or raises)."""
     P = 6 if operands[2].shape[2] == 4 else 12
     if u.device.type == "cpu":
         return pair_reverse_wino_ref(u, v, c_a, c_b, operands,
-                                     t_tile=wino_t_tile(u.dtype, P))
-    return _launch(u, v, c_a, c_b, operands, int8=False, hoisted=False,
+                                     t_tile=wino_t_tile(u.dtype, P),
+                                     hoisted=hoisted)
+    return _launch(u, v, c_a, c_b, operands, int8=False, hoisted=hoisted,
                    c_row_scales=None, phases=P)
 
 

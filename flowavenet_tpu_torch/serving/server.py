@@ -16,7 +16,8 @@ micro-batching (twin of ``flowavenet_tpu/serving/server.py``).
 API:
   POST /synthesize     body = float32 .npy of one [T_mel, num_mels] mel;
                        headers X-Seed (int), X-Temp (float), X-Speaker-Id
-                       (accepted; global conditioning is not ported).
+                       (int; a global-conditioning model without one
+                       synthesizes speaker 0).
                        Response: 16-bit PCM WAV.  Mels longer than
                        max_frames go through the streaming path server-side
                        with the same complete-WAV response.
@@ -161,6 +162,8 @@ class SynthesisService:
                 f"mel must be [T, {self.cfg.audio.num_mels}], got {mel.shape}")
         if self._stop.is_set():
             raise RuntimeError("service closed")
+        if self.cfg.model.gin_channels > 0 and speaker_id is None:
+            speaker_id = 0           # as submit: gin models default to 0
         plan = plan_chunks(self.cfg, mel.shape[0], chunk_frames)
         n_samples = plan.total_frames * self.cfg.audio.hop_size
 
@@ -240,9 +243,14 @@ class SynthesisService:
         self.stats["max_dispatch_rows_seen"] = max(
             self.stats["max_dispatch_rows_seen"], len(group))
         try:
+            # a gin model's request without X-Speaker-Id is speaker 0
+            sids = ([r.speaker_id if r.speaker_id is not None else 0
+                     for r in group] if self.cfg.model.gin_channels > 0
+                    else None)
             wav, frames = dispatch_mels(
                 self.params, self.cfg, [r.mel for r in group],
-                seed=[r.seed for r in group], temp=[r.temp for r in group],
+                seed=[r.seed for r in group], speaker_ids=sids,
+                temp=[r.temp for r in group],
                 bucket_frames=self.bucket_frames,
                 # group sizes follow the load: pow2 rows keep the set of
                 # batch shapes (and each row's arithmetic) small

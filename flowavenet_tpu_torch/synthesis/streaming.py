@@ -108,6 +108,16 @@ def _window_starts(plan: ChunkPlan) -> Iterator[tuple[int, int, int]]:
         yield start, stop, w0
 
 
+def _speaker_rows(cfg: Config, speaker_id: Optional[int], rows: int,
+                  dev: torch.device) -> Optional[torch.Tensor]:
+    """Speaker ids [rows] of a global-conditioning model, or None (no
+    model g, or no id: then reverse raises, as in the JAX package)."""
+    if cfg.model.gin_channels <= 0 or speaker_id is None:
+        return None
+    return torch.full((rows,), int(speaker_id), dtype=torch.long,
+                      device=dev)
+
+
 def _check_mel(cfg: Config, mel: np.ndarray) -> None:
     if mel.ndim != 2 or mel.shape[1] != cfg.audio.num_mels:
         raise ValueError(
@@ -130,8 +140,8 @@ def stream_reverse(params, cfg: Config, mel: np.ndarray, seed: int = 0,
     length.  Each window's halo is trimmed on the device; one window stays
     in flight (window k+1 is queued before window k is read back), except
     the first, which is read back at once for time to first audio.
-    ``speaker_id`` is accepted for the JAX signature; global conditioning
-    is not ported (reverse raises)."""
+    ``speaker_id`` selects the speaker of a global-conditioning model (the
+    same id in every window: g is constant in time)."""
     _check_mel(cfg, mel)
     dev = resolve_device(device)
     dt = resolve_compute_dtype(cfg, compute_dtype)
@@ -144,6 +154,7 @@ def stream_reverse(params, cfg: Config, mel: np.ndarray, seed: int = 0,
     mel = np.ascontiguousarray(mel[: plan.total_frames], np.float32)
     keep = plan.chunk_frames * hop
     wf_hop = plan.window_frames * hop
+    g = _speaker_rows(cfg, speaker_id, 1, dev)
 
     def materialize(dev_wav, start, stop, off):
         wav = dev_wav.float().cpu().numpy()
@@ -161,7 +172,7 @@ def stream_reverse(params, cfg: Config, mel: np.ndarray, seed: int = 0,
         k0 = min((start - w0) * hop, wf_hop - keep)
         with torch.no_grad():
             wav = reverse(params, cfg.model, upload(z, dt, dev),
-                          upload(c, dt, dev), compute_dtype=dt
+                          upload(c, dt, dev), g, compute_dtype=dt
                           )[0, k0: k0 + keep, 0]
         off = (start - w0) * hop - k0
         if first:
@@ -203,7 +214,8 @@ def synthesize_time_parallel(params, cfg: Config, mel: np.ndarray,
     JAX package's ``normal(fold_in(PRNGKey(seed), frame))`` per mel frame,
     synthesis/noise.py), a function of (seed, absolute frame) alone;
     ``pcm16`` (device noise only) returns int16 quantized on the device.
-    Sharding over several devices is not ported."""
+    ``speaker_id`` as in :func:`stream_reverse`.  Sharding over several
+    devices is not ported."""
     _check_mel(cfg, mel)
     if noise not in ("host", "device"):
         raise ValueError(f"noise must be 'host' or 'device', got {noise!r}")
@@ -236,6 +248,7 @@ def synthesize_time_parallel(params, cfg: Config, mel: np.ndarray,
     out = np.empty(n_total, np.int16 if pcm16 else np.float32)
     windows = list(_window_starts(plan))
     temps = np.full((rows,), t0, np.float32)
+    g = _speaker_rows(cfg, speaker_id, rows, dev)
 
     def materialize(dev_wav, geom, offs):
         wav = (dev_wav if pcm16 else dev_wav.float()).cpu().numpy()
@@ -265,7 +278,7 @@ def synthesize_time_parallel(params, cfg: Config, mel: np.ndarray,
         k0s = [min((s - w) * hop, wf * hop - keep) for s, _, w in geom]
         offs = [(s - w) * hop - k0 for (s, _, w), k0 in zip(geom, k0s)]
         with torch.no_grad():
-            wav = reverse(params, cfg.model, z_t, c_t, compute_dtype=dt)
+            wav = reverse(params, cfg.model, z_t, c_t, g, compute_dtype=dt)
             wav = torch.stack([wav[i, k0: k0 + keep, 0]
                                for i, k0 in enumerate(k0s)])
             if pcm16:

@@ -110,9 +110,9 @@ def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
     ``noise='device'`` draws each row's z on the device as the JAX package
     does (``normal(PRNGKey(seed)) * temp``, synthesis/noise.py) instead of
     uploading host RandomState noise; ``pcm16`` (device noise only)
-    quantizes to int16 on the device.  ``speaker_ids`` is accepted for the
-    JAX signature; global conditioning itself is not ported (reverse
-    raises)."""
+    quantizes to int16 on the device.  ``speaker_ids`` (one per mel) select
+    each row's speaker on a global-conditioning model; padding rows take
+    speaker 0.  A gin model without them raises, as in the JAX package."""
     if noise not in ("host", "device"):
         raise ValueError(f"noise must be 'host' or 'device', got {noise!r}")
     if pcm16 and noise != "device":
@@ -156,7 +156,12 @@ def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
             z[i, :, 0] = np.random.RandomState(s % (2 ** 32)).randn(
                 pad_frames * hop) * t
         z_t = upload(torch.from_numpy(z), dt, dev)
-    wav = reverse(params, cfg.model, z_t, c_t, compute_dtype=dt)
+    g = None
+    if cfg.model.gin_channels > 0 and speaker_ids is not None:
+        ids = np.zeros((n_rows,), np.int64)
+        ids[:n] = np.asarray(speaker_ids, np.int64)
+        g = torch.from_numpy(ids).to(dev)
+    wav = reverse(params, cfg.model, z_t, c_t, g, compute_dtype=dt)
     if pcm16:
         wav = pcm16_quantize(wav)
     return wav, frames

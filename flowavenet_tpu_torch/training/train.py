@@ -62,10 +62,6 @@ def train(cfg: Config, data_dir: str, logdir: str, *, restore: bool = True,
           eval_interval: int | None = None, probe_synthesis: bool = True,
           log_every: int = 50, device: str | torch.device = "cuda") -> str:
     """Train to ``train_steps``; returns the checkpoint directory."""
-    if cfg.model.gin_channels > 0:
-        raise NotImplementedError(
-            "training with global conditioning is not ported yet "
-            "(flowavenet_tpu/training/train.py, with_speaker)")
     dev = resolve_device(device)
     t_cfg = cfg.train
     train_steps = train_steps or t_cfg.train_steps
@@ -78,15 +74,18 @@ def train(cfg: Config, data_dir: str, logdir: str, *, restore: bool = True,
     writer = MetricsWriter(os.path.join(logdir, "train"))
     test_writer = MetricsWriter(os.path.join(logdir, "test"))
     batch_size = cfg.data.batch_size
+    # a global-conditioning model trains on the records' speaker ids
+    with_speaker = cfg.model.gin_channels > 0
     dataset = CropDataset(
         os.path.join(data_dir, "train.fwrec"), hop_size=cfg.audio.hop_size,
         max_time_steps=cfg.data.max_time_steps, batch_size=batch_size,
-        seed=t_cfg.seed)
+        seed=t_cfg.seed, with_speaker=with_speaker)
     test_path = os.path.join(data_dir, "test.fwrec")
     test_dataset = CropDataset(
         test_path, hop_size=cfg.audio.hop_size,
         max_time_steps=cfg.data.max_time_steps, batch_size=batch_size,
-        seed=t_cfg.seed + 1) if os.path.exists(test_path) else None
+        seed=t_cfg.seed + 1, with_speaker=with_speaker) \
+        if os.path.exists(test_path) else None
 
     state = create_state(torch.Generator(dev).manual_seed(t_cfg.seed), cfg)
     n_params = sum(l.numel() for l in leaves(state.params))
@@ -189,12 +188,14 @@ def _synthesis_probe(state: TrainState, cfg: Config, data_dir: str,
     reader = FwRecordReader(path)
     rng = np.random.RandomState(cfg.train.seed + step)
     i = int(rng.randint(len(reader)))
-    audio, mel, _ = reader.read(i)
+    audio, mel, sid = reader.read(i)
     reader.close()
     frames = min(mel.shape[0],
                  cfg.data.eval_max_time_steps // cfg.audio.hop_size)
     wavs = synthesize_mels(state.params, cfg, [mel[:frames]],
-                           seed=int(rng.randint(2 ** 31)), device=dev)
+                           seed=int(rng.randint(2 ** 31)),
+                           speaker_ids=([sid] if cfg.model.gin_channels > 0
+                                        else None), device=dev)
     writer.wav(step, "prediction", wavs[0], cfg.audio.sample_rate)
     writer.wav(step, "target", audio[: len(wavs[0])], cfg.audio.sample_rate)
 

@@ -49,10 +49,16 @@ def _compute_dtype(cfg: Config):
             else torch.float32)
 
 
+def _speakers(cfg: Config, batch: dict):
+    """The batch's speaker ids [B] as g on a global-conditioning model."""
+    return batch.get("speaker") if cfg.model.gin_channels > 0 else None
+
+
 def make_train_step(cfg: Config):
     """Returns train_step(state, batch) -> (state, metrics); batch holds
-    device tensors "audio" [B, T, 1] and "mel" [B, T/hop, mels]; metrics
-    are 0-d device tensors."""
+    device tensors "audio" [B, T, 1], "mel" [B, T/hop, mels] and, for a
+    global-conditioning model, "speaker" [B]; metrics are 0-d device
+    tensors."""
     opt = make_optimizer(cfg.train)
     schedule = lr_schedule(cfg.train)
     dt = _compute_dtype(cfg)
@@ -62,7 +68,8 @@ def make_train_step(cfg: Config):
         params = tree_map(lambda l: l.detach().requires_grad_(),
                           state.params)
         total, aux = fwn.loss_fn(params, cfg.model, batch["audio"],
-                                 batch["mel"], compute_dtype=dt,
+                                 batch["mel"], _speakers(cfg, batch),
+                                 compute_dtype=dt,
                                  logs_l2=tc.logs_l2,
                                  logs_hinge=tc.logs_hinge)
         if tc.actnorm_hinge > 0.0:
@@ -106,7 +113,7 @@ def make_eval_step(cfg: Config):
     @torch.no_grad()
     def eval_step(params, batch: dict):
         _, aux = fwn.loss_fn(params, cfg.model, batch["audio"], batch["mel"],
-                             compute_dtype=dt)
+                             _speakers(cfg, batch), compute_dtype=dt)
         return aux
 
     return eval_step
@@ -116,5 +123,6 @@ def ddi_initialize(state: TrainState, cfg: Config, batch: dict
                    ) -> TrainState:
     """Data-dependent ActNorm init from one batch, in fp32."""
     new_params = fwn.ddi(state.params, cfg.model, batch["audio"],
-                         batch["mel"], compute_dtype=torch.float32)
+                         batch["mel"], _speakers(cfg, batch),
+                         compute_dtype=torch.float32)
     return state._replace(params=new_params)

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the CUDA pair kernels against their plain
-versions, the fused-pair routes of ``reverse`` against the CPU, and the
+"""PyTorch port on the card: the CUDA pair and ResBlock kernels against
+their plain versions, the fused-pair routes of ``reverse`` against the CPU, and the
 device noise against the CPU's.  Every test here
 needs a CUDA device and skips without one.  This file imports neither JAX
 nor the JAX package, so it also runs where JAX is absent:
@@ -14,6 +14,7 @@ import torch
 from flowavenet_tpu_torch.config import lj22k, tiny
 from flowavenet_tpu_torch.models import flowavenet as fwn
 from flowavenet_tpu_torch.ops import pair_flow as pf
+from flowavenet_tpu_torch.ops import resblock as rb
 from flowavenet_tpu_torch.ops.conv import quantize_act
 from flowavenet_tpu_torch.utils.tree import tree_map
 
@@ -330,3 +331,111 @@ def test_train_kernels_match_plain(cuda, monkeypatch, bi, mode):
             assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
         elif float(b.abs().max()) > 0:
             assert _cos(a, b) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phases", [6, 12])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_wino_hoisted_kernel_matches_plain(cuda, phases, mode):
+    """pair_flow_wino[4]_hoisted vs pair_reverse_wino_ref(hoisted=True) at
+    block 1's lj22k widths, two rows, T = 1000, on the pre-activations of
+    hoist_cond: the bars of test_wino_kernel_matches_plain."""
+    r_in, cc, T = 2, 160, 1000
+    dt = torch.float32 if mode == "fp32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(8)
+    u, v = (torch.randn(2, T, r_in, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    ca, cb = (torch.rand(2, T, cc, generator=g, device=cuda).to(dt)
+              for _ in range(2))
+    if phases == 6:
+        ops, (we, wo) = pf.pop_cond_w(
+            pf.pair_reverse_operands_wino(_pair(1, cuda), dt))
+    else:
+        ops, (we, wo) = pf.pair_reverse_operands_wino4(_pair(1, cuda), dt,
+                                                       hoisted=True)
+    c = [pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo)]
+    name = ("pair_flow_wino" if phases == 6 else "pair_flow_wino4") \
+        + "_hoisted"
+    n0 = pf.LAUNCHES[name]
+    got = pf.fused_pair_reverse_wino(u, v, *c, ops, hoisted=True)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES[name] == n0 + 1
+    want = pf.pair_reverse_wino_ref(u, v, *c, ops, t_tile=60, hoisted=True)
+    ops_pass = tuple(torch.zeros_like(o) if i in (10, 11) else o
+                     for i, o in enumerate(ops))       # zw = zb = 0
+    passthru = pf.pair_reverse_wino_ref(u, v, *c, ops_pass, t_tile=60,
+                                        hoisted=True)
+    _check(got, want, passthru, 1e-4 if mode == "fp32" else 1e-2,
+           None if mode == "fp32" else 0.999)
+
+
+def _resblock_args(cuda, dt, v2: bool, cc: int, T: int = 700, B: int = 2,
+                   R: int = 256):
+    """Seeded ResBlock inputs at the lj22k width R: h, the conditioning
+    (cond_fg, or v2's c), weights scaled like the weight-normed convs and
+    fp32 biases."""
+    g = torch.Generator(device=cuda).manual_seed(cc + v2)
+    rn = lambda *s, sc=1.0: sc * torch.randn(*s, generator=g, device=cuda)
+    h = rn(B, T, R).to(dt)
+    cond = (torch.rand(B, T, cc, generator=g, device=cuda) if v2
+            else rn(B, T, 2 * R)).to(dt)
+    w = [rn(3, R, 2 * R, sc=0.03), rn(R, R, sc=0.06), rn(R), rn(R, R,
+                                                              sc=0.06),
+         rn(R)]
+    if v2:
+        return (h, cond, w[0], rn(cc, 2 * R, sc=0.03), rn(2 * R), *w[1:])
+    return (h, cond, *w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v2", [False, True], ids=["resblock", "resblock_v2"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal,dilation", [(False, 1), (True, 3)])
+def test_resblock_kernels_match_plain(cuda, v2, mode, causal, dilation):
+    """resblock / resblock_v2 vs resblock_ref / resblock_v2_ref at R = 256,
+    T = 700 (a ragged last tile), Cc = 2560 for v2 (lj22k block 5, several
+    c chunks): fp32 rel-to-max <= 1e-4, bf16 rel <= 1e-2 and corr >= 0.999.
+    The Function's backward (the JAX package's _fgr_bwd / _fgr2_bwd) vs
+    autograd through the plain version: fp32 rel-to-max <= 1e-4 per input,
+    bf16 cosine >= 0.99 (the two round to bf16 at other points)."""
+    dt = torch.float32 if mode == "fp32" else torch.bfloat16
+    args = _resblock_args(cuda, dt, v2, 2560)
+    name = "resblock_v2" if v2 else "resblock"
+    fn = rb.fused_gated_resblock_v2 if v2 else rb.fused_gated_resblock
+    ref = rb.resblock_v2_ref if v2 else rb.resblock_ref
+    n0 = rb.LAUNCHES[name]
+    xs = [a.clone().requires_grad_() for a in args]
+    got = fn(*xs, dilation=dilation, causal=causal)
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES[name] == n0 + 1
+    want = ref(*args, dilation=dilation, causal=causal)
+    for a, b in zip(got, want):
+        a, b = a.detach().float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        rel = float((a - b).abs().max() / b.abs().max())
+        if mode == "fp32":
+            assert rel <= 1e-4
+        else:
+            assert rel <= 1e-2 and _cos(a - a.mean(), b - b.mean()) >= 0.999
+    cts = [torch.randn(a.shape, device=cuda).to(dt) for a in got]
+    torch.autograd.backward(got, cts)
+    ys = [a.clone().requires_grad_() for a in args]
+    torch.autograd.backward(ref(*ys, dilation=dilation, causal=causal), cts)
+    for x, y in zip(xs, ys):
+        a, b = x.grad.float(), y.grad.float()
+        assert bool(torch.isfinite(a).all())
+        if mode == "fp32":
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        else:
+            assert _cos(a, b) >= 0.99
+
+
+@pytest.mark.cuda
+def test_resblock_rejects_bad_inputs(cuda):
+    args = _resblock_args(cuda, torch.float32, False, 512, T=64)
+    with pytest.raises(ValueError, match="must be on"):
+        rb.fused_gated_resblock(args[0], args[1].cpu(), *args[2:],
+                                dilation=1, causal=False)
+    with pytest.raises(ValueError, match="S == R"):
+        rb.fused_gated_resblock(*args[:5], args[5][:, :128], args[6][:128],
+                                dilation=1, causal=False)

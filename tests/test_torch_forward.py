@@ -206,13 +206,3 @@ def test_remat_changes_no_number(model):
     assert outs[0][0] == outs[1][0]
     for a, b in zip(outs[0][1], outs[1][1]):
         np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize("change,match", [
-    (dict(causal=True), "causal"), (dict(affine=False), "additive"),
-    (dict(n_flow=3), "odd n_flow"), (dict(logs_clamp=3.0), "logs_clamp")])
-def test_forward_outside_the_slice_raises(model, change, match):
-    _, tp, x, c = model
-    with pytest.raises(NotImplementedError, match=match):
-        tfwn.forward(tp, dataclasses.replace(CFG, **change),
-                     torch.from_numpy(x), torch.from_numpy(c))

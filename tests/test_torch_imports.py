@@ -38,6 +38,7 @@ def test_sources_found():
     assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow.cu").exists()
     assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow_train.cu").exists()
     assert (ROOT / "flowavenet_tpu_torch/ops/csrc/pair_flow_wino.cu").exists()
+    assert (ROOT / "flowavenet_tpu_torch/ops/csrc/resblock.cu").exists()
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"flowavenet_tpu_torch/ops/pair_flow_train.py",
             "flowavenet_tpu_torch/training/optimizer.py",
@@ -50,6 +51,7 @@ def test_sources_found():
             "flowavenet_tpu_torch/synthesis/noise.py",
             "flowavenet_tpu_torch/synthesis/streaming.py",
             "flowavenet_tpu_torch/serving/server.py",
+            "flowavenet_tpu_torch/ops/resblock.py",
             "flowavenet_tpu_torch/utils/device.py"} <= names
 
 
@@ -97,3 +99,32 @@ def test_serving_entry_points_need_cuda_unless_cpu(monkeypatch):
         server.SynthesisService({}, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         server.serve({}, cfg, port=0)
+
+
+def test_package_data_ships_every_kernel_source():
+    """pyproject's package-data for the port's ops covers every file the
+    kernel builds read (the .cu sources and the shared .cuh headers), so
+    an installed copy builds its kernels."""
+    import fnmatch
+    import tomllib
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    globs = data["flowavenet_tpu_torch.ops"]
+    csrc = ROOT / "flowavenet_tpu_torch/ops/csrc"
+    files = sorted(p.relative_to(csrc.parent).as_posix()
+                   for p in csrc.iterdir())
+    assert {p.suffix for p in csrc.iterdir()} == {".cu", ".cuh"}
+    for name in files:
+        assert any(fnmatch.fnmatch(name, g) for g in globs), name
+
+
+def test_port_sources_state_no_tpu_measurement():
+    """No module of the port (nor chip_smoke.py) quotes a time, rate or
+    batch measured on a TPU: the JAX package's TPU numbers say nothing
+    about the port (its config comments once did)."""
+    import re
+    tpu = re.compile(r"\bv5e\b|\bv5 ?lite|\bTPU v\d|\bv\d+ TPU")
+    for path in SOURCES + sorted(
+            (ROOT / "flowavenet_tpu_torch/ops/csrc").iterdir()):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            assert not tpu.search(line), f"{path.name}:{i}: {line.strip()}"

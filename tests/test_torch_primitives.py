@@ -89,14 +89,16 @@ def test_cond_perm_reshape_equals_squeeze(rng):
 
 
 def test_wn_conv_matches_tf_golden():
-    """Non-causal weight-normed dilated conv vs the TF golden, at the
-    JAX package's own bar (test_tf_parity.py: atol 2e-5)."""
+    """Weight-normed dilated conv, non-causal and causal (left pad
+    d*(k-1)), vs the TF golden at the JAX package's own bar
+    (test_tf_parity.py: atol 2e-5)."""
     fx = np.load(os.path.join(FIXDIR, "wnconv_golden.npz"))
     p = {"v": _t(fx["v"]), "g": _t(fx["g"]), "b": _t(fx["b"])}
     out = tconv.wn_conv1d(_t(fx["x"]), p, dilation=int(fx["d"]))
     np.testing.assert_allclose(out.numpy(), fx["out_noncausal"], atol=2e-5)
-    with pytest.raises(NotImplementedError, match="causal"):
-        tconv.wn_conv1d(_t(fx["x"]), p, dilation=int(fx["d"]), causal=True)
+    out_c = tconv.wn_conv1d(_t(fx["x"]), p, dilation=int(fx["d"]),
+                            causal=True)
+    np.testing.assert_allclose(out_c.numpy(), fx["out_causal"], atol=2e-5)
 
 
 def test_upsample_matches_tf_golden():

@@ -161,20 +161,6 @@ def test_routing_follows_width_and_int8_switch(monkeypatch):
     assert sum(tfwn._pair_kernel_mode(CFG, c) is not None for c in lj) == 5
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(causal=True), "causal"), (dict(affine=False), "additive"),
-    (dict(gin_channels=4), "global conditioning"),
-    (dict(n_flow=3), "odd n_flow"), (dict(logs_clamp=3.0), "logs_clamp"),
-    (dict(n_layer=3), "n_layer")])
-def test_paths_outside_the_slice_raise(model, change, match):
-    """Paths this slice does not port raise NotImplementedError naming the
-    JAX code they would need."""
-    _, tp, z, mel = model
-    with pytest.raises(NotImplementedError, match=match):
-        tfwn.reverse(tp, dataclasses.replace(CFG, **change),
-                     torch.from_numpy(z), torch.from_numpy(mel))
-
-
 def test_shape_errors_name_the_constraint(model):
     _, tp, z, mel = model
     with pytest.raises(ValueError, match="misaligned"):
