@@ -56,8 +56,10 @@
 7. Prints a JSON line of main-path numbers, one JSON line of per-kernel
    numbers (per reverse for the reverse pairs, per train step for the
    training pair, per eval step for the forward pair: the sum over the
-   routed blocks, 3 pairs each), the card's name and power limit, and as
-   its last line ``{"ok": true, "device": {...}}``.
+   routed blocks, 3 pairs each; each with its ``design``, tensor cores or
+   CUDA cores, and ``pct_of_bound``, 100 * bound_ms / ms), the card's name
+   and power limit, and as its last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
 It exits non-zero too when CUDA is unavailable.
@@ -1392,6 +1394,19 @@ def gin_phase(dev, tmpdir: str):
     return out
 
 
+# The reverse pair kernels' options (ops/pair_flow.py:uses_tensor_cores),
+# which say whether the kernel line reports a kernel as running on the
+# tensor cores; the others (training pairs, ResBlocks) run on CUDA cores.
+PAIR_OPTIONS = {"pair_flow": {}, "pair_flow_i8": {"int8": True},
+                "pair_flow_i8rs": {"int8": True, "rs": True},
+                "pair_flow_hoisted": {"hoisted": True},
+                "pair_flow_hoisted_i8": {"int8": True, "hoisted": True},
+                "pair_flow_wino": {"phases": 6},
+                "pair_flow_wino4": {"phases": 12},
+                "pair_flow_wino_hoisted": {"phases": 6, "hoisted": True},
+                "pair_flow_wino4_hoisted": {"phases": 12, "hoisted": True}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1559,6 +1574,12 @@ def main() -> int:
                    "pair_train_bwd", 0), range(n_tr)),
         rentry("resblock", 58),
         rentry("resblock_v2", 278)]
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    for k in kernels:
+        opts = PAIR_OPTIONS.get(k["name"])
+        tc = opts is not None and pf.uses_tensor_cores(torch.bfloat16, **opts)
+        k["design"] = "tensor cores (mma.sync)" if tc else "CUDA cores"
+        k["pct_of_bound"] = 100.0 * k["bound_ms"] / k["ms"]
     check(all(k["launches"] > 0 for k in kernels),
           ("a kernel of the main paths was never launched", kernels))
     rk, rp = tr["routes"]["kernel"], tr["routes"]["plain"]

@@ -20,13 +20,46 @@
 // What bounds it on this card: arithmetic.  Per output row a pair costs
 // ~4.2 MFLOP + 4096*Cc + 5120*R_in against (8*R_in + 4*Cc) bytes of u, v,
 // u', v' and c in bf16, i.e. >1000 FLOP per byte, far right of the H100's
-// ~295 FLOP/byte ridge.  The design therefore keeps every intermediate in
-// shared memory: one CTA owns (batch row, time tile of TT rows) plus a halo
-// per side, reads u, v and its c rows once, and writes u', v' once.  Each
-// filter column is computed together with its gate column so the [L, 2R]
-// fp32 pre-activation is never stored.  Weights stay in global memory and
-// are served from L2.  This version runs on CUDA-core FMAs (and __dp4a for
-// int8), not on the tensor cores: wgmma/TMA pipelining is later work.
+// ~295 FLOP/byte ridge, so the bound is the tensor cores' rate (989
+// TFLOP/s bf16, 1979 TOP/s int8).  The design therefore keeps every
+// intermediate in shared memory: one CTA owns (batch row, time tile of TT
+// rows) plus a halo per side, reads u, v and its c rows once, and writes
+// u', v' once.  Each filter column is computed together with its gate
+// column so the [L, 2R] fp32 pre-activation is never stored.  Weights stay
+// in global memory and are served from L2.
+//
+// Two products.  The CUDA-core product (mm2 / mm2_i8: fp32 FMAs, __dp4a)
+// gives each thread one output column and RM rows, and reaches at most the
+// CUDA cores' ~67 TFLOP/s.  The tensor-core product (TC = true) runs every
+// 1x1 and filter|gate product on mma.sync: m16n8k16 bf16 -> fp32 and
+// m16n8k32 s8 -> s32.  A warp owns a 16-row m-tile and two n-tiles of the
+// filter together with the same two of the gate (or res with skip-0), so
+// one lane holds f and g of the same (row, column) and gates in registers.
+// A comes from shared memory through ldmatrix, one row address per lane
+// (a tap's shift and the ragged-edge clamp are just row addresses); the
+// window buffers get a padded row stride (ldh, ldq) so that the 8 rows of
+// an ldmatrix fall in distinct banks.  The conditioning A fragments are
+// read per lane from global memory (16 re-reads of a c row per layer, one
+// per column-group warp, instead of one per column thread); shared memory
+// holds no c staging because the window buffers already take up to 210 KB
+// of the 227 KB.  B is packed by the wrapper (ops/pair_flow.py:
+// pack_tc_weights) into fragment order: lane l of (k-step, n-tile) reads
+// its 8 bytes with one coalesced load, served from L2.  Warp items run
+// m-tile fastest, so the warps that share a column group load the same B
+// fragments at about the same time, through L1.  What bounds the
+// tensor-core kernels then is the L2 weight traffic (each CTA re-reads a
+// pair's weights once per m-tile) and, in the Winograd pair, the input
+// transforms, which run on CUDA cores once per warp A fragment.  The front
+// conv (K = 3*R_in) and the zero conv (N = 2*R_in), under 1 % of the
+// operations, stay on CUDA cores in every instance.
+//
+// TC is set on exactly two instances: the int8 pair with bf16 storage
+// (pair_flow.cu variant 1, pair_flow_i8 on the main path) and the F(2,3)
+// Winograd pair with dense conditioning in bf16 (pair_flow_wino.cu P = 6).
+// Every fp32 instance, the direct bf16 pair, i8rs, the hoisted pairs and
+// F(4,3) run the CUDA-core product.  int8 sums are exact either way; a
+// bf16 product is exact in fp32, so the tensor cores change only the fp32
+// summation order.
 //
 // Variants (template parameters of pair_reverse_kernel):
 //   I8    filter|gate convs on int8 codes of h0/h1 (per-window max-abs
@@ -139,42 +172,55 @@ struct Smem {
   float* net;   // [rows][2Rin] zero-conv output
   float* VA;    // [L][Rin] v after the odd ActNorm (fp32)
   float* red;   // [32] reduction scratch
-  void* H;      // [L][R] h0 -> h1 -> relu'd skip sum
-  void* G;      // [L][R] gate outputs (RS: int8 codes) -> final 1x1 output
+  void* H;      // [L][ldh] h0 -> h1 -> relu'd skip sum
+  void* G;      // [L][ldh] gate outputs (RS: int8 codes) -> final 1x1 output
   void* U;      // [L][Rin] window of u
   void* V;      // [L][Rin] window of v
   void* UM;     // [L][Rin] u after the odd coupling and ActNorm
-  int8_t* Q;    // [L][R] int8 codes of h0 / h1 (I8)
+  int8_t* Q;    // [L][ldq] int8 codes of h0 / h1 (I8)
+  int ldh;      // row stride of H and G in elements: R, or R + 8 (TC)
+  int ldq;      // row stride of Q in bytes: R, or R + 16 (TC)
 };
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
 
+// Row strides of the window buffers: the tensor-core product pads a row by
+// 16 bytes, so the 8 row addresses of one ldmatrix hit distinct banks.
+__host__ __device__ inline int row_ld_h(int R, bool tc) {
+  return tc ? R + 8 : R;
+}
+__host__ __device__ inline int row_ld_q(int R, bool tc) {
+  return tc ? R + 16 : R;
+}
+
 // Byte offsets of the Smem regions for a window of L rows whose first net
 // covers ``rows`` output rows; the last entry is the total size.
-__host__ __device__ inline void smem_layout(int es, bool i8, int R, int Rin,
-                                            int L, int rows, size_t off[11]) {
+__host__ __device__ inline void smem_layout(int es, bool i8, bool tc, int R,
+                                            int Rin, int L, int rows,
+                                            size_t off[11]) {
+  const size_t ldh = row_ld_h(R, tc), ldq = row_ld_q(R, tc);
   size_t o = 0;
   off[0] = o; o = align16(o + sizeof(float) * rows * R);
   off[1] = o; o = align16(o + sizeof(float) * rows * 2 * Rin);
   off[2] = o; o = align16(o + sizeof(float) * L * Rin);
   off[3] = o; o = align16(o + sizeof(float) * 32);
-  off[4] = o; o = align16(o + (size_t)es * L * R);
-  off[5] = o; o = align16(o + (size_t)es * L * R);
+  off[4] = o; o = align16(o + (size_t)es * L * ldh);
+  off[5] = o; o = align16(o + (size_t)es * L * ldh);
   off[6] = o; o = align16(o + (size_t)es * L * Rin);
   off[7] = o; o = align16(o + (size_t)es * L * Rin);
   off[8] = o; o = align16(o + (size_t)es * L * Rin);
-  off[9] = o; o = align16(o + (i8 ? (size_t)L * R : 0));
+  off[9] = o; o = align16(o + (i8 ? (size_t)L * ldq : 0));
   off[10] = o;
 }
 
 template <int P>
-__host__ __device__ inline size_t smem_bytes(int es, bool i8, int R, int Rin,
-                                             int TT) {
+__host__ __device__ inline size_t smem_bytes(int es, bool i8, bool tc, int R,
+                                             int Rin, int TT) {
   const int L = TT + 2 * Geo<P>::HALO;
   size_t off[11];
-  smem_layout(es, i8, R, Rin, L, L - 2 * Geo<P>::O1, off);
+  smem_layout(es, i8, tc, R, Rin, L, L - 2 * Geo<P>::O1, off);
   return off[10];
 }
 
@@ -257,14 +303,15 @@ __device__ __forceinline__ void mm1_i8(int (&a0)[RM], const int8_t* A,
   }
 }
 
-// Block-wide max-abs int8 quantization of H rows [r0, r1) into Q (same
-// rows); returns the fp32 scale (max(amax, 1e-30) / 127, as _quant_act).
+// Block-wide max-abs int8 quantization of H rows [r0, r1) (row stride
+// ldh) into Q (same rows, row stride ldq); returns the fp32 scale
+// (max(amax, 1e-30) / 127, as _quant_act).
 template <typename T>
 __device__ float quantize_rows(const T* H, int8_t* Q, int r0, int r1, int R,
-                               float* red) {
+                               int ldh, int ldq, float* red) {
   float m = 0.f;
-  for (int i = r0 * R + threadIdx.x; i < r1 * R; i += NT)
-    m = fmaxf(m, fabsf(to_f(H[i])));
+  for (int i = threadIdx.x; i < (r1 - r0) * R; i += NT)
+    m = fmaxf(m, fabsf(to_f(H[(size_t)(r0 + i / R) * ldh + i % R])));
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
@@ -279,9 +326,10 @@ __device__ float quantize_rows(const T* H, int8_t* Q, int r0, int r1, int R,
   }
   __syncthreads();
   const float scale = fmaxf(red[0], 1e-30f) * (1.0f / 127.0f);
-  for (int i = r0 * R + threadIdx.x; i < r1 * R; i += NT) {
-    const float q = rintf(to_f(H[i]) / scale);
-    Q[i] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+  for (int i = threadIdx.x; i < (r1 - r0) * R; i += NT) {
+    const int j = r0 + i / R, c = i % R;
+    const float q = rintf(to_f(H[(size_t)j * ldh + c]) / scale);
+    Q[(size_t)j * ldq + c] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
   }
   __syncthreads();
   return scale;
@@ -342,6 +390,11 @@ __device__ __forceinline__ void add_cond(const Params& p, const Flow& f,
   }
 }
 
+// tanh(f) * sigmoid(g) of the biased pre-activations, in fp32.
+__device__ __forceinline__ float gated(float fv, float gv) {
+  return tanhf(fv) * (1.f / (1.f + expf(-gv)));
+}
+
 // Bias, gate and store of RM rows: the gate output rounded to the storage
 // type, or (RS) its int8 code at the fixed scale 1/127 (_gated_q8).
 template <typename T, bool RS>
@@ -357,12 +410,12 @@ __device__ __forceinline__ void gate_store(const Flow& f, const Smem& s,
   for (int i = 0; i < RM; ++i) {
     if (!keep[i]) continue;
     const float fv = ff[i] + bf, gv = gg[i] + bg;
-    const float g = tanhf(fv) * (1.f / (1.f + expf(-gv)));
+    const float g = gated(fv, gv);
     if constexpr (RS)
-      static_cast<int8_t*>(s.G)[(size_t)rows[i] * R + n] =
+      static_cast<int8_t*>(s.G)[(size_t)rows[i] * s.ldh + n] =
           (int8_t)rintf(g * 127.f);
     else
-      static_cast<T*>(s.G)[(size_t)rows[i] * R + n] = from_f<T>(g);
+      static_cast<T*>(s.G)[(size_t)rows[i] * s.ldh + n] = from_f<T>(g);
   }
 }
 
@@ -395,7 +448,7 @@ __device__ void direct_layer(const Params& p, const Flow& f, const Smem& s,
       for (int i = 0; i < RM; ++i) fi[i] = gi[i] = 0;
       const int* W = static_cast<const int*>(f.kfg) + (size_t)layer * 3 *
                      (R / 4) * R2;
-      mm2_i8(fi, gi, s.Q, R, taps, 3, dil, R / 4, W + n, W + R + n, R2);
+      mm2_i8(fi, gi, s.Q, s.ldq, taps, 3, dil, R / 4, W + n, W + R + n, R2);
       const float sf = a_scale * f.kfg_s[layer * R2 + n];
       const float sg = a_scale * f.kfg_s[layer * R2 + R + n];
 #pragma unroll
@@ -407,7 +460,7 @@ __device__ void direct_layer(const Params& p, const Flow& f, const Smem& s,
 #pragma unroll
       for (int i = 0; i < RM; ++i) ff[i] = gg[i] = 0.f;
       const T* W = static_cast<const T*>(f.kfg) + (size_t)layer * 3 * R * R2;
-      mm2(ff, gg, static_cast<const T*>(s.H), R, taps, 3, dil, R, W + n,
+      mm2(ff, gg, static_cast<const T*>(s.H), s.ldh, taps, 3, dil, R, W + n,
           W + R + n, R2);
     }
     add_cond<T, COND>(p, f, layer, n, cglob, b, crow, c_scale, ff, gg);
@@ -493,7 +546,7 @@ __device__ void wino_layer(const Params& p, const Flow& f, const Smem& s,
         float d[K], t[K];
 #pragma unroll
         for (int k = 0; k < K; ++k)
-          d[k] = to_f(H[(size_t)(base[i] + (k - 1) * dil) * R + c]);
+          d[k] = to_f(H[(size_t)(base[i] + (k - 1) * dil) * s.ldh + c]);
         wino_in<T>(d, t);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
@@ -521,21 +574,354 @@ __device__ void wino_layer(const Params& p, const Flow& f, const Smem& s,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core product (the TC instances)
+// ---------------------------------------------------------------------------
+
+constexpr int TJ = 2;   // n-tiles of 8 columns in each half of a warp item
+
+// Packed B (ops/pair_flow.py:pack_tc_weights): a [K][N] weight stored as
+// [K/KS][N/8][32 lanes][8 bytes], KS = 16 (bf16) or 32 (int8) k per step,
+// K zero-padded to a multiple of KS.  Lane l holds the mma B fragment of
+// (k-step, n-tile) in the PTX ISA's layout: n = l/4 and, for bf16
+// (m16n8k16), k = 2(l%4) + {0, 1}, 2(l%4) + 8 + {0, 1}; for int8
+// (m16n8k32), k = 4(l%4) + {0..3}, 4(l%4) + 16 + {0..3}.  B points at this
+// lane's first fragment, so a warp reads 256 contiguous bytes.
+__device__ __forceinline__ uint2 tc_b(const uint2* B, int ntl, int ks,
+                                      int t) {
+  return __ldg(B + ((size_t)ks * ntl + t) * 32);
+}
+
+__device__ __forceinline__ uint32_t ld_g32(const void* p) {
+  return __ldg(static_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  With rows m0 + (l & 15) and a column offset
+// of (l >> 4) 16-byte halves this is the m16n8k16 bf16 (or m16n8k32 int8)
+// A fragment.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const void* p) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += A B on the tensor cores; accumulator element i of lane l is (row
+// l/4 + 8*(i/2), column 2*(l%4) + i%2) of the 16x8 tile.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint2 b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ int frag_row(int i) {
+  return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
+}
+__device__ __forceinline__ int frag_col(int t, int i) {
+  return 8 * t + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// Warp items over rows [rb, re) of the bf16 buffer A (row stride lda):
+// item = (16-row m-tile, column group g), m-tile fastest.  The warp
+// accumulates A[rows, :K] @ B0[:, tiles tstep*g + {0, 1}] and the same
+// with B1 (both packed and offset to this lane, ntl tiles per k-step), then
+// calls epi(row, n, v0, v1) for each of its rows below re, where n is the
+// column of v0 in B0's tiles and v1 is B1's value at the same position.
+template <typename Epi>
+__device__ __forceinline__ void tc_rows(const __nv_bfloat16* A, int lda,
+                                        int rb, int re, int K,
+                                        const uint2* B0, const uint2* B1,
+                                        int ntl, int ngroups, int tstep,
+                                        Epi epi) {
+  const int lane = threadIdx.x & 31, n_mt = (re - rb + 15) >> 4;
+  for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
+    const int m0 = rb + 16 * (it % n_mt), t0 = tstep * (it / n_mt);
+    const __nv_bfloat16* a = A + (size_t)min(m0 + (lane & 15), re - 1) * lda
+                             + (lane >> 4) * 8;
+    float c0[TJ][4] = {}, c1[TJ][4] = {};
+#pragma unroll 4
+    for (int ks = 0; ks < K / 16; ++ks) {
+      uint32_t af[4];
+      ldsm_x4(af, a + ks * 16);
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) {
+        mma_bf16(c0[j], af, tc_b(B0, ntl, ks, t0 + j));
+        mma_bf16(c1[j], af, tc_b(B1, ntl, ks, t0 + j));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + frag_row(i);
+        if (row < re) epi(row, frag_col(t0 + j, i), c0[j][i], c1[j][i]);
+      }
+  }
+}
+
+// Direct int8 filter|gate layer on the tensor cores over rows [rb, re) at
+// dilation dil -> G: the TC twin of direct_layer<T, true, COND_I8, false>.
+// The int8 codes of h (Q, through ldmatrix) against the packed int8 kfg,
+// and this layer's int8 c rows (per-lane global loads, rows clamped into
+// [0, T) as in direct_layer) against the packed cond_w, whose K is padded
+// to 32 with zero rows; both sums are exact in int32, then scaled, biased
+// and gated in the order of direct_layer, add_cond and gate_store.
+template <typename T>
+__device__ void direct_layer_tc(const Params& p, const Flow& f,
+                                const Smem& s, int layer, int rb, int re,
+                                int dil, float a_scale, const void* cglob,
+                                int b, int win0, float c_scale) {
+  const int R = p.R, R2 = 2 * R, Cc = p.Cc, lane = threadIdx.x & 31;
+  const int nks = R / 32, ntl = R2 / 8, kc = (Cc + 31) / 32;
+  const int n_mt = (re - rb + 15) >> 4, ngroups = R / (8 * TJ);
+  const uint2* W = static_cast<const uint2*>(f.kfg) +
+                   (size_t)layer * 3 * nks * ntl * 32 + lane;
+  const uint2* Wc = static_cast<const uint2*>(f.cond_w) +
+                    (size_t)layer * kc * ntl * 32 + lane;
+  const int8_t* C = static_cast<const int8_t*>(cglob) + (size_t)b * p.T * Cc;
+  const float* ks_w = f.kfg_s + layer * R2;
+  const float* cs_w = f.cond_s + layer * R2;
+  const float* bias = f.cond_b + layer * R2;
+  for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
+    const int m0 = rb + 16 * (it % n_mt), t0 = TJ * (it / n_mt);
+    int fi[TJ][4] = {}, gi[TJ][4] = {};
+    const int8_t* a = s.Q + (size_t)(min(m0 + (lane & 15), re - 1) - dil) *
+                      s.ldq + (lane >> 4) * 16;
+    for (int k = 0; k < 3; ++k) {
+      const int8_t* ak = a + (size_t)k * dil * s.ldq;
+      const uint2* wk = W + (size_t)k * nks * ntl * 32;
+#pragma unroll 4
+      for (int ks = 0; ks < nks; ++ks) {
+        uint32_t af[4];
+        ldsm_x4(af, ak + ks * 32);
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          mma_s8(fi[j], af, tc_b(wk, ntl, ks, t0 + j));
+          mma_s8(gi[j], af, tc_b(wk, ntl, ks, R / 8 + t0 + j));
+        }
+      }
+    }
+    int fc[TJ][4] = {}, gc[TJ][4] = {};
+    {
+      const int r_lo = min(m0 + frag_row(0), re - 1);
+      const int r_hi = min(m0 + frag_row(2), re - 1);
+      const int8_t* c_lo = C + (size_t)min(max(win0 + r_lo, 0), p.T - 1) *
+                           Cc + 4 * (lane & 3);
+      const int8_t* c_hi = C + (size_t)min(max(win0 + r_hi, 0), p.T - 1) *
+                           Cc + 4 * (lane & 3);
+#pragma unroll 2
+      for (int ks = 0; ks < kc; ++ks) {
+        const int k0 = 32 * ks;
+        // Cc % 32 == 16: the upper half of the last k-step is padding
+        const bool tail = k0 + 16 >= Cc;
+        uint32_t af[4];
+        af[0] = ld_g32(c_lo + k0);
+        af[1] = ld_g32(c_hi + k0);
+        af[2] = tail ? 0u : ld_g32(c_lo + k0 + 16);
+        af[3] = tail ? 0u : ld_g32(c_hi + k0 + 16);
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          mma_s8(fc[j], af, tc_b(Wc, ntl, ks, t0 + j));
+          mma_s8(gc[j], af, tc_b(Wc, ntl, ks, R / 8 + t0 + j));
+        }
+      }
+    }
+    T* G = static_cast<T*>(s.G);
+#pragma unroll
+    for (int j = 0; j < TJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + frag_row(i), n = frag_col(t0 + j, i);
+        if (row >= re) continue;
+        float ff = (float)fi[j][i] * (a_scale * ks_w[n]);
+        float gg = (float)gi[j][i] * (a_scale * ks_w[R + n]);
+        ff += (float)fc[j][i] * (c_scale * cs_w[n]);
+        gg += (float)gc[j][i] * (c_scale * cs_w[R + n]);
+        G[(size_t)row * s.ldh + n] =
+            from_f<T>(gated(ff + bias[n], gg + bias[R + n]));
+      }
+  }
+}
+
+// Winograd F(2,3) filter|gate layer on the tensor cores over window rows
+// [rb, re) at dilation dil -> G: the TC twin of wino_layer<bf16,
+// COND_DENSE, 6>.  The m dimension is the layer's groups (d=1: rows 2j,
+// 2j+1; d=3: 6j+r, 6j+r+3).  Each lane loads the 4 taps of its 8 A
+// elements (2 groups x 4 channels) from H, applies wino_in in bf16 (each
+// operation rounded, as wino_layer) and packs the 4 plane fragments, so a
+// transform is computed once per warp fragment; four accumulator sets take
+// the products with the packed G-transformed weights and wino_out runs in
+// fp32 on the lane's own accumulators.  The conditioning 1x1 runs as one
+// bf16 product per output e of a group (c rows base + e*dil), added after
+// wino_out as add_cond does.
+__device__ inline void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
+                              int layer, int rb, int re, int dil,
+                              const void* cglob, int b, int win0) {
+  using bf = __nv_bfloat16;
+  const int R = p.R, R2 = 2 * R, Cc = p.Cc, lane = threadIdx.x & 31;
+  const int nks = R / 16, ntl = R2 / 8, kc = Cc / 16;
+  const int ng = (re - rb) / 2, n_mt = (ng + 15) >> 4;
+  const int ngroups = R / (8 * TJ);
+  const size_t plane = (size_t)nks * ntl * 32;
+  const bf* H = static_cast<const bf*>(s.H);
+  const uint2* U = static_cast<const uint2*>(f.kfg) + layer * 4 * plane +
+                   lane;
+  const uint2* Wc = static_cast<const uint2*>(f.cond_w) +
+                    (size_t)layer * kc * ntl * 32 + lane;
+  const bf* C = static_cast<const bf*>(cglob) + (size_t)b * p.T * Cc;
+  const float* bias = f.cond_b + layer * R2;
+  auto base = [&](int g) {
+    return dil == 1 ? rb + 2 * g : rb + 6 * (g / 3) + g % 3;
+  };
+  for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
+    const int g0 = 16 * (it % n_mt), t0 = TJ * (it / n_mt);
+    const int b_lo = base(min(g0 + frag_row(0), ng - 1));
+    const int b_hi = base(min(g0 + frag_row(2), ng - 1));
+    const bf* h_lo = H + (size_t)(b_lo - dil) * s.ldh + 2 * (lane & 3);
+    const bf* h_hi = H + (size_t)(b_hi - dil) * s.ldh + 2 * (lane & 3);
+    float mf[4][TJ][4] = {}, mg[4][TJ][4] = {};
+#pragma unroll 1
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t af[4][4];      // [plane][register]
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        // register r: group row lo / hi (r & 1), channels + 8 (r >> 1)
+        const bf* h = (r & 1 ? h_hi : h_lo) + 16 * ks + 8 * (r >> 1);
+        float dx[4], dy[4], tx[4], ty[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 d = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  h + (size_t)k * dil * s.ldh));
+          dx[k] = d.x;
+          dy[k] = d.y;
+        }
+        wino_in<bf>(dx, tx);
+        wino_in<bf>(dy, ty);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) af[k][r] = pack_bf16x2(tx[k], ty[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          mma_bf16(mf[k][j], af[k], tc_b(U + k * plane, ntl, ks, t0 + j));
+          mma_bf16(mg[k][j], af[k],
+                   tc_b(U + k * plane, ntl, ks, R / 8 + t0 + j));
+        }
+    }
+    // the output transform first, so the plane accumulators die before
+    // the conditioning products
+    float ff[2][TJ][4], gg[2][TJ][4];
+#pragma unroll
+    for (int j = 0; j < TJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float mfi[4] = {mf[0][j][i], mf[1][j][i], mf[2][j][i],
+                              mf[3][j][i]};
+        const float mgi[4] = {mg[0][j][i], mg[1][j][i], mg[2][j][i],
+                              mg[3][j][i]};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ff[e][j][i] = wino_out(mfi, e);
+          gg[e][j][i] = wino_out(mgi, e);
+        }
+      }
+    bf* G = static_cast<bf*>(s.G);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float cf[TJ][4] = {}, cg[TJ][4] = {};
+      const int p_lo = min(max(win0 + b_lo + e * dil, 0), p.T - 1);
+      const int p_hi = min(max(win0 + b_hi + e * dil, 0), p.T - 1);
+      const bf* c_lo = C + (size_t)p_lo * Cc + 2 * (lane & 3);
+      const bf* c_hi = C + (size_t)p_hi * Cc + 2 * (lane & 3);
+#pragma unroll 2
+      for (int ks = 0; ks < kc; ++ks) {
+        uint32_t af[4];
+        af[0] = ld_g32(c_lo + 16 * ks);
+        af[1] = ld_g32(c_hi + 16 * ks);
+        af[2] = ld_g32(c_lo + 16 * ks + 8);
+        af[3] = ld_g32(c_hi + 16 * ks + 8);
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          mma_bf16(cf[j], af, tc_b(Wc, ntl, ks, t0 + j));
+          mma_bf16(cg[j], af, tc_b(Wc, ntl, ks, R / 8 + t0 + j));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < TJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int g = g0 + frag_row(i), n = frag_col(t0 + j, i);
+          if (g >= ng) continue;
+          const float fv = ff[e][j][i] + cf[j][i];
+          const float gv = gg[e][j][i] + cg[j][i];
+          G[(size_t)(base(g) + e * dil) * s.ldh + n] =
+              from_f<bf>(gated(fv + bias[n], gv + bias[R + n]));
+        }
+    }
+  }
+}
+
 // One WaveNet coupling net over window rows [o0, o1): input X (shared,
 // rows [o0-EH0-1, o1+EH0+1) valid), conditioning rows from global.  Leaves
-// the zero-conv output (log_s || t) for rows [o0, o1) in s.net.
-template <typename T, bool I8, int COND, bool RS, int P>
+// the zero-conv output (log_s || t) for rows [o0, o1) in s.net.  TC: the
+// filter|gate layers, res/skip and the final 1x1 run on the tensor cores
+// (T is bf16; I8 with COND_I8 and P = 0, or COND_DENSE with P = 6).
+template <typename T, bool I8, int COND, bool RS, int P, bool TC>
 __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
                              const T* X, int o0, int o1, const void* cglob,
                              float c_scale, int b, int win0) {
   constexpr int EH0 = Geo<P>::EH0, EG0 = Geo<P>::EG0;
-  const int R = p.R, Rin = p.Rin;
+  static_assert(!TC || (!RS && sizeof(T) == 2 &&
+                        ((I8 && COND == COND_I8 && P == 0) ||
+                         (!I8 && COND == COND_DENSE && P == 6))),
+                "the tensor-core product covers the i8 and F(2,3) pairs");
+  const int R = p.R, Rin = p.Rin, ld = s.ldh;
   const int ngrp = NT / R, grp = threadIdx.x / R, n = threadIdx.x % R;
   T* H = static_cast<T*>(s.H);
   T* G = static_cast<T*>(s.G);
   auto valid = [&](int j) {
     const int pos = win0 + j;
     return pos >= 0 && pos < p.T;
+  };
+  // The epilogues, shared by both products: h1 in place over H and skip-0
+  // -> S from row j's res and skip-0 sums; relu(skip0 + skip1) -> H; the
+  // final 1x1 -> G.  Every element is owned by one thread.
+  auto res_epi = [&](int j, int c, float ra, float sa) {
+    const float h0 = to_f(H[(size_t)j * ld + c]);
+    // the Pallas kernels add the res bias at different points
+    const float h1 = P ? rnd<T>(((h0 + ra) + f.res_b[c]) * SQRT_HALF)
+                       : rnd<T>((h0 + (ra + f.res_b[c])) * SQRT_HALF);
+    H[(size_t)j * ld + c] = from_f<T>(valid(j) ? h1 : 0.f);
+    if (j >= o0 && j < o1) s.S[(size_t)(j - o0) * R + c] = sa + f.skip_b[c];
+  };
+  auto skip_epi = [&](int j, int c, float acc) {
+    const float s0 = s.S[(size_t)(j - o0) * R + c];
+    const float bias = f.skip_b[R + c];
+    const float sk = P ? (s0 + acc) + bias : s0 + (acc + bias);
+    H[(size_t)j * ld + c] = from_f<T>(rnd<T>(fmaxf(sk, 0.f)));
+  };
+  auto fin_epi = [&](int j, int c, float acc) {
+    G[(size_t)j * ld + c] = from_f<T>(rnd<T>(fmaxf(acc + f.fin_b[c], 0.f)));
   };
 
   // h0 = relu(front(X) + b) over [o0-EH0, o1+EH0), rounded, masked
@@ -561,7 +947,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
       for (int i = 0; i < RM; ++i) {
         const int j = r_ + i;
         if (j < re)
-          H[(size_t)j * R + n] = from_f<T>(
+          H[(size_t)j * ld + n] = from_f<T>(
               valid(j) ? rnd<T>(fmaxf(acc[i] + bias, 0.f)) : 0.f);
       }
     }
@@ -569,10 +955,15 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   __syncthreads();
   float a_scale = 0.f;
   if constexpr (I8)
-    a_scale = quantize_rows(H, s.Q, o0 - EH0, o1 + EH0, R, s.red);
+    a_scale = quantize_rows(H, s.Q, o0 - EH0, o1 + EH0, R, ld, s.ldq, s.red);
 
   // layer 0 (d=1) over [o0-EG0, o1+EG0): gated -> G
-  if constexpr (P)
+  if constexpr (TC && I8)
+    direct_layer_tc<T>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, a_scale, cglob, b,
+                       win0, c_scale);
+  else if constexpr (TC)
+    wino_layer_tc(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
+  else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b,
                            win0, c_scale);
   else
@@ -582,7 +973,14 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 
   // res and skip-0 share the gate outputs: h1 = (h0 + res)*sqrt(.5) in
   // place over H (each thread owns its element), skip-0 -> S
-  {
+  if constexpr (TC) {
+    const int nt = R / 8;
+    const int lane = threadIdx.x & 31;
+    tc_rows(reinterpret_cast<const __nv_bfloat16*>(G), ld, o0 - EG0,
+            o1 + EG0, R, static_cast<const uint2*>(f.res_w) + lane,
+            static_cast<const uint2*>(f.skip_w) + lane, nt, R / (8 * TJ), TJ,
+            res_epi);
+  } else {
     const int rb = o0 - EG0, re = o1 + EG0;
     FOR_ROW_CHUNKS(rb, re) {
       int rows[RM];
@@ -593,8 +991,8 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
         int ri[RM], si[RM];
 #pragma unroll
         for (int i = 0; i < RM; ++i) ri[i] = si[i] = 0;
-        mm2_i8(ri, si, static_cast<const int8_t*>(s.G), R, rows, 1, 0, R / 4,
-               static_cast<const int*>(f.res_w) + n,
+        mm2_i8(ri, si, static_cast<const int8_t*>(s.G), ld, rows, 1, 0,
+               R / 4, static_cast<const int*>(f.res_w) + n,
                static_cast<const int*>(f.skip_w) + n, R);
         const float rsc = f.res_s[n] * (1.f / 127.f);
         const float ssc = f.skip_s[n] * (1.f / 127.f);
@@ -606,29 +1004,25 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
       } else {
 #pragma unroll
         for (int i = 0; i < RM; ++i) ra[i] = sa[i] = 0.f;
-        mm2(ra, sa, G, R, rows, 1, 0, R, static_cast<const T*>(f.res_w) + n,
+        mm2(ra, sa, G, ld, rows, 1, 0, R, static_cast<const T*>(f.res_w) + n,
             static_cast<const T*>(f.skip_w) + n, R);
       }
-      const float rbias = f.res_b[n], sbias = f.skip_b[n];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int j = r_ + i;
-        if (j >= re) continue;
-        const float h0 = to_f(H[(size_t)j * R + n]);
-        // the Pallas kernels add the res bias at different points
-        const float h1 = P ? rnd<T>(((h0 + ra[i]) + rbias) * SQRT_HALF)
-                           : rnd<T>((h0 + (ra[i] + rbias)) * SQRT_HALF);
-        H[(size_t)j * R + n] = from_f<T>(valid(j) ? h1 : 0.f);
-        if (j >= o0 && j < o1) s.S[(size_t)(j - o0) * R + n] = sa[i] + sbias;
-      }
+      for (int i = 0; i < RM; ++i)
+        if (r_ + i < re) res_epi(r_ + i, n, ra[i], sa[i]);
     }
   }
   __syncthreads();
   if constexpr (I8)
-    a_scale = quantize_rows(H, s.Q, o0 - EG0, o1 + EG0, R, s.red);
+    a_scale = quantize_rows(H, s.Q, o0 - EG0, o1 + EG0, R, ld, s.ldq, s.red);
 
   // layer 1 (d=3) over [o0, o1): gated -> G
-  if constexpr (P)
+  if constexpr (TC && I8)
+    direct_layer_tc<T>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b, win0,
+                       c_scale);
+  else if constexpr (TC)
+    wino_layer_tc(p, f, s, 1, o0, o1, 3, cglob, b, win0);
+  else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 1, o0, o1, 3, cglob, b, win0, c_scale);
   else
     direct_layer<T, I8, COND, RS>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b,
@@ -636,7 +1030,19 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   __syncthreads();
 
   // skip-1, relu(skip0 + skip1) rounded -> H
-  {
+  if constexpr (TC) {
+    // a warp item takes 4 n-tiles of one matrix: tiles t, t+1 as "B0" and
+    // t+2, t+3 as "B1" (16 columns on)
+    const int lane = threadIdx.x & 31;
+    const uint2* W1 = static_cast<const uint2*>(f.skip_w) +
+                      (size_t)(R / 16) * (R / 8) * 32 + lane;
+    tc_rows(reinterpret_cast<const __nv_bfloat16*>(G), ld, o0, o1, R, W1,
+            W1 + TJ * 32, R / 8, R / (16 * TJ), 2 * TJ,
+            [&](int j, int c, float v0, float v1) {
+              skip_epi(j, c, v0);
+              skip_epi(j, c + 8 * TJ, v1);
+            });
+  } else {
     FOR_ROW_CHUNKS(o0, o1) {
       int rows[RM];
       float acc[RM];
@@ -649,31 +1055,34 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
         int ai[RM];
 #pragma unroll
         for (int i = 0; i < RM; ++i) ai[i] = 0;
-        mm1_i8(ai, static_cast<const int8_t*>(s.G), R, rows, R / 4,
+        mm1_i8(ai, static_cast<const int8_t*>(s.G), ld, rows, R / 4,
                static_cast<const int*>(f.skip_w) + (size_t)(R / 4) * R + n,
                R);
         const float sc = f.skip_s[R + n] * (1.f / 127.f);
 #pragma unroll
         for (int i = 0; i < RM; ++i) acc[i] = (float)ai[i] * sc;
       } else {
-        mm1(acc, G, R, rows, R,
+        mm1(acc, G, ld, rows, R,
             static_cast<const T*>(f.skip_w) + (size_t)R * R + n, R);
       }
-      const float bias = f.skip_b[R + n];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int j = r_ + i;
-        if (j >= o1) continue;
-        const float s0 = s.S[(size_t)(j - o0) * R + n];
-        const float sk = P ? (s0 + acc[i]) + bias : s0 + (acc[i] + bias);
-        H[(size_t)j * R + n] = from_f<T>(rnd<T>(fmaxf(sk, 0.f)));
-      }
+      for (int i = 0; i < RM; ++i)
+        if (r_ + i < o1) skip_epi(r_ + i, n, acc[i]);
     }
   }
   __syncthreads();
 
   // final 1x1: relu(out @ fin_w + b) rounded -> G
-  {
+  if constexpr (TC) {
+    const uint2* Wf = static_cast<const uint2*>(f.fin_w) +
+                      (threadIdx.x & 31);
+    tc_rows(reinterpret_cast<const __nv_bfloat16*>(H), ld, o0, o1, R, Wf,
+            Wf + TJ * 32, R / 8, R / (16 * TJ), 2 * TJ,
+            [&](int j, int c, float v0, float v1) {
+              fin_epi(j, c, v0);
+              fin_epi(j, c + 8 * TJ, v1);
+            });
+  } else {
     const T* Wf = static_cast<const T*>(f.fin_w);
     FOR_ROW_CHUNKS(o0, o1) {
       int rows[RM];
@@ -683,13 +1092,10 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
         rows[i] = min(r_ + i, o1 - 1);
         acc[i] = 0.f;
       }
-      mm1(acc, H, R, rows, R, Wf + n, R);
-      const float bias = f.fin_b[n];
+      mm1(acc, H, ld, rows, R, Wf + n, R);
 #pragma unroll
       for (int i = 0; i < RM; ++i)
-        if (r_ + i < o1)
-          G[(size_t)(r_ + i) * R + n] =
-              from_f<T>(rnd<T>(fmaxf(acc[i] + bias, 0.f)));
+        if (r_ + i < o1) fin_epi(r_ + i, n, acc[i]);
     }
   }
   __syncthreads();
@@ -702,21 +1108,24 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
       const int j = o0 + idx / R2in, ch = idx % R2in;
       float acc = 0.f;
       for (int c = 0; c < R; ++c)
-        acc = fmaf(to_f(G[(size_t)j * R + c]), to_f(Wz[c * R2in + ch]), acc);
+        acc = fmaf(to_f(G[(size_t)j * ld + c]), to_f(Wz[c * R2in + ch]),
+                   acc);
       s.net[idx] = acc + f.zb[ch];
     }
   }
   __syncthreads();
 }
 
-template <typename T, bool I8, int COND, bool RS, int P>
+template <typename T, bool I8, int COND, bool RS, int P, bool TC>
 __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
   using Gm = Geo<P>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int TT = p.TT, L = TT + 2 * Gm::HALO, Rin = p.Rin;
   size_t off[11];
-  smem_layout(sizeof(T), I8, p.R, Rin, L, L - 2 * Gm::O1, off);
+  smem_layout(sizeof(T), I8, TC, p.R, Rin, L, L - 2 * Gm::O1, off);
   Smem s;
+  s.ldh = row_ld_h(p.R, TC);
+  s.ldq = row_ld_q(p.R, TC);
   s.S = reinterpret_cast<float*>(smem_raw + off[0]);
   s.net = reinterpret_cast<float*>(smem_raw + off[1]);
   s.VA = reinterpret_cast<float*>(smem_raw + off[2]);
@@ -756,8 +1165,8 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
 
   // odd flow: u' = u*exp(log_s(v)) + t(v) over rows [O1, L-O1), then the
   // odd ActNorm (v half 0, u half 1); u' rounded and re-masked
-  coupling_net<T, I8, COND, RS, P>(p, p.flow[1], s, V, Gm::O1, L - Gm::O1,
-                                   p.cb, cs_b, b, win0);
+  coupling_net<T, I8, COND, RS, P, TC>(p, p.flow[1], s, V, Gm::O1,
+                                       L - Gm::O1, p.cb, cs_b, b, win0);
   {
     const float* as = p.an_s + 2 * Rin;   // flow 1
     const float* ab = p.an_b + 2 * Rin;
@@ -774,8 +1183,8 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
 
   // even flow: v' = v*exp(log_s(u')) + t(u') over rows [O2, L-O2) (the
   // tile), then the even ActNorm (u half 0, v half 1); store rows in [0, T)
-  coupling_net<T, I8, COND, RS, P>(p, p.flow[0], s, UM, Gm::O2, L - Gm::O2,
-                                   p.ca, cs_a, b, win0);
+  coupling_net<T, I8, COND, RS, P, TC>(p, p.flow[0], s, UM, Gm::O2,
+                                       L - Gm::O2, p.ca, cs_a, b, win0);
   {
     T* uo = static_cast<T*>(p.u_out) + (size_t)b * p.T * Rin;
     T* vo = static_cast<T*>(p.v_out) + (size_t)b * p.T * Rin;
@@ -793,14 +1202,14 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
   }
 }
 
-template <typename T, bool I8, int COND, bool RS, int P>
+template <typename T, bool I8, int COND, bool RS, int P, bool TC = false>
 int launch(Params p, cudaStream_t stream) {
-  const int smem = (int)smem_bytes<P>(sizeof(T), I8, p.R, p.Rin, p.TT);
+  const int smem = (int)smem_bytes<P>(sizeof(T), I8, TC, p.R, p.Rin, p.TT);
   cudaError_t e = cudaFuncSetAttribute(
-      pair_reverse_kernel<T, I8, COND, RS, P>,
+      pair_reverse_kernel<T, I8, COND, RS, P, TC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  pair_reverse_kernel<T, I8, COND, RS, P>
+  pair_reverse_kernel<T, I8, COND, RS, P, TC>
       <<<p.B * p.n_t, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -811,9 +1220,11 @@ int launch(Params p, cudaStream_t stream) {
 // skip_scale; null where the variant has none), then c_row_scales; each
 // operand stacks the two flows on its leading axis.  dims: B, T, Rin, R,
 // Cc, TT.  K: filter|gate taps per layer; es: storage bytes; i8 / rs:
-// int8 fg convs and cond / res-skip weights (1 byte per element).
+// int8 fg convs and cond / res-skip weights (1 byte per element); tc: the
+// weights come packed for the tensor cores (same sizes, except that an
+// int8 cond_w has its K padded to a multiple of 32).
 inline Params make_params(const void* const* ptrs, const int* dims, int K,
-                          size_t es, bool i8, bool rs) {
+                          size_t es, bool i8, bool rs, bool tc = false) {
   Params p;
   p.B = dims[0]; p.T = dims[1]; p.Rin = dims[2]; p.R = dims[3];
   p.Cc = dims[4]; p.TT = dims[5];
@@ -836,7 +1247,8 @@ inline Params make_params(const void* const* ptrs, const int* dims, int K,
     f.front_w = vptr(0, fl * 3 * Rin * R * es);
     f.front_b = fptr(1, fl * R);
     f.kfg = vptr(2, fl * 2 * K * R * R2 * wes);
-    f.cond_w = vptr(3, fl * 2 * Cc * R2 * wes);
+    f.cond_w = vptr(3, fl * 2 * (tc && i8 ? (Cc + 31) / 32 * 32 : Cc) * R2 *
+                           wes);
     f.cond_b = fptr(4, fl * 2 * R2);
     f.res_w = vptr(5, fl * R * R * rses);
     f.res_b = fptr(6, fl * R);

@@ -660,6 +660,61 @@ def _pack_int8(wq: torch.Tensor) -> torch.Tensor:
     return w.view(torch.int32).reshape(*lead, cin // 4, n)
 
 
+def uses_tensor_cores(dtype: torch.dtype, *, int8: bool = False,
+                      rs: bool = False, hoisted: bool = False,
+                      phases: int = 0) -> bool:
+    """Whether the pair kernel of these options runs its products on the
+    tensor cores (mma.sync): the int8 pair (``pair_flow_i8``) and the
+    F(2,3) Winograd pair with dense conditioning (``pair_flow_wino``), both
+    with bf16 storage.  Every other instance, fp32 included, runs on CUDA
+    cores."""
+    if dtype != torch.bfloat16 or rs or hoisted:
+        return False
+    return phases == 6 or (phases == 0 and int8)
+
+
+def check_tc_geometry(r: int, cc: int) -> None:
+    """Raise ValueError unless the tensor-core pair takes these widths: R
+    a multiple of 32 (a warp item spans 16 filter columns with their 16
+    gate columns, or 32 columns of one 1x1, and an int8 k-step is 32 deep)
+    and the conditioning width Cc a multiple of 16 (a bf16 k-step; the int8
+    product pads a last half step with zero rows)."""
+    if r % 32 or r <= 0:
+        raise ValueError(f"the tensor-core pair takes R a multiple of 32, "
+                         f"got R={r}")
+    if cc % 16 or cc <= 0:
+        raise ValueError(f"the tensor-core pair takes Cc a multiple of 16, "
+                         f"got Cc={cc}")
+
+
+def pack_tc_weights(w: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] weight -> the tensor cores' fragment order [..., K/ks,
+    N/8, 32, e]: ks = 16, e = 4 for bf16 (mma m16n8k16); ks = 32, e = 8
+    for int8 (m16n8k32), K zero-padded to a multiple of ks.  Entry [s, t,
+    l, i] is the i-th B element that lane l holds for k-step s and n-tile
+    t (PTX ISA): n = 8t + l//4 and, in bf16, k = 16s + 2(l%4) + i%2 +
+    8(i//2); in int8, k = 32s + 4(l%4) + i%4 + 16(i//4).  So a lane reads
+    its fragment as one 8-byte load and a warp 256 contiguous bytes."""
+    *lead, k, n = w.shape
+    r = 4 if w.dtype == torch.int8 else 2          # consecutive k per half
+    ks = 8 * r
+    kp = -(-k // ks) * ks
+    if n % 8:
+        raise ValueError(f"N={n} must be a multiple of 8")
+    if kp != k:
+        w = torch.cat([w, w.new_zeros(*lead, kp - k, n)], -2)
+    nl = len(lead)
+    # k = ks*s + (ks/2)*h + r*q + i_r ; n = 8*t + g ; lane = 4*g + q,
+    # element i = r*h + i_r
+    w = w.reshape(*lead, kp // ks, 2, 4, r, n // 8, 8)
+    w = w.permute(*range(nl), nl, nl + 4, nl + 5, nl + 2, nl + 1, nl + 3)
+    return w.reshape(*lead, kp // ks, n // 8, 32, 2 * r).contiguous()
+
+
+# the operands the tensor-core pairs take packed by pack_tc_weights
+_TC_WEIGHTS = ("kfg", "cond_w", "res_w", "skip_w", "fin_w")
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str = "pair_flow"):
     """The built kernel library ``pair_flow`` (direct pairs) or
@@ -671,11 +726,12 @@ def _library(name: str = "pair_flow"):
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     getattr(lib, f"{pre}_threads").argtypes = []
     getattr(lib, f"{pre}_threads").restype = c_int
-    getattr(lib, f"{pre}_smem_bytes").argtypes = [c_int] * 5
+    getattr(lib, f"{pre}_smem_bytes").argtypes = [c_int] * 6
     getattr(lib, f"{pre}_smem_bytes").restype = c_int
-    # the Winograd launch also takes its hoisted flag
+    # (dtype, variant or P, [hoisted,] tc, ptrs, dims, stream): the
+    # Winograd launch also takes its hoisted flag
     getattr(lib, f"{pre}_launch").argtypes = (
-        [c_int] * (3 if name == "pair_flow_wino" else 2)
+        [c_int] * (4 if name == "pair_flow_wino" else 3)
         + [c_ptr, c_ptr, c_ptr])
     getattr(lib, f"{pre}_launch").restype = c_int
     return lib
@@ -721,6 +777,10 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
     if threads % R or Cc % 4 or R % 4:
         raise ValueError(f"kernel takes R dividing {threads} and Cc, R "
                          f"multiples of 4; got R={R}, Cc={Cc}")
+    tc = uses_tensor_cores(dt, int8=int8, rs=rs, hoisted=hoisted,
+                           phases=phases)
+    if tc:
+        check_tc_geometry(R, Cc)
     if hoisted and Cc != 2 * R2:
         raise ValueError(f"hoisted c must be n_layer*2R = {2 * R2} wide, got "
                          f"{Cc}")
@@ -747,7 +807,8 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
                 dt if name in weights else torch.float32)
         if o.dtype != w_dt:
             raise TypeError(f"operand {name} is {o.dtype}, expected {w_dt}")
-    ops = {k: (_pack_int8(o) if k in int8_w else o).contiguous()
+    ops = {k: (pack_tc_weights(o) if tc and k in _TC_WEIGHTS else
+               _pack_int8(o) if k in int8_w else o).contiguous()
            for k, o in ops.items()}
     crs = None
     if int8 and not hoisted:
@@ -764,7 +825,8 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
     else:
         variant, counter = _VARIANTS[int8, rs, hoisted]
         t_tile = kernel_t_tile(dt, r_in)
-    smem = getattr(lib, f"{pre}_smem_bytes")(dcode, variant, R, r_in, t_tile)
+    smem = getattr(lib, f"{pre}_smem_bytes")(dcode, variant, int(tc), R,
+                                             r_in, t_tile)
     if not 0 < smem <= 232448:
         raise ValueError(f"t_tile={t_tile} needs {smem} bytes of shared "
                          "memory per CTA (at most 232448)")
@@ -778,7 +840,8 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
     dims = (ctypes.c_int * 6)(B, T, r_in, R, Cc, t_tile)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        args = (dcode, variant) + ((int(hoisted),) if phases else ())
+        args = ((dcode, variant) + ((int(hoisted),) if phases else ())
+                + (int(tc),))
         err = getattr(lib, f"{pre}_launch")(
             *args, ctypes.cast(ptr_arr, ctypes.c_void_p),
             ctypes.cast(dims, ctypes.c_void_p), stream)

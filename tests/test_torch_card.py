@@ -7,6 +7,8 @@ nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -q tests/test_torch_card.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -439,3 +441,102 @@ def test_resblock_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="S == R"):
         rb.fused_gated_resblock(*args[:5], args[5][:, :128], args[6][:128],
                                 dilation=1, causal=False)
+
+
+def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2):
+    """Inputs and a launcher of a tensor-core pair: ``i8`` (pair_flow_i8,
+    int8 codes of c with per-row scales, bf16 storage) or ``wino``
+    (pair_flow_wino, F(2,3), bf16) at lj22k block bi's widths; returns
+    (kernel(rows), plain(rows), passthru(rows), counter name)."""
+    r_in, cc = 1 << bi, 80 << bi
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(11 + bi)
+    u, v = (torch.randn(B, T, r_in, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    c = [torch.rand(B, T, cc, generator=g, device=dev).to(dt)
+         for _ in range(2)]
+    pair = _pair(bi, dev)
+    if kind == "i8":
+        q = [quantize_act(x, per_row=True) for x in c]
+        c = [q[0][0], q[1][0]]
+        crs = torch.cat([q[0][1].reshape(-1, 1), q[1][1].reshape(-1, 1)], 1)
+        ops = pf.pair_reverse_operands_int8(pair, dt)
+        tt = pf.kernel_t_tile(dt, r_in)
+
+        def kern(rows, ops=ops):
+            return pf.fused_pair_reverse(u[rows], v[rows], c[0][rows],
+                                         c[1][rows], ops, int8=True,
+                                         c_row_scales=crs[rows])
+
+        def plain(rows, ops=ops):
+            return pf.pair_reverse_ref(u[rows], v[rows], c[0][rows],
+                                       c[1][rows], ops, t_tile=tt,
+                                       int8=True, c_row_scales=crs[rows])
+        name = "pair_flow_i8"
+    else:
+        ops = pf.pair_reverse_operands_wino(pair, dt)
+
+        def kern(rows, ops=ops):
+            return pf.fused_pair_reverse_wino(u[rows], v[rows], c[0][rows],
+                                              c[1][rows], ops)
+
+        def plain(rows, ops=ops):
+            return pf.pair_reverse_wino_ref(u[rows], v[rows], c[0][rows],
+                                            c[1][rows], ops, t_tile=60)
+        name = "pair_flow_wino"
+    ops_pass = tuple(torch.zeros_like(o) if i in (11, 12) else o
+                     for i, o in enumerate(ops))          # zw = zb = 0
+    return kern, plain, lambda rows: plain(rows, ops=ops_pass), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,bi", [("i8", 0), ("i8", 3), ("wino", 1)])
+def test_tc_kernels_match_plain(cuda, kind, bi):
+    """The tensor-core pairs vs their plain versions at lj22k widths, two
+    rows, T = 1000 (a ragged last tile): rel-to-max <= 1e-2, corr >= 0.9999
+    (int8: its sums are exact, as the plain version's float64 products) or
+    0.999 (bf16: summation order and one-ulp flips), and the error as a
+    share of what the coupling nets add <= 1e-2."""
+    assert pf.uses_tensor_cores(torch.bfloat16, int8=kind == "i8",
+                                phases=6 if kind == "wino" else 0)
+    kern, plain, passthru, name = _tc_case(kind, bi, cuda)
+    rows = slice(0, 2)
+    n0 = pf.LAUNCHES[name]
+    got = kern(rows)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES[name] == n0 + 1
+    _check(got, plain(rows), passthru(rows), 1e-2,
+           0.9999 if kind == "i8" else 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,bi", [("i8", 0), ("i8", 3), ("wino", 1)])
+def test_tc_kernels_are_deterministic_and_row_local(cuda, kind, bi):
+    """Two launches give the same bits, and a batch row computed alone
+    equals the same row computed beside another (one CTA per (row, tile);
+    every scale is row-local)."""
+    kern, _, _, _ = _tc_case(kind, bi, cuda)
+    a = kern(slice(0, 2))
+    b = kern(slice(0, 2))
+    alone = kern(slice(1, 2))
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, alone):
+        assert torch.equal(x, y)
+        assert torch.equal(x[1:2], z)
+
+
+@pytest.mark.cuda
+def test_tc_kernel_rejects_widths_it_does_not_take(cuda):
+    """R = 16 divides the CTA's 512 threads but is no multiple of 32: the
+    tensor-core pair raises (it has no fallback to the CUDA-core instance
+    or the plain version)."""
+    dt = torch.bfloat16
+    cfg = dataclasses.replace(lj22k().model, filter_size=16)
+    block = fwn.init_block(torch.Generator().manual_seed(0), 2, 160, cfg)
+    pair = tree_map(lambda l: l.to(cuda),
+                    fwn._index(fwn._pair_params(block), 0))
+    ops = pf.pair_reverse_operands_wino(pair, dt)
+    u = torch.zeros(1, 120, 2, device=cuda, dtype=dt)
+    c = torch.zeros(1, 120, 160, device=cuda, dtype=dt)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        pf.fused_pair_reverse_wino(u, u, c, c, ops)
