@@ -5,7 +5,9 @@
 
 1. Builds the four CUDA sources of ``flowavenet_tpu_torch/ops/csrc`` at
    once (one nvcc each) and prints the build times, ptxas' register and
-   spill lines, the card's name and power limit, and the versions.
+   spill lines, the card's name and power limit, the versions, and the
+   registers and local (spill) bytes per thread of each bf16 reverse pair
+   instance (cudaFuncGetAttributes; four of them run on the tensor cores).
 2. Holds the direct reverse pair kernel against its plain PyTorch version
    (``pair_reverse_ref``, TF32 off) at the lj22k geometry of every block
    the kernel routes (R_in = 2^bi, Cc = 80*2^bi, R = 256), at the batch
@@ -33,7 +35,10 @@
    reverse checked exactly) and the plain route, which each route must
    match to the JAX package's int8 test bar (corr > 0.998, rel < 0.08).
    Each route runs one warm-up call and ``REPS`` timed calls; the median
-   and the range are printed.
+   and the range are printed.  Phase 3b (``odd_width_phase``) reverses
+   lj22k models with num_mels 79 and filter_size 48, whose widths the
+   kernels take only zero-padded, on the int8, FWN_INT8=0 and FWN_WINO4=1
+   routes against their plain route at the same bar.
 4. Holds ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` against
    their plain versions at the lj22k training geometry of blocks 0-3
    (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
@@ -1011,6 +1016,68 @@ def main_path(params, cfg, dev, frames):
     return out
 
 
+ODD_FRAMES = (120, 97)               # two mels per odd-width reverse
+# Models whose widths the pair kernels take only padded: an odd num_mels
+# (Cc = 79 * 2^b, the per-level route) and a filter_size that divides
+# neither 512 nor 32 (R = 48 runs as 64)
+ODD_MODELS = {"num_mels=79": dict(num_mels=79),
+              "filter_size=48": dict(filter_size=48)}
+
+
+def odd_width_phase(dev):
+    """Phase 3b: lj22k at full depth with num_mels 79 or filter_size 48,
+    bf16 synthesize_mels of two mels on the kernel routes of ``ROUTES``
+    that the issue of widths touches (int8, FWN_INT8=0, FWN_INT8=0
+    FWN_WINO4=1; launch counts checked exactly, as for lj22k) against the
+    plain route of the same params, at the bar of phase 3 (rel < 0.08,
+    corr > 0.998)."""
+    import torch
+    from flowavenet_tpu_torch.config import lj22k
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    out = {}
+    for i, (mname, kw) in enumerate(ODD_MODELS.items()):
+        base = lj22k()
+        cfg = base.replace(
+            model=dataclasses.replace(base.model, **kw),
+            audio=dataclasses.replace(
+                base.audio, num_mels=kw.get("num_mels",
+                                            base.audio.num_mels)))
+        params = tree_map(lambda l: l.to(dev),
+                          randomized_params(cfg, SEED + 10 + i))
+        rng = np.random.RandomState(SEED + i)
+        mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
+                for f in ODD_FRAMES]
+
+        def synth(model_cfg):
+            return np.concatenate(synthesize_mels(
+                params, cfg.replace(model=model_cfg), mels, seed=SEED,
+                compute_dtype=torch.bfloat16, device=dev))
+        want = synth(dataclasses.replace(cfg.model, use_pallas=False))
+        for name, switches, expect in ROUTES[:3]:
+            saved = {k: getattr(fwn, k) for k in switches}
+            try:
+                for k, val in switches.items():
+                    setattr(fwn, k, val)
+                torch.cuda.synchronize()
+                _reset_counts()
+                got = synth(cfg.model)
+                torch.cuda.synchronize()
+                counts = _counts()
+            finally:
+                for k, val in saved.items():
+                    setattr(fwn, k, val)
+            check(counts == expect, (mname, name, "launches", counts))
+            _, rel, corr = _errors(got, want)
+            print(f"{mname} {name} route vs plain route: rel {rel:.4e} "
+                  f"corr {corr:.6f}, launches {counts}", flush=True)
+            check(rel < 0.08 and corr > 0.998, (mname, name, rel, corr))
+            out[f"{mname} {name}"] = (rel, corr)
+    return out
+
+
 SERVE_FRAMES = (180, 205, 231, 262, 289, 301, 322, 345)   # 8 requests
 SERVE_ROUNDS = 8                    # timed rounds of SERVE_FRAMES
 STREAM_FRAMES = 800
@@ -1439,6 +1506,16 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print("  ptxas:", line.strip())
         _build.load(name)
+    # registers and local (spill) bytes per thread of every reverse pair
+    # instance in bf16 (cudaFuncGetAttributes)
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    attrs = {}
+    for name, opts in PAIR_OPTIONS.items():
+        regs, local = pf.kernel_attrs(torch.bfloat16, **opts)
+        tc = pf.uses_tensor_cores(torch.bfloat16, **opts)
+        attrs[name] = {"registers": regs, "local_bytes": local}
+        print(f"{name} bf16 ({'tensor cores' if tc else 'CUDA cores'}): "
+              f"numRegs {regs}, localSizeBytes {local}", flush=True)
 
     cfg = lj22k()
     params = randomized_params(cfg, SEED)
@@ -1451,6 +1528,8 @@ def main() -> int:
     rrows, r_launches, r_grads = resblock_checks(params, cfg, B, T, dev)
     # phase 3: synthesis on every route, the first slice's main path
     main_out = main_path(params, cfg, dev, FRAMES)
+    # phase 3b: widths the kernels take only padded, on the kernel routes
+    odd_out = odd_width_phase(dev)
     # phase 6 (run here, on the loaded bf16 params): serving, this slice's
     # main path
     serve_out = serving_phase(main_out.pop("loaded"), cfg, dev)
@@ -1574,11 +1653,11 @@ def main() -> int:
                    "pair_train_bwd", 0), range(n_tr)),
         rentry("resblock", 58),
         rentry("resblock_v2", 278)]
-    from flowavenet_tpu_torch.ops import pair_flow as pf
     for k in kernels:
         opts = PAIR_OPTIONS.get(k["name"])
         tc = opts is not None and pf.uses_tensor_cores(torch.bfloat16, **opts)
         k["design"] = "tensor cores (mma.sync)" if tc else "CUDA cores"
+        k.update(attrs.get(k["name"], {}))
         k["pct_of_bound"] = 100.0 * k["bound_ms"] / k["ms"]
     check(all(k["launches"] > 0 for k in kernels),
           ("a kernel of the main paths was never launched", kernels))
@@ -1593,6 +1672,7 @@ def main() -> int:
         "reverse_ms_by_route": {k: r["ms"] for k, r in routes.items()},
         "route_agreement": {k: (r["rel_to_plain"], r["corr_to_plain"])
                             for k, r in routes.items()},
+        "odd_width_route_agreement": odd_out,
         "calls_ms_int8_route": routes["int8"]["walls_ms"],
         "calls_ms_bf16_route": routes["FWN_INT8=0"]["walls_ms"],
         "calls_ms_plain_route": main_out["walls_ms_plain"],

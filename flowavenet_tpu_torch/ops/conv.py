@@ -115,7 +115,9 @@ def conv1x1_int8(x_q: torch.Tensor, x_scale: torch.Tensor,
     ``x_q``/``x_scale`` come from :func:`quantize_act`; ``kernel`` is
     quantized here with per-out-channel max-abs scales.  The product is
     ``torch._int_mm`` (cuBLASLt on the GPU), which takes M > 16 and K, N
-    multiples of 8; other shapes raise."""
+    multiples of 8: other shapes run padded with zero rows (M up to 17)
+    and zero columns (K and N up to multiples of 8), which leave the exact
+    int32 sums of the real rows and columns unchanged."""
     w = (kernel[0] if kernel.dim() == 3 else kernel).float()
     w_scale = torch.clamp(torch.amax(w.abs(), dim=0), min=1e-30) * (
         1.0 / 127.0)
@@ -123,13 +125,16 @@ def conv1x1_int8(x_q: torch.Tensor, x_scale: torch.Tensor,
                       ).to(torch.int8)
     B, T, K = x_q.shape
     N = w_q.shape[1]
-    if B * T <= 16 or K % 8 or N % 8:
-        raise ValueError(
-            f"conv1x1_int8 takes M > 16 and K, N multiples of 8; got "
-            f"M={B * T}, K={K}, N={N}")
+    M = B * T
+    x2 = x_q.reshape(M, K)
+    pk, pn = -K % 8, -N % 8
+    if M <= 16 or pk:
+        x2 = F.pad(x2, (0, pk, 0, max(0, 17 - M)))
+    if pk or pn:
+        w_q = F.pad(w_q, (0, pn, 0, pk))
     # column-major B operand: [N, K] contiguous, passed transposed
-    acc = torch._int_mm(x_q.reshape(B * T, K), w_q.t().contiguous().t())
-    acc = acc.reshape(B, T, N)
+    acc = torch._int_mm(x2, w_q.t().contiguous().t())
+    acc = acc[:M, :N].reshape(B, T, N)
     out = (acc.float() * x_scale.float() * w_scale[None, None, :]
            ).to(out_dtype)
     if bias is not None:

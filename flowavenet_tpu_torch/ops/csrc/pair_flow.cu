@@ -8,11 +8,12 @@
 //   _pair_kernel_hoisted_i8   variant 4 (variant 3 with int8 fg convs).
 // The kernel body, its design and what bounds it are described in
 // pair_flow_common.cuh; the direct variants run with a 10-row halo (the
-// pair's receptive field).  Variant 1 in bf16 (pair_flow_i8, the default
-// synthesis route) runs its products on the tensor cores: int8 mma.sync
-// for the filter|gate convs and the conditioning 1x1s, bf16 for res/skip
-// and the final 1x1.  The other variants, and variant 1 in fp32, run on
-// CUDA cores (FMAs and __dp4a).
+// pair's receptive field).  Variants 0 and 1 in bf16 (pair_flow on the
+// FWN_INT8=0 route's block 3, pair_flow_i8 on the default synthesis route)
+// run their products on the tensor cores: bf16 mma.sync for variant 0's
+// filter|gate convs and conditioning 1x1s, int8 for variant 1's, bf16 for
+// res/skip and the final 1x1 of both.  The other variants, and every fp32
+// instance, run on CUDA cores (FMAs and __dp4a).
 
 #include "pair_flow_common.cuh"
 
@@ -26,25 +27,33 @@ using pf::COND_I8;
 constexpr bool kI8[5] = {false, true, true, false, true};
 constexpr bool kRS[5] = {false, false, true, false, false};
 
-// The one direct instance on the tensor cores: int8 fg convs and
-// conditioning (variant 1) with bf16 storage, pair_flow_i8 of the main
-// path.  Every other instance runs the CUDA-core product.
+// The direct instances on the tensor cores: bf16 storage with bf16 convs
+// (variant 0, pair_flow) or int8 fg convs and conditioning (variant 1,
+// pair_flow_i8 of the main path).  Every other instance runs the
+// CUDA-core product.
 constexpr bool tc_instance(int dtype, int variant) {
-  return dtype == 1 && variant == 1;
+  return dtype == 1 && (variant == 0 || variant == 1);
 }
 
-template <typename T>
-int launch_variant(int variant, const pf::Params& p, cudaStream_t st) {
+// fn(pf::Instance<...>{}) for the instance of (T, variant).
+template <typename T, typename Fn>
+int with_variant(int variant, Fn fn) {
+  constexpr bool bf = sizeof(T) == 2;
   switch (variant) {
-    case 0: return pf::launch<T, false, COND_DENSE, false, 0>(p, st);
-    // bf16: the tensor-core instance; the CUDA-core one runs in fp32 only
-    case 1: return pf::launch<T, true, COND_I8, false, 0, sizeof(T) == 2>(p,
-                                                                       st);
-    case 2: return pf::launch<T, true, COND_I8, true, 0>(p, st);
-    case 3: return pf::launch<T, false, COND_HOIST, false, 0>(p, st);
-    case 4: return pf::launch<T, true, COND_HOIST, false, 0>(p, st);
+    // bf16: the tensor-core instances; the CUDA-core ones run in fp32 only
+    case 0: return fn(pf::Instance<T, false, COND_DENSE, false, 0, bf>{});
+    case 1: return fn(pf::Instance<T, true, COND_I8, false, 0, bf>{});
+    case 2: return fn(pf::Instance<T, true, COND_I8, true, 0>{});
+    case 3: return fn(pf::Instance<T, false, COND_HOIST, false, 0>{});
+    case 4: return fn(pf::Instance<T, true, COND_HOIST, false, 0>{});
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename Fn>
+int with_instance(int dtype, int variant, Fn fn) {
+  return dtype == 0 ? with_variant<float>(variant, fn)
+                    : with_variant<__nv_bfloat16>(variant, fn);
 }
 
 }  // namespace
@@ -52,7 +61,7 @@ int launch_variant(int variant, const pf::Params& p, cudaStream_t st) {
 extern "C" {
 
 // Dynamic shared memory one CTA needs (bytes).  dtype: 0 fp32, 1 bf16;
-// tc: the tensor-core instance (variant 1 in bf16 only).
+// tc: a tensor-core instance (variant 0 or 1 in bf16 only).
 int pair_reverse_smem_bytes(int dtype, int variant, int tc, int R, int Rin,
                             int TT) {
   if (variant < 0 || variant > 4 || (tc != 0) != tc_instance(dtype, variant))
@@ -66,23 +75,31 @@ int pair_reverse_threads() { return pf::NT; }
 // ptrs: u, v, c_a, c_b, u_out, v_out, the 19 operand slots and
 // c_row_scales (pf::make_params); dims: B, T, Rin, R, Cc, TT (Cc: the row
 // width of c_a/c_b, n_layer*2R for the hoisted variants).  tc != 0 runs
-// the tensor-core instance, whose kfg, cond_w, res_w, skip_w and fin_w
-// come packed in fragment order (ops/pair_flow.py:pack_tc_weights); it
-// takes R a multiple of 32 and Cc a multiple of 16.  tc must say whether
-// (dtype, variant) is that instance: neither runs in the other's place.
-// Returns the cudaError_t of the launch (0 = success).
+// a tensor-core instance, whose kfg, cond_w, res_w, skip_w and fin_w
+// come packed in fragment order (ops/pair_flow.py:pack_tc_weights).  tc
+// must say whether (dtype, variant) is such an instance: neither runs in
+// the other's place.  Widths the instance does not take (pf::geometry_ok)
+// are refused; the wrapper pads them.  Returns the cudaError_t of the
+// launch (0 = success).
 int pair_reverse_launch(int dtype, int variant, int tc,
                         const void* const* ptrs, const int* dims,
                         void* stream) {
   if (variant < 0 || variant > 4) return (int)cudaErrorInvalidValue;
   if ((tc != 0) != tc_instance(dtype, variant) ||
-      (tc && (dims[3] % 32 || dims[4] % 16)))
+      !pf::geometry_ok(dims[3], dims[4], tc != 0))
     return (int)cudaErrorInvalidValue;
   const pf::Params p = pf::make_params(ptrs, dims, 3, dtype == 0 ? 4 : 2,
                                        kI8[variant], kRS[variant], tc != 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_variant<float>(variant, p, st)
-                    : launch_variant<__nv_bfloat16>(variant, p, st);
+  return with_instance(dtype, variant,
+                       [&](auto k) { return k.launch(p, st); });
+}
+
+// out = registers and local (spill) bytes per thread of the (dtype,
+// variant) instance, from cudaFuncGetAttributes.  Returns its cudaError_t.
+int pair_reverse_attrs(int dtype, int variant, int* out) {
+  return with_instance(dtype, variant,
+                       [&](auto k) { return k.attrs(out); });
 }
 
 }  // extern "C"

@@ -33,14 +33,15 @@
 // CUDA cores' ~67 TFLOP/s.  The tensor-core product (TC = true) runs every
 // 1x1 and filter|gate product on mma.sync: m16n8k16 bf16 -> fp32 and
 // m16n8k32 s8 -> s32.  A warp owns a 16-row m-tile and two n-tiles of the
-// filter together with the same two of the gate (or res with skip-0), so
-// one lane holds f and g of the same (row, column) and gates in registers.
-// A comes from shared memory through ldmatrix, one row address per lane
-// (a tap's shift and the ragged-edge clamp are just row addresses); the
-// window buffers get a padded row stride (ldh, ldq) so that the 8 rows of
-// an ldmatrix fall in distinct banks.  The conditioning A fragments are
-// read per lane from global memory (16 re-reads of a c row per layer, one
-// per column-group warp, instead of one per column thread); shared memory
+// filter together with the same two of the gate (or res with skip-0; one
+// of each in the F(4,3) layer), so one lane holds f and g of the same
+// (row, column) and gates in registers.  A comes from shared memory
+// through ldmatrix, one row address per lane (a tap's shift and the
+// ragged-edge clamp are just row addresses); the window buffers get a
+// padded row stride (ldh, ldq) so that the 8 rows of an ldmatrix fall in
+// distinct banks.  The conditioning A fragments are read per lane from
+// global memory (a c row is re-read once per column-group warp, 16 times
+// per layer at R = 256, instead of once per column thread); shared memory
 // holds no c staging because the window buffers already take up to 210 KB
 // of the 227 KB.  B is packed by the wrapper (ops/pair_flow.py:
 // pack_tc_weights) into fragment order: lane l of (k-step, n-tile) reads
@@ -53,13 +54,17 @@
 // conv (K = 3*R_in) and the zero conv (N = 2*R_in), under 1 % of the
 // operations, stay on CUDA cores in every instance.
 //
-// TC is set on exactly two instances: the int8 pair with bf16 storage
-// (pair_flow.cu variant 1, pair_flow_i8 on the main path) and the F(2,3)
-// Winograd pair with dense conditioning in bf16 (pair_flow_wino.cu P = 6).
-// Every fp32 instance, the direct bf16 pair, i8rs, the hoisted pairs and
-// F(4,3) run the CUDA-core product.  int8 sums are exact either way; a
-// bf16 product is exact in fp32, so the tensor cores change only the fp32
-// summation order.
+// TC is set on exactly four instances, all with bf16 storage: the direct
+// pair (pair_flow.cu variant 0, pair_flow), the int8 pair (variant 1,
+// pair_flow_i8 on the main path), and the F(2,3) and F(4,3) Winograd pairs
+// with dense conditioning (pair_flow_wino.cu P = 6 and 12, pair_flow_wino
+// and pair_flow_wino4).  Every fp32 instance, i8rs and the hoisted pairs
+// run the CUDA-core product.  int8 sums are exact either way; a bf16
+// product is exact in fp32, so the tensor cores change only the fp32
+// summation order.  The tensor-core instances take R a multiple of 32 and
+// Cc of 16, every instance R dividing NT and R, Cc multiples of 4; the
+// wrapper pads other widths with zero channels (ops/pair_flow.py:
+// kernel_widths, pad_pair_widths).
 //
 // Variants (template parameters of pair_reverse_kernel):
 //   I8    filter|gate convs on int8 codes of h0/h1 (per-window max-abs
@@ -181,6 +186,16 @@ struct Smem {
   int ldh;      // row stride of H and G in elements: R, or R + 8 (TC)
   int ldq;      // row stride of Q in bytes: R, or R + 16 (TC)
 };
+
+// The widths an instance takes: R divides NT (a CUDA-core product gives
+// each thread one column) and R, Cc are multiples of 4 (int8 words); the
+// tensor-core instances also need R a multiple of 32 (a warp item spans 16
+// filter columns with their 16 gate columns, or 32 columns of one 1x1; an
+// int8 k-step is 32 deep) and Cc of 16 (a bf16 k-step).
+inline bool geometry_ok(int R, int Cc, bool tc) {
+  if (R <= 0 || Cc <= 0 || NT % R || R % 4 || Cc % 4) return false;
+  return !tc || (R % 32 == 0 && Cc % 16 == 0);
+}
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
@@ -761,68 +776,234 @@ __device__ void direct_layer_tc(const Params& p, const Flow& f,
   }
 }
 
-// Winograd F(2,3) filter|gate layer on the tensor cores over window rows
-// [rb, re) at dilation dil -> G: the TC twin of wino_layer<bf16,
-// COND_DENSE, 6>.  The m dimension is the layer's groups (d=1: rows 2j,
-// 2j+1; d=3: 6j+r, 6j+r+3).  Each lane loads the 4 taps of its 8 A
-// elements (2 groups x 4 channels) from H, applies wino_in in bf16 (each
-// operation rounded, as wino_layer) and packs the 4 plane fragments, so a
-// transform is computed once per warp fragment; four accumulator sets take
-// the products with the packed G-transformed weights and wino_out runs in
-// fp32 on the lane's own accumulators.  The conditioning 1x1 runs as one
-// bf16 product per output e of a group (c rows base + e*dil), added after
-// wino_out as add_cond does.
-__device__ inline void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
+// The bf16 conditioning 1x1 of one warp item on the tensor cores: this
+// lane's c rows at global positions p_lo / p_hi (A fragment rows lo and
+// hi, already clamped into [0, T)) against the packed cond_w Wc, TW
+// n-tiles from t0 of the filter and the same TW of the gate (gate_t0 on).
+// The A fragments are per-lane 4-byte global loads (a c row is re-read
+// once per column-group warp of the layer); Cc is a multiple of 16.
+template <int TW>
+__device__ __forceinline__ void cond_tc(float (&cf)[TW][4],
+                                        float (&cg)[TW][4],
+                                        const __nv_bfloat16* C, int Cc,
+                                        int p_lo, int p_hi, const uint2* Wc,
+                                        int ntl, int t0, int gate_t0) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* c_lo = C + (size_t)p_lo * Cc + 2 * (lane & 3);
+  const __nv_bfloat16* c_hi = C + (size_t)p_hi * Cc + 2 * (lane & 3);
+#pragma unroll 2
+  for (int ks = 0; ks < Cc / 16; ++ks) {
+    uint32_t af[4];
+    af[0] = ld_g32(c_lo + 16 * ks);
+    af[1] = ld_g32(c_hi + 16 * ks);
+    af[2] = ld_g32(c_lo + 16 * ks + 8);
+    af[3] = ld_g32(c_hi + 16 * ks + 8);
+#pragma unroll
+    for (int j = 0; j < TW; ++j) {
+      mma_bf16(cf[j], af, tc_b(Wc, ntl, ks, t0 + j));
+      mma_bf16(cg[j], af, tc_b(Wc, ntl, ks, gate_t0 + t0 + j));
+    }
+  }
+}
+
+// Direct bf16 filter|gate layer on the tensor cores over rows [rb, re) at
+// dilation dil -> G: the TC twin of direct_layer<bf16, false, COND_DENSE,
+// false>.  The three taps are three bf16 products over R/16 k-steps with A
+// from H through ldmatrix (tap k of row r is row r + (k-1)*dil; rows past
+// re are clamped to re - 1 and never stored) against the packed kfg, then
+// the conditioning 1x1 (cond_tc, c rows clamped into [0, T) as in
+// direct_layer) into its own accumulators, added after the fg sum, biased
+// and gated in the order of direct_layer, add_cond and gate_store.
+__device__ inline void direct_layer_tc_bf(const Params& p, const Flow& f,
+                                          const Smem& s, int layer, int rb,
+                                          int re, int dil, const void* cglob,
+                                          int b, int win0) {
+  using bf = __nv_bfloat16;
+  const int R = p.R, R2 = 2 * R, lane = threadIdx.x & 31;
+  const int nks = R / 16, ntl = R2 / 8;
+  const int n_mt = (re - rb + 15) >> 4, ngroups = R / (8 * TJ);
+  const uint2* W = static_cast<const uint2*>(f.kfg) +
+                   (size_t)layer * 3 * nks * ntl * 32 + lane;
+  const uint2* Wc = static_cast<const uint2*>(f.cond_w) +
+                    (size_t)layer * (p.Cc / 16) * ntl * 32 + lane;
+  const bf* C = static_cast<const bf*>(cglob) + (size_t)b * p.T * p.Cc;
+  const float* bias = f.cond_b + layer * R2;
+  for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
+    const int m0 = rb + 16 * (it % n_mt), t0 = TJ * (it / n_mt);
+    float fa[TJ][4] = {}, ga[TJ][4] = {};
+    const bf* a = static_cast<const bf*>(s.H) +
+                  (size_t)(min(m0 + (lane & 15), re - 1) - dil) * s.ldh +
+                  (lane >> 4) * 8;
+    for (int k = 0; k < 3; ++k) {
+      const bf* ak = a + (size_t)k * dil * s.ldh;
+      const uint2* wk = W + (size_t)k * nks * ntl * 32;
+#pragma unroll 4
+      for (int ks = 0; ks < nks; ++ks) {
+        uint32_t af[4];
+        ldsm_x4(af, ak + ks * 16);
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          mma_bf16(fa[j], af, tc_b(wk, ntl, ks, t0 + j));
+          mma_bf16(ga[j], af, tc_b(wk, ntl, ks, R / 8 + t0 + j));
+        }
+      }
+    }
+    float cf[TJ][4] = {}, cg[TJ][4] = {};
+    const int r_lo = min(m0 + frag_row(0), re - 1);
+    const int r_hi = min(m0 + frag_row(2), re - 1);
+    cond_tc<TJ>(cf, cg, C, p.Cc, min(max(win0 + r_lo, 0), p.T - 1),
+                min(max(win0 + r_hi, 0), p.T - 1), Wc, ntl, t0, R / 8);
+    bf* G = static_cast<bf*>(s.G);
+#pragma unroll
+    for (int j = 0; j < TJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + frag_row(i), n = frag_col(t0 + j, i);
+        if (row >= re) continue;
+        const float fv = fa[j][i] + cf[j][i], gv = ga[j][i] + cg[j][i];
+        G[(size_t)row * s.ldh + n] =
+            from_f<bf>(gated(fv + bias[n], gv + bias[R + n]));
+      }
+  }
+}
+
+// bf16x2 arithmetic with one rounding per operation (fma.rn.bf16x2 as
+// a*1 + b, b*(-1) + a and a*k + (-0)).  Rounding the exact result once to
+// bf16 gives the same bits as rounding it to fp32 and then to bf16 (fp32
+// keeps more than 2*8 + 2 significand bits, so the double rounding is
+// innocuous), i.e. the same as rnd<bf16> of the fp32 operation in wino_in
+// and in the plain version.
+__device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+constexpr uint32_t BF2_ONE = 0x3F803F80u, BF2_MINUS_ONE = 0xBF80BF80u,
+                   BF2_MINUS_ZERO = 0x80008000u, BF2_TWO = 0x40004000u,
+                   BF2_MINUS_TWO = 0xC000C000u, BF2_FOUR = 0x40804080u,
+                   BF2_MINUS_FOUR = 0xC080C080u, BF2_FIVE = 0x40A040A0u;
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  return bf2_fma(a, BF2_ONE, b);
+}
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  return bf2_fma(b, BF2_MINUS_ONE, a);
+}
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t k) {
+  return bf2_fma(a, k, BF2_MINUS_ZERO);
+}
+
+// wino_in<bf16> of the 6 taps on two channels at once: the same operations
+// in the same order, each rounded once.
+__device__ __forceinline__ void wino_in_bf2(const uint32_t (&d)[6],
+                                            uint32_t (&t)[6]) {
+  t[0] = bf2_add(bf2_sub(bf2_mul(d[0], BF2_FOUR), bf2_mul(d[2], BF2_FIVE)),
+                 d[4]);
+  t[1] = bf2_add(bf2_add(bf2_mul(bf2_add(d[1], d[2]), BF2_MINUS_FOUR), d[3]),
+                 d[4]);
+  t[2] = bf2_add(bf2_sub(bf2_mul(bf2_sub(d[1], d[2]), BF2_FOUR), d[3]), d[4]);
+  t[3] = bf2_add(bf2_add(bf2_sub(bf2_mul(d[1], BF2_MINUS_TWO), d[2]),
+                         bf2_mul(d[3], BF2_TWO)), d[4]);
+  t[4] = bf2_add(bf2_sub(bf2_sub(bf2_mul(d[1], BF2_TWO), d[2]),
+                         bf2_mul(d[3], BF2_TWO)), d[4]);
+  t[5] = bf2_add(bf2_sub(bf2_mul(d[1], BF2_FOUR), bf2_mul(d[3], BF2_FIVE)),
+                 d[5]);
+}
+
+// The A fragments of the K Winograd planes for one k-step: register r of
+// the m16n8k16 fragment is group row lo / hi (r & 1), channels 2(lane%4)
+// + {0, 1} + 8(r >> 1); h_lo / h_hi point at that lane's first tap (row
+// base - dil, channel 2(lane%4) of the k-step) and step is dil rows.
+// F(2,3) transforms in fp32 with each operation rounded (wino_in<bf16>);
+// F(4,3) in bf16x2 (wino_in_bf2, the same bits in a quarter of the
+// instructions, which its 6-tap transform needs).
+template <int P>
+__device__ __forceinline__ void wino_frags(uint32_t (&af)[P == 6 ? 4 : 6][4],
+                                           const __nv_bfloat16* h_lo,
+                                           const __nv_bfloat16* h_hi,
+                                           size_t step) {
+  using bf = __nv_bfloat16;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const bf* h = (r & 1 ? h_hi : h_lo) + 8 * (r >> 1);
+    if constexpr (P == 6) {
+      float dx[4], dy[4], tx[4], ty[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 d = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(h + k * step));
+        dx[k] = d.x;
+        dy[k] = d.y;
+      }
+      wino_in<bf>(dx, tx);
+      wino_in<bf>(dy, ty);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) af[k][r] = pack_bf16x2(tx[k], ty[k]);
+    } else {
+      uint32_t d[6], t[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        d[k] = *reinterpret_cast<const uint32_t*>(h + k * step);
+      wino_in_bf2(d, t);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) af[k][r] = t[k];
+    }
+  }
+}
+
+// Winograd filter|gate layer on the tensor cores over window rows [rb, re)
+// at dilation dil -> G: the TC twin of wino_layer<bf16, COND_DENSE, P>,
+// F(2,3) (P = 6) or F(4,3) (P = 12).  The m dimension is the layer's
+// groups (F(2,3) d=1 rows 2j, 2j+1, d=3 6j+r, 6j+r+3; F(4,3) d=1 4j..4j+3,
+// d=3 12j+r, +3, +6, +9).  Each lane loads the K taps of its 8 A elements
+// (2 groups x 4 channels) from H and builds the K plane fragments
+// (wino_frags), so a transform is computed once per warp fragment; K
+// accumulator sets take the products with the packed G-transformed
+// weights, wino_out runs in fp32 on the lane's own accumulators, and the
+// conditioning 1x1 runs as one bf16 product per output e of a group (c
+// rows base + e*dil), added after wino_out as add_cond does.  A warp item
+// spans TW n-tiles of the filter and the same of the gate: TJ = 2 for
+// F(2,3); 1 for F(4,3), whose 6 planes x f, g x 4 fp32 accumulators per
+// n-tile would not fit the 128 registers a thread of 512 has at TW = 2.
+template <int P>
+__device__ void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
                               int layer, int rb, int re, int dil,
                               const void* cglob, int b, int win0) {
   using bf = __nv_bfloat16;
-  const int R = p.R, R2 = 2 * R, Cc = p.Cc, lane = threadIdx.x & 31;
-  const int nks = R / 16, ntl = R2 / 8, kc = Cc / 16;
-  const int ng = (re - rb) / 2, n_mt = (ng + 15) >> 4;
-  const int ngroups = R / (8 * TJ);
+  constexpr int K = P == 6 ? 4 : 6;      // planes (transformed taps)
+  constexpr int M = P == 6 ? 2 : 4;      // outputs per group
+  constexpr int TW = P == 6 ? TJ : 1;    // n-tiles per warp item
+  const int R = p.R, R2 = 2 * R, lane = threadIdx.x & 31;
+  const int nks = R / 16, ntl = R2 / 8;
+  const int ng = (re - rb) / M, n_mt = (ng + 15) >> 4;
+  const int ngroups = R / (8 * TW);
   const size_t plane = (size_t)nks * ntl * 32;
   const bf* H = static_cast<const bf*>(s.H);
-  const uint2* U = static_cast<const uint2*>(f.kfg) + layer * 4 * plane +
+  const uint2* U = static_cast<const uint2*>(f.kfg) + layer * K * plane +
                    lane;
   const uint2* Wc = static_cast<const uint2*>(f.cond_w) +
-                    (size_t)layer * kc * ntl * 32 + lane;
-  const bf* C = static_cast<const bf*>(cglob) + (size_t)b * p.T * Cc;
+                    (size_t)layer * (p.Cc / 16) * ntl * 32 + lane;
+  const bf* C = static_cast<const bf*>(cglob) + (size_t)b * p.T * p.Cc;
   const float* bias = f.cond_b + layer * R2;
   auto base = [&](int g) {
-    return dil == 1 ? rb + 2 * g : rb + 6 * (g / 3) + g % 3;
+    return dil == 1 ? rb + M * g : rb + P * (g / 3) + g % 3;
   };
   for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
-    const int g0 = 16 * (it % n_mt), t0 = TJ * (it / n_mt);
+    const int g0 = 16 * (it % n_mt), t0 = TW * (it / n_mt);
     const int b_lo = base(min(g0 + frag_row(0), ng - 1));
     const int b_hi = base(min(g0 + frag_row(2), ng - 1));
     const bf* h_lo = H + (size_t)(b_lo - dil) * s.ldh + 2 * (lane & 3);
     const bf* h_hi = H + (size_t)(b_hi - dil) * s.ldh + 2 * (lane & 3);
-    float mf[4][TJ][4] = {}, mg[4][TJ][4] = {};
+    float mf[K][TW][4] = {}, mg[K][TW][4] = {};
 #pragma unroll 1
     for (int ks = 0; ks < nks; ++ks) {
-      uint32_t af[4][4];      // [plane][register]
+      uint32_t af[K][4];      // [plane][register]
+      wino_frags<P>(af, h_lo + 16 * ks, h_hi + 16 * ks,
+                    (size_t)dil * s.ldh);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        // register r: group row lo / hi (r & 1), channels + 8 (r >> 1)
-        const bf* h = (r & 1 ? h_hi : h_lo) + 16 * ks + 8 * (r >> 1);
-        float dx[4], dy[4], tx[4], ty[4];
+      for (int k = 0; k < K; ++k)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 d = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  h + (size_t)k * dil * s.ldh));
-          dx[k] = d.x;
-          dy[k] = d.y;
-        }
-        wino_in<bf>(dx, tx);
-        wino_in<bf>(dy, ty);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) af[k][r] = pack_bf16x2(tx[k], ty[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) {
+        for (int j = 0; j < TW; ++j) {
           mma_bf16(mf[k][j], af[k], tc_b(U + k * plane, ntl, ks, t0 + j));
           mma_bf16(mg[k][j], af[k],
                    tc_b(U + k * plane, ntl, ks, R / 8 + t0 + j));
@@ -830,44 +1011,33 @@ __device__ inline void wino_layer_tc(const Params& p, const Flow& f, const Smem&
     }
     // the output transform first, so the plane accumulators die before
     // the conditioning products
-    float ff[2][TJ][4], gg[2][TJ][4];
+    float ff[M][TW][4], gg[M][TW][4];
 #pragma unroll
-    for (int j = 0; j < TJ; ++j)
+    for (int j = 0; j < TW; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float mfi[4] = {mf[0][j][i], mf[1][j][i], mf[2][j][i],
-                              mf[3][j][i]};
-        const float mgi[4] = {mg[0][j][i], mg[1][j][i], mg[2][j][i],
-                              mg[3][j][i]};
+        float mfi[K], mgi[K];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
+        for (int k = 0; k < K; ++k) {
+          mfi[k] = mf[k][j][i];
+          mgi[k] = mg[k][j][i];
+        }
+#pragma unroll
+        for (int e = 0; e < M; ++e) {
           ff[e][j][i] = wino_out(mfi, e);
           gg[e][j][i] = wino_out(mgi, e);
         }
       }
     bf* G = static_cast<bf*>(s.G);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float cf[TJ][4] = {}, cg[TJ][4] = {};
-      const int p_lo = min(max(win0 + b_lo + e * dil, 0), p.T - 1);
-      const int p_hi = min(max(win0 + b_hi + e * dil, 0), p.T - 1);
-      const bf* c_lo = C + (size_t)p_lo * Cc + 2 * (lane & 3);
-      const bf* c_hi = C + (size_t)p_hi * Cc + 2 * (lane & 3);
-#pragma unroll 2
-      for (int ks = 0; ks < kc; ++ks) {
-        uint32_t af[4];
-        af[0] = ld_g32(c_lo + 16 * ks);
-        af[1] = ld_g32(c_hi + 16 * ks);
-        af[2] = ld_g32(c_lo + 16 * ks + 8);
-        af[3] = ld_g32(c_hi + 16 * ks + 8);
+    for (int e = 0; e < M; ++e) {
+      float cf[TW][4] = {}, cg[TW][4] = {};
+      cond_tc<TW>(cf, cg, C, p.Cc,
+                  min(max(win0 + b_lo + e * dil, 0), p.T - 1),
+                  min(max(win0 + b_hi + e * dil, 0), p.T - 1), Wc, ntl, t0,
+                  R / 8);
 #pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          mma_bf16(cf[j], af, tc_b(Wc, ntl, ks, t0 + j));
-          mma_bf16(cg[j], af, tc_b(Wc, ntl, ks, R / 8 + t0 + j));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < TJ; ++j)
+      for (int j = 0; j < TW; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int g = g0 + frag_row(i), n = frag_col(t0 + j, i);
@@ -885,7 +1055,8 @@ __device__ inline void wino_layer_tc(const Params& p, const Flow& f, const Smem&
 // rows [o0-EH0-1, o1+EH0+1) valid), conditioning rows from global.  Leaves
 // the zero-conv output (log_s || t) for rows [o0, o1) in s.net.  TC: the
 // filter|gate layers, res/skip and the final 1x1 run on the tensor cores
-// (T is bf16; I8 with COND_I8 and P = 0, or COND_DENSE with P = 6).
+// (T is bf16; I8 with COND_I8 and P = 0, or COND_DENSE with P = 0, 6 or
+// 12).
 template <typename T, bool I8, int COND, bool RS, int P, bool TC>
 __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
                              const T* X, int o0, int o1, const void* cglob,
@@ -893,8 +1064,9 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   constexpr int EH0 = Geo<P>::EH0, EG0 = Geo<P>::EG0;
   static_assert(!TC || (!RS && sizeof(T) == 2 &&
                         ((I8 && COND == COND_I8 && P == 0) ||
-                         (!I8 && COND == COND_DENSE && P == 6))),
-                "the tensor-core product covers the i8 and F(2,3) pairs");
+                         (!I8 && COND == COND_DENSE))),
+                "the tensor-core product covers the bf16 direct, i8, F(2,3) "
+                "and F(4,3) pairs");
   const int R = p.R, Rin = p.Rin, ld = s.ldh;
   const int ngrp = NT / R, grp = threadIdx.x / R, n = threadIdx.x % R;
   T* H = static_cast<T*>(s.H);
@@ -961,8 +1133,10 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   if constexpr (TC && I8)
     direct_layer_tc<T>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, a_scale, cglob, b,
                        win0, c_scale);
+  else if constexpr (TC && P)
+    wino_layer_tc<P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
   else if constexpr (TC)
-    wino_layer_tc(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
+    direct_layer_tc_bf(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
   else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b,
                            win0, c_scale);
@@ -1020,8 +1194,10 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   if constexpr (TC && I8)
     direct_layer_tc<T>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b, win0,
                        c_scale);
+  else if constexpr (TC && P)
+    wino_layer_tc<P>(p, f, s, 1, o0, o1, 3, cglob, b, win0);
   else if constexpr (TC)
-    wino_layer_tc(p, f, s, 1, o0, o1, 3, cglob, b, win0);
+    direct_layer_tc_bf(p, f, s, 1, o0, o1, 3, cglob, b, win0);
   else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 1, o0, o1, 3, cglob, b, win0, c_scale);
   else
@@ -1202,17 +1378,30 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
   }
 }
 
+// One instance of the kernel: its launch, and its registers and local
+// (spill) bytes per thread as cudaFuncGetAttributes reports them.
 template <typename T, bool I8, int COND, bool RS, int P, bool TC = false>
-int launch(Params p, cudaStream_t stream) {
-  const int smem = (int)smem_bytes<P>(sizeof(T), I8, TC, p.R, p.Rin, p.TT);
-  cudaError_t e = cudaFuncSetAttribute(
-      pair_reverse_kernel<T, I8, COND, RS, P, TC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  pair_reverse_kernel<T, I8, COND, RS, P, TC>
-      <<<p.B * p.n_t, NT, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
+struct Instance {
+  static int launch(Params p, cudaStream_t stream) {
+    const int smem = (int)smem_bytes<P>(sizeof(T), I8, TC, p.R, p.Rin, p.TT);
+    cudaError_t e = cudaFuncSetAttribute(
+        pair_reverse_kernel<T, I8, COND, RS, P, TC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    pair_reverse_kernel<T, I8, COND, RS, P, TC>
+        <<<p.B * p.n_t, NT, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  static int attrs(int* out) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(
+        &a, pair_reverse_kernel<T, I8, COND, RS, P, TC>);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    return 0;
+  }
+};
 
 // Fills p from ptrs = u, v, c_a, c_b, u_out, v_out, then 19 operand slots
 // (front_w, front_b, kfg, cond_w, cond_b, res_w, res_b, skip_w, skip_b,

@@ -13,16 +13,19 @@
 // pair (pair_flow_common.cuh); the bound counts the Winograd's own
 // multiplies (4/6 or 6/12 of the direct fg-conv operations).  The CUDA-core
 // version recomputed every (group, channel) input transform once per
-// output column thread, 256 times over.  The F(2,3) bf16 instance with
-// dense conditioning (pair_flow_wino on the FWN_INT8=0 route) therefore
-// runs on the tensor cores: a warp builds the A fragments of the four
-// Winograd planes in registers from the taps in shared memory (one
-// transform per warp fragment), four accumulator sets take bf16 mma.sync
-// products with the packed G-transformed weights, and the output transform
-// runs in fp32 on the lane's accumulators; the conditioning, res/skip and
-// final 1x1s are bf16 mma.sync too.  What bounds it then: the input
-// transforms on the CUDA cores and the L2 weight re-reads.  F(4,3), the
-// hoisted pairs and every fp32 instance still run on CUDA cores.
+// output column thread, 256 times over.  The bf16 instances with dense
+// conditioning (pair_flow_wino on the FWN_INT8=0 route, pair_flow_wino4 on
+// FWN_WINO4=1) therefore run on the tensor cores: a warp builds the A
+// fragments of the four (F(2,3)) or six (F(4,3)) Winograd planes in
+// registers from the taps in shared memory (one transform per warp
+// fragment; F(4,3)'s in bf16x2 arithmetic), as many accumulator sets take
+// bf16 mma.sync products with the packed G-transformed weights, and the
+// output transform runs in fp32 on the lane's accumulators; the
+// conditioning, res/skip and final 1x1s are bf16 mma.sync too.  What
+// bounds them then: the input transforms on the CUDA cores and the L2
+// weight re-reads (F(4,3) takes one n-tile of f and g per warp item, so
+// its weights are re-read twice as often).  The hoisted pairs and every
+// fp32 instance still run on CUDA cores.
 //
 // The TPU kernel stores every intermediate as P de-interleaved phase planes
 // so that each Winograd tap is a whole shifted plane; here the taps of a
@@ -36,24 +39,32 @@
 
 namespace {
 
-// The one Winograd instance on the tensor cores: F(2,3) with dense
-// conditioning in bf16, pair_flow_wino of the FWN_INT8=0 route.  fp32,
-// F(4,3) and the hoisted pairs run the CUDA-core product.
-constexpr bool tc_instance(int dtype, int P, int hoisted) {
-  return dtype == 1 && P == 6 && !hoisted;
+// The Winograd instances on the tensor cores: F(2,3) and F(4,3) with
+// dense conditioning in bf16, pair_flow_wino and pair_flow_wino4.  fp32
+// and the hoisted pairs run the CUDA-core product.
+constexpr bool tc_instance(int dtype, int hoisted) {
+  return dtype == 1 && !hoisted;
 }
 
-template <int COND>
-int launch_p(int dtype, int P, const pf::Params& p, cudaStream_t st) {
-  // bf16 F(2,3) with dense conditioning is the tensor-core instance
-  if (P == 6)
-    return dtype == 0
-               ? pf::launch<float, false, COND, false, 6>(p, st)
-               : pf::launch<__nv_bfloat16, false, COND, false, 6,
-                            COND == pf::COND_DENSE>(p, st);
-  return dtype == 0 ? pf::launch<float, false, COND, false, 12>(p, st)
-                    : pf::launch<__nv_bfloat16, false, COND, false, 12>(p,
-                                                                       st);
+// fn(pf::Instance<...>{}) for the instance of (dtype, P, hoisted); bf16
+// with dense conditioning is the tensor-core instance.
+template <int P, typename Fn>
+int with_p(int dtype, int hoisted, Fn fn) {
+  using pf::COND_DENSE;
+  using pf::COND_HOIST;
+  using bf = __nv_bfloat16;
+  if (dtype == 0)
+    return hoisted ? fn(pf::Instance<float, false, COND_HOIST, false, P>{})
+                   : fn(pf::Instance<float, false, COND_DENSE, false, P>{});
+  return hoisted ? fn(pf::Instance<bf, false, COND_HOIST, false, P>{})
+                 : fn(pf::Instance<bf, false, COND_DENSE, false, P, true>{});
+}
+
+template <typename Fn>
+int with_instance(int dtype, int P, int hoisted, Fn fn) {
+  if (P == 6) return with_p<6>(dtype, hoisted, fn);
+  if (P == 12) return with_p<12>(dtype, hoisted, fn);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -61,13 +72,13 @@ int launch_p(int dtype, int P, const pf::Params& p, cudaStream_t st) {
 extern "C" {
 
 // Dynamic shared memory one CTA needs (bytes).  dtype: 0 fp32, 1 bf16;
-// P: 6 (F(2,3)) or 12 (F(4,3)); tc: the tensor-core instance (F(2,3),
-// bf16, dense conditioning).
+// P: 6 (F(2,3)) or 12 (F(4,3)); tc: a tensor-core instance (bf16, dense
+// conditioning).
 int pair_wino_smem_bytes(int dtype, int P, int tc, int R, int Rin, int TT) {
   const int es = dtype == 0 ? 4 : 2;
-  if (tc && !tc_instance(dtype, P, 0)) return -1;
+  if (tc && !tc_instance(dtype, 0)) return -1;
   if (P == 6) return (int)pf::smem_bytes<6>(es, false, tc != 0, R, Rin, TT);
-  if (P == 12) return (int)pf::smem_bytes<12>(es, false, false, R, Rin, TT);
+  if (P == 12) return (int)pf::smem_bytes<12>(es, false, tc != 0, R, Rin, TT);
   return -1;
 }
 
@@ -78,23 +89,31 @@ int pair_wino_threads() { return pf::NT; }
 // P.  hoisted != 0: the port of _pair_kernel_wino_hoisted, c_a / c_b hold
 // the precomputed conditioning pre-activations [B, T, 2 layers * 2R] of
 // the even / odd flow (Cc = 4R) and the cond_w slot is null.  Returns the
-// cudaError_t of the launch (0 = success).  tc != 0 runs the tensor-core
+// cudaError_t of the launch (0 = success).  tc != 0 runs a tensor-core
 // instance, whose kfg, cond_w, res_w, skip_w and fin_w come packed in
-// fragment order (ops/pair_flow.py:pack_tc_weights); it takes R a multiple
-// of 32 and Cc a multiple of 16.  tc must say whether (dtype, P,
-// hoisted) is that instance: neither runs in the other's place.
+// fragment order (ops/pair_flow.py:pack_tc_weights).  tc must say whether
+// (dtype, hoisted) is such an instance: neither runs in the other's place.
+// Widths the instance does not take (pf::geometry_ok) are refused; the
+// wrapper pads them.
 int pair_wino_launch(int dtype, int P, int hoisted, int tc,
                      const void* const* ptrs, const int* dims,
                      void* stream) {
   if ((P != 6 && P != 12) || dims[5] % P) return (int)cudaErrorInvalidValue;
-  if ((tc != 0) != tc_instance(dtype, P, hoisted) ||
-      (tc && (dims[3] % 32 || dims[4] % 16)))
+  if ((tc != 0) != tc_instance(dtype, hoisted) ||
+      !pf::geometry_ok(dims[3], dims[4], tc != 0))
     return (int)cudaErrorInvalidValue;
   const pf::Params p = pf::make_params(ptrs, dims, P == 6 ? 4 : 6,
                                        dtype == 0 ? 4 : 2, false, false);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hoisted) return launch_p<pf::COND_HOIST>(dtype, P, p, st);
-  return launch_p<pf::COND_DENSE>(dtype, P, p, st);
+  return with_instance(dtype, P, hoisted,
+                       [&](auto k) { return k.launch(p, st); });
+}
+
+// out = registers and local (spill) bytes per thread of the (dtype, P,
+// hoisted) instance, from cudaFuncGetAttributes.  Returns its cudaError_t.
+int pair_wino_attrs(int dtype, int P, int hoisted, int* out) {
+  return with_instance(dtype, P, hoisted,
+                       [&](auto k) { return k.attrs(out); });
 }
 
 }  // extern "C"

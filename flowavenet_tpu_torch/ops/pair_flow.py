@@ -664,13 +664,12 @@ def uses_tensor_cores(dtype: torch.dtype, *, int8: bool = False,
                       rs: bool = False, hoisted: bool = False,
                       phases: int = 0) -> bool:
     """Whether the pair kernel of these options runs its products on the
-    tensor cores (mma.sync): the int8 pair (``pair_flow_i8``) and the
-    F(2,3) Winograd pair with dense conditioning (``pair_flow_wino``), both
-    with bf16 storage.  Every other instance, fp32 included, runs on CUDA
-    cores."""
-    if dtype != torch.bfloat16 or rs or hoisted:
-        return False
-    return phases == 6 or (phases == 0 and int8)
+    tensor cores (mma.sync): with bf16 storage, the direct pair
+    (``pair_flow``), the int8 pair (``pair_flow_i8``) and the F(2,3) and
+    F(4,3) Winograd pairs with dense conditioning (``pair_flow_wino``,
+    ``pair_flow_wino4``).  fp32, the int8 res/skip pair and the hoisted
+    pairs run on CUDA cores."""
+    return dtype == torch.bfloat16 and not rs and not hoisted
 
 
 def check_tc_geometry(r: int, cc: int) -> None:
@@ -685,6 +684,93 @@ def check_tc_geometry(r: int, cc: int) -> None:
     if cc % 16 or cc <= 0:
         raise ValueError(f"the tensor-core pair takes Cc a multiple of 16, "
                          f"got Cc={cc}")
+
+
+def check_kernel_geometry(r: int, cc: int, tc: bool,
+                          threads: int = 512) -> None:
+    """Raise ValueError unless the launchers take these widths, as
+    ``pair_reverse_launch`` / ``pair_wino_launch`` check them: R divides
+    the CTA's threads (each thread owns one column of a CUDA-core product)
+    and R, Cc are multiples of 4 (the int8 words); on a tensor-core
+    instance also :func:`check_tc_geometry`."""
+    if r <= 0 or threads % r or r % 4 or cc % 4 or cc <= 0:
+        raise ValueError(f"the pair kernel takes R dividing {threads} and "
+                         f"R, Cc multiples of 4; got R={r}, Cc={cc}")
+    if tc:
+        check_tc_geometry(r, cc)
+
+
+def kernel_widths(r: int, cc: int, tc: bool, hoisted: bool = False,
+                  threads: int = 512) -> tuple[int, int]:
+    """The (R, Cc) a pair of a model's widths (r, cc) runs at on the
+    kernel: R rounded up to the next width that divides ``threads`` and is
+    a multiple of 32 on a tensor-core instance (of 4 otherwise), Cc up to a
+    multiple of 16 (of 4); hoisted, Cc is n_layer * 2R of the padded R.
+    Equal to (r, cc) on the lj22k geometry (R = 256, Cc = 80 * 2^b)."""
+    step = 32 if tc else 4
+    fits = [w for w in range(step, threads + 1, step)
+            if threads % w == 0 and w >= r]
+    if not fits:
+        raise ValueError(f"the pair kernel takes R up to {threads}, got {r}")
+    if hoisted:
+        return fits[0], 4 * fits[0]
+    cstep = 16 if tc else 4
+    return fits[0], -(-cc // cstep) * cstep
+
+
+def _pad_dim(x: torch.Tensor, dim: int, n: int, value: float = 0.0):
+    """``x`` with ``dim`` extended to ``n`` by entries equal to ``value``."""
+    if x.shape[dim] == n:
+        return x
+    shape = list(x.shape)
+    shape[dim] = n - x.shape[dim]
+    return torch.cat([x, x.new_full(shape, value)], dim)
+
+
+def _pad_halves(x: torch.Tensor, r: int, value: float = 0.0):
+    """Last axis [filter R | gate R] -> [filter r | gate r]."""
+    f, g = x.split(x.shape[-1] // 2, -1)
+    return torch.cat([_pad_dim(f, -1, r, value), _pad_dim(g, -1, r, value)],
+                     -1)
+
+
+def pad_pair_widths(c_a, c_b, operands, r: int, cc: int, *,
+                    int8: bool = False, hoisted: bool = False):
+    """A pair's conditioning and operands (any family of
+    :func:`_operand_names`, before packing) padded to R = ``r`` channels
+    and Cc = ``cc`` conditioning columns (:func:`kernel_widths`): zero c
+    columns and cond-weight rows, and zero channels through every weight
+    and bias (the filter and gate halves each), so a padded channel's h0,
+    gate, h1, skip and final outputs are relu(0) = tanh(0) * sigmoid(0) =
+    0 and the real channels' sums are unchanged.  Weight scales of padded
+    int8 columns are 1e-30 (their codes are 0), as :func:`_quant_w` gives
+    an all-zero column.  Hoisted c holds [layer, filter|gate] pre-
+    activations and is re-laid out at the padded R."""
+    names = _operand_names(len(operands), int8, hoisted)
+    out = []
+    for name, o in zip(names, operands):
+        if name in ("front_w", "front_b", "res_b", "skip_b", "fin_b"):
+            o = _pad_dim(o, -1, r)
+        elif name in ("res_w", "skip_w", "fin_w"):
+            o = _pad_dim(_pad_dim(o, -2, r), -1, r)
+        elif name == "zw":
+            o = _pad_dim(o, -2, r)
+        elif name in ("kfg", "cond_w"):
+            o = _pad_halves(_pad_dim(o, -2, r if name == "kfg" else cc), r)
+        elif name == "cond_b":
+            o = _pad_halves(o, r)
+        elif name in ("kfg_s", "cond_s"):
+            o = _pad_halves(o, r, 1e-30)
+        elif name in ("res_s", "skip_s"):
+            o = _pad_dim(o, -1, r, 1e-30)
+        out.append(o)
+    if hoisted:
+        B, T, w = c_a.shape
+        c_a, c_b = (_pad_halves(c.reshape(B, T, 2, w // 2), r)
+                    .reshape(B, T, 4 * r) for c in (c_a, c_b))
+    else:
+        c_a, c_b = (_pad_dim(c, -1, cc) for c in (c_a, c_b))
+    return c_a.contiguous(), c_b.contiguous(), tuple(out)
 
 
 def pack_tc_weights(w: torch.Tensor) -> torch.Tensor:
@@ -734,6 +820,10 @@ def _library(name: str = "pair_flow"):
         [c_int] * (4 if name == "pair_flow_wino" else 3)
         + [c_ptr, c_ptr, c_ptr])
     getattr(lib, f"{pre}_launch").restype = c_int
+    # (dtype, variant or P, [hoisted,] out[2])
+    getattr(lib, f"{pre}_attrs").argtypes = (
+        [c_int] * (3 if name == "pair_flow_wino" else 2) + [c_ptr])
+    getattr(lib, f"{pre}_attrs").restype = c_int
     return lib
 
 
@@ -751,7 +841,9 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
             c_row_scales, phases: int = 0):
     """Check the inputs and launch one pair kernel on the current stream:
     the direct variants of csrc/pair_flow.cu (``phases`` 0) or the
-    Winograd pair of csrc/pair_flow_wino.cu (``phases`` 6 or 12)."""
+    Winograd pair of csrc/pair_flow_wino.cu (``phases`` 6 or 12).  Widths
+    the instance does not take are zero-padded first (:func:`kernel_widths`,
+    :func:`pad_pair_widths`); the lj22k widths never are."""
     B, T, r_in = u.shape
     dt = u.dtype
     if dt not in (torch.float32, torch.bfloat16):
@@ -774,13 +866,8 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
     lib = _library("pair_flow_wino" if phases else "pair_flow")
     pre = "pair_wino" if phases else "pair_reverse"
     threads = getattr(lib, f"{pre}_threads")()
-    if threads % R or Cc % 4 or R % 4:
-        raise ValueError(f"kernel takes R dividing {threads} and Cc, R "
-                         f"multiples of 4; got R={R}, Cc={Cc}")
     tc = uses_tensor_cores(dt, int8=int8, rs=rs, hoisted=hoisted,
                            phases=phases)
-    if tc:
-        check_tc_geometry(R, Cc)
     if hoisted and Cc != 2 * R2:
         raise ValueError(f"hoisted c must be n_layer*2R = {2 * R2} wide, got "
                          f"{Cc}")
@@ -807,6 +894,15 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
                 dt if name in weights else torch.float32)
         if o.dtype != w_dt:
             raise TypeError(f"operand {name} is {o.dtype}, expected {w_dt}")
+    # widths the instance does not take run zero-padded (exact); the
+    # launcher refuses them unpadded
+    Rk, Cck = kernel_widths(R, Cc, tc, hoisted, threads)
+    if (Rk, Cck) != (R, Cc):
+        c_a, c_b, padded = pad_pair_widths(c_a, c_b, tuple(ops.values()), Rk,
+                                           Cck, int8=int8, hoisted=hoisted)
+        ops = dict(zip(names, padded))
+        R, Cc = Rk, Cck
+    check_kernel_geometry(R, Cc, tc, threads)
     ops = {k: (pack_tc_weights(o) if tc and k in _TC_WEIGHTS else
                _pack_int8(o) if k in int8_w else o).contiguous()
            for k, o in ops.items()}
@@ -849,6 +945,24 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
         raise RuntimeError(f"{counter} kernel launch failed: cudaError {err}")
     LAUNCHES[counter] += 1
     return u_out, v_out
+
+
+def kernel_attrs(dtype: torch.dtype, *, int8: bool = False, rs: bool = False,
+                 hoisted: bool = False, phases: int = 0) -> tuple[int, int]:
+    """(registers, local bytes) per thread of the pair kernel instance of
+    these options, as cudaFuncGetAttributes reports them (local bytes are
+    the register spills' stack)."""
+    lib = _library("pair_flow_wino" if phases else "pair_flow")
+    dcode = 0 if dtype == torch.float32 else 1
+    out = (ctypes.c_int * 2)()
+    if phases:
+        err = lib.pair_wino_attrs(dcode, phases, int(hoisted), out)
+    else:
+        err = lib.pair_reverse_attrs(dcode, _VARIANTS[int8, rs, hoisted][0],
+                                     out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
+    return out[0], out[1]
 
 
 def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,

@@ -443,10 +443,11 @@ def test_resblock_rejects_bad_inputs(cuda):
                                 dilation=1, causal=False)
 
 
-def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2):
-    """Inputs and a launcher of a tensor-core pair: ``i8`` (pair_flow_i8,
-    int8 codes of c with per-row scales, bf16 storage) or ``wino``
-    (pair_flow_wino, F(2,3), bf16) at lj22k block bi's widths; returns
+def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
+    """Inputs and a launcher of a tensor-core pair at lj22k block bi's widths
+    (or ``pair``'s R): ``i8`` (pair_flow_i8, int8 codes of c with per-row
+    scales), ``direct`` (pair_flow), ``wino`` (pair_flow_wino, F(2,3)) or
+    ``wino4`` (pair_flow_wino4, F(4,3)), all with bf16 storage; returns
     (kernel(rows), plain(rows), passthru(rows), counter name)."""
     r_in, cc = 1 << bi, 80 << bi
     dt = torch.bfloat16
@@ -455,26 +456,34 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2):
             for _ in range(2))
     c = [torch.rand(B, T, cc, generator=g, device=dev).to(dt)
          for _ in range(2)]
-    pair = _pair(bi, dev)
-    if kind == "i8":
-        q = [quantize_act(x, per_row=True) for x in c]
-        c = [q[0][0], q[1][0]]
-        crs = torch.cat([q[0][1].reshape(-1, 1), q[1][1].reshape(-1, 1)], 1)
-        ops = pf.pair_reverse_operands_int8(pair, dt)
+    pair = _pair(bi, dev) if pair is None else pair
+    if kind in ("i8", "direct"):
+        int8 = kind == "i8"
+        crs = None
+        if int8:
+            q = [quantize_act(x, per_row=True) for x in c]
+            c = [q[0][0], q[1][0]]
+            crs = torch.cat([q[0][1].reshape(-1, 1), q[1][1].reshape(-1, 1)],
+                            1)
+            ops = pf.pair_reverse_operands_int8(pair, dt)
+        else:
+            ops = pf.pair_reverse_operands(pair, dt)
         tt = pf.kernel_t_tile(dt, r_in)
 
         def kern(rows, ops=ops):
-            return pf.fused_pair_reverse(u[rows], v[rows], c[0][rows],
-                                         c[1][rows], ops, int8=True,
-                                         c_row_scales=crs[rows])
+            return pf.fused_pair_reverse(
+                u[rows], v[rows], c[0][rows], c[1][rows], ops, int8=int8,
+                c_row_scales=None if crs is None else crs[rows])
 
         def plain(rows, ops=ops):
-            return pf.pair_reverse_ref(u[rows], v[rows], c[0][rows],
-                                       c[1][rows], ops, t_tile=tt,
-                                       int8=True, c_row_scales=crs[rows])
-        name = "pair_flow_i8"
+            return pf.pair_reverse_ref(
+                u[rows], v[rows], c[0][rows], c[1][rows], ops, t_tile=tt,
+                int8=int8, c_row_scales=None if crs is None else crs[rows])
+        name = "pair_flow_i8" if int8 else "pair_flow"
     else:
-        ops = pf.pair_reverse_operands_wino(pair, dt)
+        P = 6 if kind == "wino" else 12
+        ops = (pf.pair_reverse_operands_wino(pair, dt) if P == 6
+               else pf.pair_reverse_operands_wino4(pair, dt))
 
         def kern(rows, ops=ops):
             return pf.fused_pair_reverse_wino(u[rows], v[rows], c[0][rows],
@@ -482,23 +491,28 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2):
 
         def plain(rows, ops=ops):
             return pf.pair_reverse_wino_ref(u[rows], v[rows], c[0][rows],
-                                            c[1][rows], ops, t_tile=60)
-        name = "pair_flow_wino"
+                                            c[1][rows], ops, t_tile=10 * P)
+        name = "pair_flow_wino" if P == 6 else "pair_flow_wino4"
     ops_pass = tuple(torch.zeros_like(o) if i in (11, 12) else o
                      for i, o in enumerate(ops))          # zw = zb = 0
     return kern, plain, lambda rows: plain(rows, ops=ops_pass), name
 
 
+TC_CASES = [("i8", 0), ("i8", 3), ("wino", 1), ("direct", 0), ("direct", 3),
+            ("wino4", 1)]
+TC_OPTIONS = {"i8": dict(int8=True), "direct": {}, "wino": dict(phases=6),
+              "wino4": dict(phases=12)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,bi", [("i8", 0), ("i8", 3), ("wino", 1)])
+@pytest.mark.parametrize("kind,bi", TC_CASES)
 def test_tc_kernels_match_plain(cuda, kind, bi):
     """The tensor-core pairs vs their plain versions at lj22k widths, two
     rows, T = 1000 (a ragged last tile): rel-to-max <= 1e-2, corr >= 0.9999
     (int8: its sums are exact, as the plain version's float64 products) or
     0.999 (bf16: summation order and one-ulp flips), and the error as a
     share of what the coupling nets add <= 1e-2."""
-    assert pf.uses_tensor_cores(torch.bfloat16, int8=kind == "i8",
-                                phases=6 if kind == "wino" else 0)
+    assert pf.uses_tensor_cores(torch.bfloat16, **TC_OPTIONS[kind])
     kern, plain, passthru, name = _tc_case(kind, bi, cuda)
     rows = slice(0, 2)
     n0 = pf.LAUNCHES[name]
@@ -510,7 +524,7 @@ def test_tc_kernels_match_plain(cuda, kind, bi):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,bi", [("i8", 0), ("i8", 3), ("wino", 1)])
+@pytest.mark.parametrize("kind,bi", TC_CASES)
 def test_tc_kernels_are_deterministic_and_row_local(cuda, kind, bi):
     """Two launches give the same bits, and a batch row computed alone
     equals the same row computed beside another (one CTA per (row, tile);
@@ -526,17 +540,106 @@ def test_tc_kernels_are_deterministic_and_row_local(cuda, kind, bi):
 
 
 @pytest.mark.cuda
-def test_tc_kernel_rejects_widths_it_does_not_take(cuda):
-    """R = 16 divides the CTA's 512 threads but is no multiple of 32: the
-    tensor-core pair raises (it has no fallback to the CUDA-core instance
-    or the plain version)."""
-    dt = torch.bfloat16
+def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
+    """The C launchers are the guard against a wrapper that forgets to pad:
+    R = 16 on a tensor-core instance, R = 48 (not dividing the 512
+    threads) and Cc = 79 anywhere, and a tc flag that does not name the
+    instance, return a cudaError (cudaErrorInvalidValue) before anything
+    is launched."""
+    import ctypes
+    ptrs = (ctypes.c_void_p * 26)()            # never dereferenced
+
+    def dims(R, Cc, TT):
+        return (ctypes.c_int * 6)(1, 120, 2, R, Cc, TT)
+    direct = pf._library("pair_flow").pair_reverse_launch
+    wino = pf._library("pair_flow_wino").pair_wino_launch
+    bad = [direct(1, 0, 1, ptrs, dims(16, 160, 64), None),     # tc, R=16
+           direct(1, 1, 1, ptrs, dims(16, 160, 64), None),
+           direct(0, 0, 0, ptrs, dims(48, 160, 32), None),     # R=48
+           direct(0, 1, 0, ptrs, dims(32, 79, 32), None),      # Cc=79
+           direct(1, 0, 1, ptrs, dims(32, 88, 64), None),      # tc, Cc=88
+           direct(1, 0, 0, ptrs, dims(256, 160, 64), None),    # flag off
+           direct(0, 0, 1, ptrs, dims(256, 160, 32), None),    # fp32 tc
+           direct(1, 2, 1, ptrs, dims(256, 160, 64), None),    # i8rs tc
+           wino(1, 6, 0, 1, ptrs, dims(16, 160, 72), None),
+           wino(1, 12, 0, 1, ptrs, dims(16, 160, 60), None),
+           wino(1, 12, 0, 1, ptrs, dims(64, 79, 60), None),
+           wino(1, 12, 0, 0, ptrs, dims(256, 160, 60), None),  # flag off
+           wino(1, 12, 1, 1, ptrs, dims(256, 1024, 60), None)]  # hoisted tc
+    torch.cuda.synchronize()
+    assert all(err != 0 for err in bad), bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["i8", "direct", "wino", "wino4"])
+def test_tc_padded_narrow_pair_matches_plain(cuda, kind):
+    """A filter_size 16 pair (R = 16 divides the threads but is no multiple
+    of 32) runs on its tensor-core instance padded to R = 32, and matches
+    its unpadded plain version at the bars of test_tc_kernels_match_plain."""
     cfg = dataclasses.replace(lj22k().model, filter_size=16)
-    block = fwn.init_block(torch.Generator().manual_seed(0), 2, 160, cfg)
+    gen = torch.Generator().manual_seed(0)
+    block = fwn.init_block(gen, 2, 160, cfg)
+    block["flows"]["coupling"]["zero"]["w"].normal_(0, 0.05, generator=gen)
     pair = tree_map(lambda l: l.to(cuda),
                     fwn._index(fwn._pair_params(block), 0))
-    ops = pf.pair_reverse_operands_wino(pair, dt)
-    u = torch.zeros(1, 120, 2, device=cuda, dtype=dt)
-    c = torch.zeros(1, 120, 160, device=cuda, dtype=dt)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        pf.fused_pair_reverse_wino(u, u, c, c, ops)
+    kern, plain, passthru, name = _tc_case(kind, 1, cuda, T=300, pair=pair)
+    rows = slice(0, 2)
+    n0 = pf.LAUNCHES[name]
+    got = kern(rows)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES[name] == n0 + 1
+    _check(got, plain(rows), passthru(rows), 1e-2,
+           0.9999 if kind == "i8" else 0.999)
+
+
+def _odd_width_model(name: str):
+    """lj22k cut to 5 blocks (the kernel routes' blocks 0-4) with an odd
+    num_mels (79: Cc = 79 * 2^b, the per-level route) or filter_size 48 (R
+    padded to 64), params with 0.05-scale zero convs so the coupling nets
+    move the audio."""
+    kw = dict(num_mels=79) if name == "num_mels79" else dict(filter_size=48)
+    cfg = dataclasses.replace(lj22k().model, n_block=5, **kw)
+    gen = torch.Generator().manual_seed(5)
+    params = fwn.init_flowavenet(gen, cfg)
+    for bp in params["blocks"]:
+        bp["flows"]["coupling"]["zero"]["w"].normal_(0, 0.05, generator=gen)
+    return cfg, params
+
+
+# route -> (model switches, kernels it launches)
+ODD_ROUTES = {"int8": ({}, ("pair_flow_i8",)),
+              "FWN_INT8=0": ({"PAIR_KERNEL_INT8": False},
+                             ("pair_flow_wino", "pair_flow")),
+              "FWN_WINO4=1": ({"PAIR_KERNEL_INT8": False,
+                               "PAIR_KERNEL_WINO4": True},
+                              ("pair_flow_wino4", "pair_flow"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(ODD_ROUTES))
+@pytest.mark.parametrize("model", ["num_mels79", "filter_size48"])
+def test_odd_width_models_reverse_on_the_kernel_routes(cuda, monkeypatch,
+                                                       model, route):
+    """Widths the kernels take only padded: bf16 reverse of two 40-frame
+    mels on the kernel route vs the plain route (use_pallas=False) at the
+    JAX package's int8 bar (rel-to-max < 0.08, corr > 0.998), with every
+    kernel of the route launched."""
+    cfg, params = _odd_width_model(model)
+    switches, kernels = ODD_ROUTES[route]
+    for k, val in switches.items():
+        monkeypatch.setattr(fwn, k, val)
+    params = tree_map(lambda l: l.to(cuda), params)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    T = 40 * cfg.hop_size
+    z = torch.randn(2, T, 1, generator=g, device=cuda)
+    mel = torch.rand(2, 40, cfg.num_mels, generator=g, device=cuda)
+    n0 = dict(pf.LAUNCHES)
+    got = fwn.reverse(params, cfg, z, mel, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(pf.LAUNCHES[k] > n0[k] for k in kernels), pf.LAUNCHES
+    want = fwn.reverse(params, dataclasses.replace(cfg, use_pallas=False),
+                       z, mel, compute_dtype=torch.bfloat16)
+    a, b = (x.float().cpu().numpy().ravel() for x in (got, want))
+    assert np.all(np.isfinite(a))
+    assert np.abs(a - b).max() / np.abs(b).max() < 0.08
+    assert np.corrcoef(a, b)[0, 1] > 0.998

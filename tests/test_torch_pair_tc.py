@@ -1,10 +1,10 @@
 """PyTorch port, the tensor-core pair kernels' layouts (ops/pair_flow.py,
 csrc/pair_flow_common.cuh): the fragment-order weight packing that the
-wrapper hands to ``pair_flow_i8`` and ``pair_flow_wino``, emulated lane by
-lane as the PTX ISA lays out the mma.sync operands, and the wrapper's
-geometry checks.  No JAX and no card: the kernels themselves are held
-against their plain versions by tests/test_torch_card.py (``-k tc``) and
-chip_smoke.py."""
+wrapper hands to ``pair_flow``, ``pair_flow_i8``, ``pair_flow_wino`` and
+``pair_flow_wino4``, emulated lane by lane as the PTX ISA lays out the
+mma.sync operands, and the wrapper's geometry checks.  No JAX and no card:
+the kernels themselves are held against their plain versions by
+tests/test_torch_card.py (``-k tc``) and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -147,16 +147,19 @@ def test_tc_geometry_check_rejects_other_widths():
             pf.check_tc_geometry(r, cc)
 
 
-def test_uses_tensor_cores_only_on_the_two_redesigned_instances():
-    """pair_flow_i8 and pair_flow_wino in bf16 only; fp32, the direct bf16
-    pair, i8rs, the hoisted pairs and F(4,3) stay on CUDA cores."""
+def test_uses_tensor_cores_only_on_the_four_redesigned_instances():
+    """pair_flow, pair_flow_i8, pair_flow_wino and pair_flow_wino4 in bf16
+    only; fp32, i8rs and the hoisted pairs stay on CUDA cores."""
     bf, f32 = torch.bfloat16, torch.float32
-    on = [dict(dtype=bf, int8=True), dict(dtype=bf, phases=6)]
-    off = [dict(dtype=f32, int8=True), dict(dtype=f32, phases=6),
-           dict(dtype=bf), dict(dtype=bf, int8=True, rs=True),
+    on = [dict(dtype=bf), dict(dtype=bf, int8=True), dict(dtype=bf, phases=6),
+          dict(dtype=bf, phases=12)]
+    off = [dict(dtype=f32), dict(dtype=f32, int8=True),
+           dict(dtype=f32, phases=6), dict(dtype=f32, phases=12),
+           dict(dtype=bf, int8=True, rs=True),
            dict(dtype=bf, hoisted=True), dict(dtype=bf, int8=True,
                                               hoisted=True),
-           dict(dtype=bf, phases=12), dict(dtype=bf, phases=6, hoisted=True)]
+           dict(dtype=bf, phases=6, hoisted=True),
+           dict(dtype=bf, phases=12, hoisted=True)]
     assert all(pf.uses_tensor_cores(**kw) for kw in on)
     assert not any(pf.uses_tensor_cores(**kw) for kw in off)
 
@@ -167,7 +170,8 @@ def test_tc_packed_operands_have_the_kernel_sizes(preset, bi):
     """The packed main-path operands hold the element counts the kernel's
     make_params strides by: every flow's kfg, res_w, skip_w and fin_w
     as many as before packing, an int8 cond_w 2 * ceil(Cc/32)*32 * 2R
-    per flow (its K padded with zero rows), a bf16 cond_w 2 * Cc * 2R."""
+    per flow (its K padded with zero rows), a bf16 cond_w 2 * Cc * 2R; for
+    the int8, F(2,3), bf16 direct and F(4,3) operands."""
     cfg = (lj22k() if preset == "lj22k" else tiny()).model
     block = fwn.init_block(torch.Generator().manual_seed(bi), 1 << bi,
                            cfg.num_mels << bi, cfg)
@@ -175,8 +179,11 @@ def test_tc_packed_operands_have_the_kernel_sizes(preset, bi):
     R, cc = cfg.filter_size, cfg.num_mels << bi
     pf.check_tc_geometry(R, cc)
     names = ("kfg", "cond_w", "res_w", "skip_w", "fin_w")
-    for ops, ks in ((pf.pair_reverse_operands_int8(pair, torch.bfloat16), 32),
-                    (pf.pair_reverse_operands_wino(pair, torch.bfloat16), 16)):
+    bf = torch.bfloat16
+    for ops, ks in ((pf.pair_reverse_operands_int8(pair, bf), 32),
+                    (pf.pair_reverse_operands_wino(pair, bf), 16),
+                    (pf.pair_reverse_operands(pair, bf), 16),
+                    (pf.pair_reverse_operands_wino4(pair, bf), 16)):
         d = dict(zip(pf._operand_names(len(ops), ks == 32, False), ops))
         for name in names:
             packed = pf.pack_tc_weights(d[name])

@@ -149,8 +149,11 @@ def test_conv1x1_int8_matches_jax(rng):
     qt, st = tconv.quantize_act(_t(x), per_row=True)
     got = tconv.conv1x1_int8(qt, st, _t(k), _t(b), torch.float32).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(ValueError, match="M > 16"):
-        tconv.conv1x1_int8(qt[:, :8], st, _t(k), _t(b), torch.float32)
+    # M = 16 is below torch._int_mm's limit: the port pads it
+    want = np.asarray(jconv.conv1x1_int8(qj[:, :8], sj, jnp.asarray(k),
+                                         jnp.asarray(b), jnp.float32))
+    got = tconv.conv1x1_int8(qt[:, :8], st, _t(k), _t(b), torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 def _wavenet_params(cin, r, cc, out):
