@@ -43,7 +43,11 @@
    their plain versions at the lj22k training geometry of blocks 0-3
    (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
    ``train_kernel_checks``), checks that two backward launches give the
-   same bits, and prints kernel, plain and bound ms.
+   same bits, and prints kernel, plain and bound ms.  In bf16
+   ``pair_train_fwd`` and ``pair_train_bwd`` run on the tensor cores;
+   their design, registers and local bytes per thread and, per launch at
+   lj22k block 0, the workspace and gradient-slab bytes are printed and
+   put in the kernel line.
 5. Trains lj22k at full width (batch 8 x 6400 samples, bf16 compute, fp32
    params) through the port's entry points on a seeded fwrec corpus: DDI,
    then ``TRAIN_STEPS`` steps on the FWN_TRAIN_KERNEL=1 route and on the
@@ -1463,7 +1467,9 @@ def gin_phase(dev, tmpdir: str):
 
 # The reverse pair kernels' options (ops/pair_flow.py:uses_tensor_cores),
 # which say whether the kernel line reports a kernel as running on the
-# tensor cores; the others (training pairs, ResBlocks) run on CUDA cores.
+# tensor cores; the training pairs say it through
+# ops/pair_flow_train.py:train_uses_tensor_cores, and the ResBlocks run on
+# CUDA cores.
 PAIR_OPTIONS = {"pair_flow": {}, "pair_flow_i8": {"int8": True},
                 "pair_flow_i8rs": {"int8": True, "rs": True},
                 "pair_flow_hoisted": {"hoisted": True},
@@ -1513,6 +1519,14 @@ def main() -> int:
     for name, opts in PAIR_OPTIONS.items():
         regs, local = pf.kernel_attrs(torch.bfloat16, **opts)
         tc = pf.uses_tensor_cores(torch.bfloat16, **opts)
+        attrs[name] = {"registers": regs, "local_bytes": local}
+        print(f"{name} bf16 ({'tensor cores' if tc else 'CUDA cores'}): "
+              f"numRegs {regs}, localSizeBytes {local}", flush=True)
+    # the same for the training kernels' bf16 instances
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    for name in pft.TRAIN_KERNELS:
+        regs, local = pft.train_kernel_attrs(torch.bfloat16, name)
+        tc = pft.train_uses_tensor_cores(torch.bfloat16, name)
         attrs[name] = {"registers": regs, "local_bytes": local}
         print(f"{name} bf16 ({'tensor cores' if tc else 'CUDA cores'}): "
               f"numRegs {regs}, localSizeBytes {local}", flush=True)
@@ -1653,9 +1667,25 @@ def main() -> int:
                    "pair_train_bwd", 0), range(n_tr)),
         rentry("resblock", 58),
         rentry("resblock_v2", 278)]
+    # device memory of one launch besides inputs and outputs, at the
+    # geometry of lj22k block 0 (the FWN_TRAIN_KERNEL=1 route)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k in kernels:
+        if k["name"] in pft.TRAIN_KERNELS:
+            k.update(pft.train_launch_bytes(
+                tB, tT // 2, 1, cfg.model.num_mels, cfg.model.filter_size,
+                torch.bfloat16, k["name"], n_sm))
+            print(f"{k['name']} bf16 per launch at lj22k block 0: tile "
+                  f"{k['t_tile']} rows, {k['ctas']} CTAs, workspace "
+                  f"{k['workspace_bytes'] / 1e6:.1f} MB, gradient slabs "
+                  f"{k['slab_bytes'] / 1e6:.1f} MB", flush=True)
     for k in kernels:
         opts = PAIR_OPTIONS.get(k["name"])
-        tc = opts is not None and pf.uses_tensor_cores(torch.bfloat16, **opts)
+        if k["name"] in pft.TRAIN_KERNELS:
+            tc = pft.train_uses_tensor_cores(torch.bfloat16, k["name"])
+        else:
+            tc = (opts is not None
+                  and pf.uses_tensor_cores(torch.bfloat16, **opts))
         k["design"] = "tensor cores (mma.sync)" if tc else "CUDA cores"
         k.update(attrs.get(k["name"], {}))
         k["pct_of_bound"] = 100.0 * k["bound_ms"] / k["ms"]

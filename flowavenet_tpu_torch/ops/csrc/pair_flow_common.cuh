@@ -102,7 +102,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace pf {
+
+// the tensor-core primitives (tc_common.cuh), shared with the training pairs
+using tc::frag_col;
+using tc::frag_row;
+using tc::ld_g32;
+using tc::ldsm_x4;
+using tc::mma_bf16;
+using tc::pack_bf16x2;
+using tc::tc_b;
 
 constexpr int NT = 512;      // threads per CTA
 constexpr int RM = 8;        // rows per register tile
@@ -595,63 +606,12 @@ __device__ void wino_layer(const Params& p, const Flow& f, const Smem& s,
 
 constexpr int TJ = 2;   // n-tiles of 8 columns in each half of a warp item
 
-// Packed B (ops/pair_flow.py:pack_tc_weights): a [K][N] weight stored as
-// [K/KS][N/8][32 lanes][8 bytes], KS = 16 (bf16) or 32 (int8) k per step,
-// K zero-padded to a multiple of KS.  Lane l holds the mma B fragment of
-// (k-step, n-tile) in the PTX ISA's layout: n = l/4 and, for bf16
-// (m16n8k16), k = 2(l%4) + {0, 1}, 2(l%4) + 8 + {0, 1}; for int8
-// (m16n8k32), k = 4(l%4) + {0..3}, 4(l%4) + 16 + {0..3}.  B points at this
-// lane's first fragment, so a warp reads 256 contiguous bytes.
-__device__ __forceinline__ uint2 tc_b(const uint2* B, int ntl, int ks,
-                                      int t) {
-  return __ldg(B + ((size_t)ks * ntl + t) * 32);
-}
-
-__device__ __forceinline__ uint32_t ld_g32(const void* p) {
-  return __ldg(static_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.  With rows m0 + (l & 15) and a column offset
-// of (l >> 4) 16-byte halves this is the m16n8k16 bf16 (or m16n8k32 int8)
-// A fragment.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const void* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += A B on the tensor cores; accumulator element i of lane l is (row
-// l/4 + 8*(i/2), column 2*(l%4) + i%2) of the 16x8 tile.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint2 b) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-__device__ __forceinline__ int frag_row(int i) {
-  return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
-}
-__device__ __forceinline__ int frag_col(int t, int i) {
-  return 8 * t + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
 // Warp items over rows [rb, re) of the bf16 buffer A (row stride lda):
@@ -806,6 +766,18 @@ __device__ __forceinline__ void cond_tc(float (&cf)[TW][4],
   }
 }
 
+// Activation hooks of coupling_net: the reverse pairs keep nothing
+// (NoSave, every call empty); the training backward's recompute passes a
+// hook that copies each stage's rows to its workspace.  rows(what, buf,
+// rb, re) runs right after the barrier that ends a stage, on rows [rb, re)
+// of the bf16 window buffer buf (what: ACT_H0 ... ACT_O2); fg(layer, row,
+// n, f, g) gets the biased filter and gate pre-activations of (row, n).
+enum { ACT_H0 = 0, ACT_G0, ACT_H1, ACT_G1, ACT_O1, ACT_O2, N_ACT };
+struct NoSave {
+  __device__ void rows(int, const void*, int, int) const {}
+  __device__ void fg(int, int, int, float, float) const {}
+};
+
 // Direct bf16 filter|gate layer on the tensor cores over rows [rb, re) at
 // dilation dil -> G: the TC twin of direct_layer<bf16, false, COND_DENSE,
 // false>.  The three taps are three bf16 products over R/16 k-steps with A
@@ -814,10 +786,12 @@ __device__ __forceinline__ void cond_tc(float (&cf)[TW][4],
 // the conditioning 1x1 (cond_tc, c rows clamped into [0, T) as in
 // direct_layer) into its own accumulators, added after the fg sum, biased
 // and gated in the order of direct_layer, add_cond and gate_store.
+template <class Save = NoSave>
 __device__ inline void direct_layer_tc_bf(const Params& p, const Flow& f,
                                           const Smem& s, int layer, int rb,
                                           int re, int dil, const void* cglob,
-                                          int b, int win0) {
+                                          int b, int win0,
+                                          const Save& save = Save{}) {
   using bf = __nv_bfloat16;
   const int R = p.R, R2 = 2 * R, lane = threadIdx.x & 31;
   const int nks = R / 16, ntl = R2 / 8;
@@ -861,8 +835,9 @@ __device__ inline void direct_layer_tc_bf(const Params& p, const Flow& f,
         const int row = m0 + frag_row(i), n = frag_col(t0 + j, i);
         if (row >= re) continue;
         const float fv = fa[j][i] + cf[j][i], gv = ga[j][i] + cg[j][i];
-        G[(size_t)row * s.ldh + n] =
-            from_f<bf>(gated(fv + bias[n], gv + bias[R + n]));
+        const float fb = fv + bias[n], gb = gv + bias[R + n];
+        save.fg(layer, row, n, fb, gb);
+        G[(size_t)row * s.ldh + n] = from_f<bf>(gated(fb, gb));
       }
   }
 }
@@ -1057,10 +1032,12 @@ __device__ void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
 // filter|gate layers, res/skip and the final 1x1 run on the tensor cores
 // (T is bf16; I8 with COND_I8 and P = 0, or COND_DENSE with P = 0, 6 or
 // 12).
-template <typename T, bool I8, int COND, bool RS, int P, bool TC>
+template <typename T, bool I8, int COND, bool RS, int P, bool TC,
+          class Save = NoSave>
 __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
                              const T* X, int o0, int o1, const void* cglob,
-                             float c_scale, int b, int win0) {
+                             float c_scale, int b, int win0,
+                             const Save& save = Save{}) {
   constexpr int EH0 = Geo<P>::EH0, EG0 = Geo<P>::EG0;
   static_assert(!TC || (!RS && sizeof(T) == 2 &&
                         ((I8 && COND == COND_I8 && P == 0) ||
@@ -1125,6 +1102,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
     }
   }
   __syncthreads();
+  save.rows(ACT_H0, H, o0 - EH0, o1 + EH0);
   float a_scale = 0.f;
   if constexpr (I8)
     a_scale = quantize_rows(H, s.Q, o0 - EH0, o1 + EH0, R, ld, s.ldq, s.red);
@@ -1136,7 +1114,8 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   else if constexpr (TC && P)
     wino_layer_tc<P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
   else if constexpr (TC)
-    direct_layer_tc_bf(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
+    direct_layer_tc_bf(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0,
+                       save);
   else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b,
                            win0, c_scale);
@@ -1144,6 +1123,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
     direct_layer<T, I8, COND, RS>(p, f, s, 0, o0 - EG0, o1 + EG0, 1,
                                   a_scale, cglob, b, win0, c_scale);
   __syncthreads();
+  save.rows(ACT_G0, G, o0 - EG0, o1 + EG0);
 
   // res and skip-0 share the gate outputs: h1 = (h0 + res)*sqrt(.5) in
   // place over H (each thread owns its element), skip-0 -> S
@@ -1187,6 +1167,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
     }
   }
   __syncthreads();
+  save.rows(ACT_H1, H, o0 - EG0, o1 + EG0);
   if constexpr (I8)
     a_scale = quantize_rows(H, s.Q, o0 - EG0, o1 + EG0, R, ld, s.ldq, s.red);
 
@@ -1197,13 +1178,14 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   else if constexpr (TC && P)
     wino_layer_tc<P>(p, f, s, 1, o0, o1, 3, cglob, b, win0);
   else if constexpr (TC)
-    direct_layer_tc_bf(p, f, s, 1, o0, o1, 3, cglob, b, win0);
+    direct_layer_tc_bf(p, f, s, 1, o0, o1, 3, cglob, b, win0, save);
   else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 1, o0, o1, 3, cglob, b, win0, c_scale);
   else
     direct_layer<T, I8, COND, RS>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b,
                                   win0, c_scale);
   __syncthreads();
+  save.rows(ACT_G1, G, o0, o1);
 
   // skip-1, relu(skip0 + skip1) rounded -> H
   if constexpr (TC) {
@@ -1247,6 +1229,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
     }
   }
   __syncthreads();
+  save.rows(ACT_O1, H, o0, o1);
 
   // final 1x1: relu(out @ fin_w + b) rounded -> G
   if constexpr (TC) {
@@ -1275,6 +1258,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
     }
   }
   __syncthreads();
+  save.rows(ACT_O2, G, o0, o1);
 
   // zero conv (fp32 out): net[j - o0][ch] for ch < 2Rin
   {

@@ -305,13 +305,20 @@ def _gate_q8(fg: torch.Tensor) -> torch.Tensor:
 
 def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
                   p0, T: int, w: dict, rnd, int8: bool, c_scale=None,
-                  hoisted: bool = False, rs: bool = False):
+                  hoisted: bool = False, rs: bool = False, rg=None):
     """One coupling net over windows, mirroring the JAX ``_coupling_net``:
     x_buf[:, j] holds position j - x_off relative to output row 0, whose
     global position is p0 [N]; likewise c_buf with c_off.  ``hoisted``:
     c_buf holds the precomputed conditioning pre-activations (layer 0 ||
-    layer 1).  ``rs``: res/skip on int8 gate codes (``_gated_q8``)."""
+    layer 1).  ``rs``: res/skip on int8 gate codes (``_gated_q8``).
+    ``rg``: an identity whose gradient is rounded (the training pair's
+    backward cast points, ops/pair_flow_train.py), applied to the zero
+    conv's product, each layer's filter|gate sum before its bias and the
+    residual sum of h1; None for the reverse pairs."""
     wt = x_buf.dtype            # fp32 (fp64 for an fp64 reference run)
+    if rg is None:
+        def rg(x):
+            return x
     def conv3(buf, wk, off, length, dil):
         acc = None
         for k in range(3):
@@ -351,7 +358,7 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
     h0 = _mask(rnd(torch.relu(h0 + w["front_b"])), p0 - 4, T)
     l_g0 = out_len + 6
     fg0 = conv_fg(h0, 0, 1, l_g0, 1)
-    fg0 = fg0 + cond(0, c_off - 3, l_g0)
+    fg0 = rg(fg0 + cond(0, c_off - 3, l_g0))
     fg0 = fg0 + w["cond_b"][0]
     r = fg0.shape[-1] // 2
     if rs:
@@ -362,10 +369,10 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
         rs_w = torch.cat([w["res_w"], w["skip_w"][0]], -1).to(wt)
         rsk = torch.matmul(gate(fg0), rs_w)
     res0 = rsk[..., :r] + w["res_b"]
-    h1 = rnd((h0[:, 1:1 + l_g0] + res0) * SQRT_HALF)
+    h1 = rnd(rg(h0[:, 1:1 + l_g0] + res0) * SQRT_HALF)
     h1 = _mask(h1, p0 - 3, T)
     fg1 = conv_fg(h1, 1, 3, out_len, 3)
-    fg1 = fg1 + cond(1, c_off, out_len)
+    fg1 = rg(fg1 + cond(1, c_off, out_len))
     fg1 = fg1 + w["cond_b"][1]
     sk0 = rsk[:, 3:3 + out_len, r:] + w["skip_b"][0]
     if rs:
@@ -377,7 +384,7 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
     out = rnd(torch.relu(sk0 + sk1))
     out = rnd(torch.relu(torch.matmul(out, w["fin_w"].to(wt))
                          + w["fin_b"]))
-    return torch.matmul(out, w["zw"].to(wt)) + w["zb"]
+    return rg(torch.matmul(out, w["zw"].to(wt))) + w["zb"]
 
 
 _OP_NAMES = ("front_w", "front_b", "kfg", "cond_w", "cond_b", "res_w",

@@ -20,7 +20,10 @@ autograd differentiates weight norm, exp(3*scale) and the ActNorm folding
 outside the kernel; the cotangent of max|log_s| is dropped.
 
 A CPU tensor runs :func:`pair_train_fwd_ref` (and autograd through it for
-the backward); a CUDA tensor launches the kernels or raises.
+the backward); a CUDA tensor launches the kernels or raises.  In bf16,
+``pair_train_fwd`` and ``pair_train_bwd`` run on the tensor cores
+(:func:`train_uses_tensor_cores`); ``pair_fwd`` and every fp32 instance on
+CUDA cores.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.flags import HINGE_MARGIN as _HINGE_MARGIN
-from .pair_flow import _OP_NAMES, LAUNCHES, _coupling_net, _mask, pair_cost
+from .pair_flow import (_OP_NAMES, LAUNCHES, _coupling_net, _mask,
+                        check_tc_geometry, pack_tc_weights, pair_cost)
 
 # Dead-zone margin of the hinge statistic (a live attribute: tests set it).
 HINGE_MARGIN = _HINGE_MARGIN
@@ -43,12 +47,32 @@ FWD_HALO = 10       # rows per side of the plain version's window
 # Plain version
 # ---------------------------------------------------------------------------
 
+class _RoundGrad(torch.autograd.Function):
+    """Identity whose gradient is rounded to ``dtype`` and back: the cast
+    points of the JAX backward (``_net_bwd`` rounds dnet, dfg and dh1 *
+    sqrt(.5) to the storage type before their dots).  An identity in fp32
+    and fp64."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
 def pair_train_fwd_ref(u, v, c_a, c_b, operands, *, stats: bool = True):
     """Plain version of the forward pair over the whole sequence, with the
     kernels' cast points (h0, h1, gate outputs, relu'd skip sum and final
     1x1 output rounded to u.dtype; the zero conv, the affine updates and
     the statistics in fp32).  Differentiable: autograd through it is the
-    plain version of the backward.  On the card, run it with TF32 off.
+    plain version of the backward, whose every product operand is in
+    u.dtype as in the JAX backward (autograd rounds the cotangent of each
+    rounded activation; :class:`_RoundGrad` rounds dnet, each layer's dfg
+    before its bias and the cotangent of h1's residual sum).  On the card,
+    run it with TF32 off.
 
     Returns (u3, v3, raw) or, with ``stats``, (u3, v3, raw, max|log_s|,
     sum log_s^2, hinge sum)."""
@@ -62,6 +86,9 @@ def pair_train_fwd_ref(u, v, c_a, c_b, operands, *, stats: bool = True):
 
     def rnd(x):
         return x.to(dt).to(wt)
+
+    def rg(x):
+        return _RoundGrad.apply(x, dt)
 
     def pad(x):
         return F.pad(x.to(wt), (0, 0, h, h))
@@ -77,13 +104,15 @@ def pair_train_fwd_ref(u, v, c_a, c_b, operands, *, stats: bool = True):
     u0 = _mask(rnd((uw + an_b[0, 0]) * an_s[0, 0]), p0, T)
     v0 = (vw + an_b[0, 1]) * an_s[0, 1]
     net = _coupling_net(u0, caw, x_off=5, c_off=5, out_len=L - 10,
-                        p0=p0 + 5, T=T, w=flow_w(0), rnd=rnd, int8=False)
+                        p0=p0 + 5, T=T, w=flow_w(0), rnd=rnd, int8=False,
+                        rg=rg)
     ls1, t1 = net[..., :r_in], net[..., r_in:]
     v3 = ((v0[:, 5:L - 5] - t1) * torch.exp(-ls1) + an_b[1, 0]) * an_s[1, 0]
     u2 = (u0[:, 5:L - 5] + an_b[1, 1]) * an_s[1, 1]
     v3m = _mask(rnd(v3), p0 + 5, T)
     net2 = _coupling_net(v3m, cbw, x_off=5, c_off=10, out_len=L - 20,
-                         p0=p0 + 10, T=T, w=flow_w(1), rnd=rnd, int8=False)
+                         p0=p0 + 10, T=T, w=flow_w(1), rnd=rnd, int8=False,
+                         rg=rg)
     ls2, t2 = net2[..., :r_in], net2[..., r_in:]
     u3 = (u2[:, 5:5 + T] - t2) * torch.exp(-ls2)
     ls1 = ls1[:, 5:5 + T]
@@ -128,35 +157,91 @@ def _library():
 
     lib = _build.load("pair_flow_train")
     c_int, c_ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    lib.pair_train_ws_floats.argtypes = [c_int] * 5
-    lib.pair_train_ws_floats.restype = c_ll
+    lib.pair_train_ws_bytes.argtypes = [c_int] * 6
+    lib.pair_train_ws_bytes.restype = c_ll
+    lib.pair_train_smem_bytes.argtypes = [c_int] * 5
+    lib.pair_train_smem_bytes.restype = c_ll
     lib.pair_train_grad_floats.argtypes = [c_int] * 3
     lib.pair_train_grad_floats.restype = c_ll
-    lib.pair_train_fwd_launch.argtypes = [c_int, c_int, c_ptr, c_ptr,
+    lib.pair_train_fwd_launch.argtypes = [c_int, c_int, c_int, c_ptr, c_ptr,
                                           ctypes.c_float, c_ptr]
     lib.pair_train_fwd_launch.restype = c_int
-    lib.pair_train_bwd_launch.argtypes = [c_int, c_ptr, c_ptr,
+    lib.pair_train_bwd_launch.argtypes = [c_int, c_int, c_ptr, c_ptr,
                                           ctypes.c_float, c_ptr]
     lib.pair_train_bwd_launch.restype = c_int
+    lib.pair_train_attrs.argtypes = [c_int, c_int, c_ptr]
+    lib.pair_train_attrs.restype = c_int
     return lib
 
 
+# the three kernels of csrc/pair_flow_train.cu, by their C number
+TRAIN_KERNELS = ("pair_fwd", "pair_train_fwd", "pair_train_bwd")
+SMEM_MAX = 232448               # bytes of shared memory one CTA may use
+
+
+def train_uses_tensor_cores(dtype: torch.dtype, kernel: str) -> bool:
+    """Whether the training-side kernel ``kernel`` (one of
+    :data:`TRAIN_KERNELS`) runs its products on the tensor cores in
+    ``dtype``: ``pair_train_fwd`` and ``pair_train_bwd`` in bf16.
+    ``pair_fwd`` and every fp32 instance run the CUDA-core GEMM (fp32 keeps
+    its rel <= 1e-4 bar, which a bf16 product cannot meet)."""
+    if kernel not in TRAIN_KERNELS:
+        raise ValueError(f"unknown training kernel {kernel!r}")
+    return dtype == torch.bfloat16 and kernel != "pair_fwd"
+
+
 def train_t_tile(B: int, T: int, n_sm: int) -> int:
-    """Rows per tile: the largest power of two in [32, 256] that still
-    gives at least one tile per SM, so the persistent grid fills the
-    card."""
+    """Rows per tile of the CUDA-core instances: the largest power of two
+    in [32, 256] that still gives at least one tile per SM, so the
+    persistent grid fills the card."""
     tt = 256
     while tt > 32 and B * -(-T // tt) < n_sm:
         tt //= 2
     return tt
 
 
-def _geometry(u):
-    """(t_tile, CTAs, tiles) for a launch over u [B, T, R_in]."""
-    B, T, _ = u.shape
+def balanced_t_tile(B: int, T: int, n_sm: int, fits) -> int:
+    """Rows per tile of a tensor-core instance (one CTA per SM): the fewest
+    waves of B * ceil(T / tile) tiles over ``n_sm`` SMs among the tiles of
+    16-72 rows that ``fits(tile)`` accepts; with several waves the
+    shortest tile that needs no more (a last wave of a few tiles leaves
+    the card idle: lj22k block 0 at batch 8 takes 66 rows, 392 tiles in 3
+    waves, where 64 rows would give 400 tiles and 4), in one wave the
+    longest (on the card, at T = 400 and 300, 64-row tiles beat 25- and
+    16-row ones, and 95-row ones lost to 64)."""
+    fit = [tt for tt in range(16, 73) if fits(tt)]
+    if not fit:
+        raise ValueError("no tile of the tensor-core training pair fits in "
+                         f"{SMEM_MAX} bytes of shared memory")
+
+    def waves(tt):
+        return -(-B * -(-T // tt) // n_sm)
+    least = min(waves(tt) for tt in fit)
+    best = [tt for tt in fit if waves(tt) == least]
+    return best[-1] if least == 1 else best[0]
+
+
+def train_tc_t_tile(B: int, T: int, r: int, r_in: int, backward: bool,
+                    n_sm: int) -> int:
+    """:func:`balanced_t_tile` over the tiles whose window (the tile plus
+    10 rows per side forward, 20 backward) fits in one CTA's shared
+    memory."""
+    lib = _library()
+    return balanced_t_tile(B, T, n_sm, lambda tt: 0 < lib.pair_train_smem_bytes(
+        int(backward), 1, r, r_in, tt) <= SMEM_MAX)
+
+
+def _geometry(u, tc: bool, r: int, backward: bool):
+    """(t_tile, CTAs, tiles) for a launch over u [B, T, R_in]: the
+    tensor-core forward runs one CTA per tile, every other instance a
+    persistent grid of at most one CTA per SM."""
+    B, T, r_in = u.shape
     n_sm = torch.cuda.get_device_properties(u.device).multi_processor_count
-    tt = train_t_tile(B, T, n_sm)
+    tt = (train_tc_t_tile(B, T, r, r_in, backward, n_sm) if tc
+          else train_t_tile(B, T, n_sm))
     n_tiles = B * -(-T // tt)
+    if tc and not backward:
+        return tt, n_tiles, n_tiles
     return tt, min(n_tiles, n_sm), n_tiles
 
 
@@ -201,6 +286,34 @@ def _check(u, v, c_a, c_b, operands, extra=()):
     return ops, R, Cc
 
 
+def check_train_tc_geometry(r: int, cc: int) -> None:
+    """Raise ValueError unless the tensor-core training instances take
+    these widths: those of the tensor-core reverse pair (R dividing 512 and
+    a multiple of 32, Cc a multiple of 16; the lj22k widths all are).
+    Other widths train on the plain route (FWN_TRAIN_KERNEL=0) in bf16, or
+    on the kernel route in fp32."""
+    if r <= 0 or 512 % r:
+        raise ValueError(f"the tensor-core training pair takes R dividing "
+                         f"512, got R={r}")
+    check_tc_geometry(r, cc)
+
+
+# folded operands the tensor-core instances take packed in fragment order
+# (slots of pair_forward_operands: kfg, cond_w, res_w, skip_w, fin_w)
+_TC_SLOTS = (2, 3, 5, 7, 9)
+
+
+def _tc_operands(ops):
+    """The 15 operands with kfg, cond_w, res_w, skip_w and fin_w packed
+    for the shared forward body (pack_tc_weights), and the transposed
+    weights the backward's input-gradient products take (pack_tc_weights of
+    W^T: [.., N, K] packed as K = N rows)."""
+    fwd = [pack_tc_weights(o) if i in _TC_SLOTS else o
+           for i, o in enumerate(ops)]
+    bwd = [pack_tc_weights(ops[i].transpose(-1, -2)) for i in _TC_SLOTS]
+    return fwd, bwd
+
+
 def _run(fn, name: str, *args):
     with torch.cuda.device(args[-1]):
         stream = torch.cuda.current_stream(args[-1]).cuda_stream
@@ -217,19 +330,24 @@ def launch_forward(u, v, c_a, c_b, operands, *, stats: bool):
     ops, R, Cc = _check(u, v, c_a, c_b, operands)
     B, T, r_in = u.shape
     dt = u.dtype
-    tt, G, n_tiles = _geometry(u)
-    ws = torch.empty(G * lib.pair_train_ws_floats(0, R, r_in, Cc, tt),
-                     dtype=torch.float32, device=u.device)
+    name = "pair_train_fwd" if stats else "pair_fwd"
+    tc = train_uses_tensor_cores(dt, name)
+    if tc:
+        check_train_tc_geometry(R, Cc)
+        ops, _ = _tc_operands(ops)
+    tt, G, n_tiles = _geometry(u, tc, R, False)
+    ws = torch.empty(lib.pair_train_ws_bytes(0, int(tc), R, r_in, Cc, tt)
+                     // 4 * G, dtype=torch.float32, device=u.device)
     st = torch.empty(n_tiles, 4, dtype=torch.float32, device=u.device)
     u_out, v_out = torch.empty_like(u), torch.empty_like(v)
     ptrs = [u, v, c_a, c_b, u_out, v_out, st, ws, *ops]
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*[x.data_ptr() for x in ptrs])
     dims = (ctypes.c_int * 7)(B, T, r_in, R, Cc, tt, G)
-    _run(lib.pair_train_fwd_launch, "pair_train_fwd" if stats else "pair_fwd",
-         0 if dt == torch.float32 else 1, int(stats),
+    _run(lib.pair_train_fwd_launch, name,
+         0 if dt == torch.float32 else 1, int(stats), int(tc),
          ctypes.cast(ptr_arr, ctypes.c_void_p),
          ctypes.cast(dims, ctypes.c_void_p), float(HINGE_MARGIN), u.device)
-    LAUNCHES["pair_train_fwd" if stats else "pair_fwd"] += 1
+    LAUNCHES[name] += 1
     raw = st[:, 0].sum()
     if not stats:
         return u_out, v_out, raw
@@ -246,9 +364,15 @@ def launch_backward(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
                         extra=(("gu", gu), ("gv", gv)))
     B, T, r_in = u.shape
     dt = u.dtype
-    tt, G, _ = _geometry(u)
-    ws = torch.empty(G * lib.pair_train_ws_floats(1, R, r_in, Cc, tt),
-                     dtype=torch.float32, device=u.device)
+    tc = train_uses_tensor_cores(dt, "pair_train_bwd")
+    shapes = [o.shape for o in ops]
+    extra = []
+    if tc:
+        check_train_tc_geometry(R, Cc)
+        ops, extra = _tc_operands(ops)
+    tt, G, _ = _geometry(u, tc, R, True)
+    ws = torch.empty(lib.pair_train_ws_bytes(1, int(tc), R, r_in, Cc, tt)
+                     // 4 * G, dtype=torch.float32, device=u.device)
     n_grad = lib.pair_train_grad_floats(R, r_in, Cc)
     slab = torch.empty(G * n_grad, dtype=torch.float32, device=u.device)
     d_flat = torch.empty(n_grad, dtype=torch.float32, device=u.device)
@@ -257,20 +381,50 @@ def launch_backward(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
     du, dv = torch.empty_like(u), torch.empty_like(v)
     dca, dcb = torch.empty_like(c_a), torch.empty_like(c_b)
     ptrs = [u, v, c_a, c_b, gu, gv, du, dv, dca, dcb, gsc, ws, slab, d_flat,
-            *ops]
+            *ops, *extra]
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*[x.data_ptr() for x in ptrs])
     dims = (ctypes.c_int * 7)(B, T, r_in, R, Cc, tt, G)
     _run(lib.pair_train_bwd_launch, "pair_train_bwd",
-         0 if dt == torch.float32 else 1,
+         0 if dt == torch.float32 else 1, int(tc),
          ctypes.cast(ptr_arr, ctypes.c_void_p),
          ctypes.cast(dims, ctypes.c_void_p), float(HINGE_MARGIN), u.device)
     LAUNCHES["pair_train_bwd"] += 1
     d_ops, off = [], 0
-    for o in ops:
-        n = o.numel()
-        d_ops.append(d_flat[off:off + n].view(o.shape))
+    for shp in shapes:
+        n = shp.numel()
+        d_ops.append(d_flat[off:off + n].view(shp))
         off += n
     return tuple(d_ops), du, dv, dca, dcb
+
+
+def train_launch_bytes(B: int, T: int, r_in: int, cc: int, r: int,
+                       dtype: torch.dtype, kernel: str, n_sm: int) -> dict:
+    """Device memory one launch of ``kernel`` allocates besides its inputs
+    and outputs: the workspace and (backward) the per-CTA gradient slabs,
+    in bytes, with the tile and the CTAs."""
+    lib = _library()
+    backward = kernel == "pair_train_bwd"
+    tc = train_uses_tensor_cores(dtype, kernel)
+    tt = (train_tc_t_tile(B, T, r, r_in, backward, n_sm) if tc
+          else train_t_tile(B, T, n_sm))
+    n_tiles = B * -(-T // tt)
+    G = n_tiles if tc and not backward else min(n_tiles, n_sm)
+    ws = lib.pair_train_ws_bytes(int(backward), int(tc), r, r_in, cc, tt) * G
+    slab = (4 * G * lib.pair_train_grad_floats(r, r_in, cc)
+            if backward else 0)
+    return {"t_tile": tt, "ctas": G, "workspace_bytes": ws,
+            "slab_bytes": slab}
+
+
+def train_kernel_attrs(dtype: torch.dtype, kernel: str) -> tuple[int, int]:
+    """(registers, local bytes) per thread of the instance of ``kernel``
+    in ``dtype``, as cudaFuncGetAttributes reports them."""
+    out = (ctypes.c_int * 2)()
+    err = _library().pair_train_attrs(TRAIN_KERNELS.index(kernel),
+                                      0 if dtype == torch.float32 else 1, out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
+    return out[0], out[1]
 
 
 def fused_pair_train_fwd(u, v, c_a, c_b, operands):

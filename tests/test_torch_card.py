@@ -336,6 +336,103 @@ def test_train_kernels_match_plain(cuda, monkeypatch, bi, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bi", [0, 1, 2, 3])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_train_tc_kernels_match_plain(cuda, monkeypatch, bi, mode):
+    """pair_train_fwd and pair_train_bwd vs their plain versions at the
+    lj22k widths of blocks 0-3, T=300 (a ragged last tile of the
+    tensor-core instances' 64 rows), hinge live; in bf16 both run on the
+    tensor cores (train_uses_tensor_cores).  bf16: outputs rel-to-max <=
+    1e-2 with corr >= 0.999, statistics rel <= 1e-2, cosine >= 0.999 per
+    gradient leaf; fp32 (CUDA cores): rel-to-max <= 1e-4 on outputs,
+    statistics and every gradient."""
+    dt = torch.float32 if mode == "fp32" else torch.bfloat16
+    pft, ops, u, v, ca, cb, gu, gv, (gr, gq, gh) = _train_case(bi, dt, cuda)
+    for k in ("pair_train_fwd", "pair_train_bwd"):
+        assert pft.train_uses_tensor_cores(dt, k) == (mode == "bf16")
+    mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
+    monkeypatch.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
+    want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
+    n0 = dict(pf.LAUNCHES)
+    got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+    d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
+    assert pf.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 1
+    assert float(want[5]) > 0.0
+    bar = 1e-4 if mode == "fp32" else 1e-2
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max()) <= bar
+        if mode == "bf16":
+            assert _cos(a - a.mean(), b - b.mean()) >= 0.999
+    for a, b in zip(got[2:], want[2:]):
+        assert abs(float(a) - float(b)) <= bar * abs(float(b)) + 1e-6
+    dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
+    for a, b in zip(list(d[0]) + list(d[1:]), list(dref[0]) + list(dref[1:])):
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        if mode == "fp32":
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        elif float(b.abs().max()) > 0:
+            assert _cos(a, b) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bi", [0, 3])
+def test_train_tc_kernels_are_deterministic_and_row_local(cuda, bi):
+    """bf16, on the tensor cores: two launches of each kernel give the same
+    bits, and a batch row's outputs and its du, dv, dc_a, dc_b computed
+    alone equal the same row computed beside its companion (tiles never
+    span two rows; only the weight gradients sum over the batch)."""
+    pft, ops, u, v, ca, cb, gu, gv, scal = _train_case(bi, torch.bfloat16,
+                                                       cuda)
+
+    def run(rows):
+        x = [t[rows].contiguous() for t in (u, v, ca, cb, gu, gv)]
+        f = pft.fused_pair_train_fwd(*x[:4], ops)
+        d = pft.fused_pair_train_bwd(*x, *scal, ops)
+        return list(f[:2]) + list(d[1:]), list(f[2:]) + list(d[0])
+
+    both, s1 = run(slice(0, 2))
+    again, s2 = run(slice(0, 2))
+    alone, _ = run(slice(1, 2))
+    torch.cuda.synchronize()
+    for x, y, z in zip(both, again, alone):
+        assert torch.equal(x, y)
+        assert torch.equal(x[1:2], z)
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+
+
+@pytest.mark.cuda
+def test_train_launchers_refuse_mismatched_flags(cuda):
+    """The C launchers refuse a tc flag that does not name the instance
+    (pair_fwd and fp32 on the tensor cores, the bf16 pair_train_fwd /
+    pair_train_bwd off them) and widths the tensor-core instances do not
+    take (R = 48, R = 16, Cc = 88), returning cudaErrorInvalidValue before
+    anything is launched."""
+    import ctypes
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    lib = pft._library()
+    ptrs = (ctypes.c_void_p * 40)()            # never dereferenced
+
+    def dims(R, Cc):
+        return (ctypes.c_int * 7)(1, 120, 1, R, Cc, 64, 1)
+    fwd, bwd = lib.pair_train_fwd_launch, lib.pair_train_bwd_launch
+    bad = [fwd(1, 1, 0, ptrs, dims(256, 80), 5.0, None),   # bf16 train off
+           fwd(1, 0, 1, ptrs, dims(256, 80), 5.0, None),   # pair_fwd tc
+           fwd(0, 1, 1, ptrs, dims(256, 80), 5.0, None),   # fp32 tc
+           bwd(1, 0, ptrs, dims(256, 80), 5.0, None),      # bf16 bwd off
+           bwd(0, 1, ptrs, dims(256, 80), 5.0, None),      # fp32 tc
+           fwd(1, 1, 1, ptrs, dims(48, 80), 5.0, None),    # R=48
+           bwd(1, 1, ptrs, dims(16, 80), 5.0, None),       # R=16
+           bwd(1, 1, ptrs, dims(256, 88), 5.0, None)]      # Cc=88
+    torch.cuda.synchronize()
+    assert all(err != 0 for err in bad), bad
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("phases", [6, 12])
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
 def test_wino_hoisted_kernel_matches_plain(cuda, phases, mode):

@@ -143,6 +143,35 @@ def test_train_pair_backward_ref_matches_jax_bwd(pair, monkeypatch):
         assert _rel(a.numpy(), b) < 1e-4
 
 
+def test_train_pair_backward_ref_matches_jax_bwd_bf16(pair, monkeypatch):
+    """bf16: the backward's plain version (autograd through
+    pair_train_fwd_ref, every product operand rounded at the JAX
+    backward's cast points) vs ``fused_pair_train_bwd`` in interpret mode
+    on the same bf16 folded operands, inputs and cotangents.  Bars per
+    leaf (15 operand gradients, du, dv, dc_a, dc_b): cosine >= 0.995 and
+    rel-to-max <= 0.3.  The gap is not the cast points: the JAX backward
+    recomputes its gates as rnd(rnd(tanh) * rnd(sigmoid)) (_net_fwd_res),
+    a forward one bf16 rounding away from the one _pair_kernel_fws and the
+    port compute, rnd(tanh * sigmoid)."""
+    monkeypatch.setattr(jpft, "HINGE_MARGIN", MARGIN)
+    monkeypatch.setattr(tpft, "HINGE_MARGIN", MARGIN)
+    jp, tp = pair
+    xs = [torch.from_numpy(x).bfloat16() for x in _data(160, seed=4)]
+    jx = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in xs]
+    dj = jpft.fused_pair_train_bwd(*jx, 0.7, 0.11, 1.3,
+                                   jpf.pair_forward_operands(jp, jnp.bfloat16),
+                                   interpret=True)
+    dt = tpft.fused_pair_train_bwd(
+        *xs, torch.tensor(0.7), torch.tensor(0.11), torch.tensor(1.3),
+        tpf.pair_forward_operands(tp, torch.bfloat16))
+    for a, b in zip(list(dt[0]) + list(dt[1:]), list(dj[0]) + list(dj[1:])):
+        a, b = a.double().numpy(), np.asarray(b, np.float64)
+        assert a.shape == b.shape
+        cos = (a.ravel() @ b.ravel()) / (np.linalg.norm(a)
+                                         * np.linalg.norm(b))
+        assert cos >= 0.995 and _rel(a, b) <= 0.3
+
+
 @pytest.mark.parametrize("T", [192, 300])
 def test_forward_pair_matches_jax_kernel(pair, T):
     """pair_fwd's plain version (the port of ``_pair_kernel_fw``) vs
