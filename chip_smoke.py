@@ -38,16 +38,19 @@
    and the range are printed.  Phase 3b (``odd_width_phase``) reverses
    lj22k models with num_mels 79 and filter_size 48, whose widths the
    kernels take only zero-padded, on the int8, FWN_INT8=0 and FWN_WINO4=1
-   routes against their plain route at the same bar.
+   routes against their plain route at the same bar, and holds the bf16
+   training pairs of their block 0 against the plain versions at phase
+   4's bars.
 4. Holds ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` against
    their plain versions at the lj22k training geometry of blocks 0-3
    (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
    ``train_kernel_checks``), checks that two backward launches give the
    same bits, and prints kernel, plain and bound ms.  In bf16
    ``pair_train_fwd`` and ``pair_train_bwd`` run on the tensor cores;
-   their design, registers and local bytes per thread and, per launch at
-   lj22k block 0, the workspace and gradient-slab bytes are printed and
-   put in the kernel line.
+   their design, registers and local bytes per thread and the tile, CTAs,
+   workspace and gradient-slab bytes that the bf16 launches at lj22k
+   block 0 used (``pair_flow_train.LAST_LAUNCH``) are printed and put in
+   the kernel line.
 5. Trains lj22k at full width (batch 8 x 6400 samples, bf16 compute, fp32
    params) through the port's entry points on a seeded fwrec corpus: DDI,
    then ``TRAIN_STEPS`` steps on the FWN_TRAIN_KERNEL=1 route and on the
@@ -459,6 +462,9 @@ def train_kernel_checks(params, cfg, B: int, T: int, blocks, dev):
                 d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal,
                                               ops)
                 torch.cuda.synchronize()
+                # tile, CTAs and allocations of these launches
+                launch = {k: dict(pft.LAST_LAUNCH[k])
+                          for k in pft.TRAIN_KERNELS}
                 dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal,
                                               ops)
                 errs = [_errors(a, b) for a, b in
@@ -544,6 +550,7 @@ def train_kernel_checks(params, cfg, B: int, T: int, blocks, dev):
                          "fwd_ms": fwd_ms, "pfw_ms": pfw_ms,
                          "bwd_ms": bwd_ms, "fwd_plain_ms": fwd_plain,
                          "pfw_plain_ms": pfw_plain, "bwd_plain_ms": bwd_plain,
+                         "launch": launch,
                          "fwd_bound": pft.train_pair_bound_ms(B, tk, r_in,
                                                               cc),
                          "bwd_bound": pft.train_pair_bound_ms(
@@ -1079,7 +1086,65 @@ def odd_width_phase(dev):
                   f"corr {corr:.6f}, launches {counts}", flush=True)
             check(rel < 0.08 and corr > 0.998, (mname, name, rel, corr))
             out[f"{mname} {name}"] = (rel, corr)
+        out[f"{mname} training pairs"] = odd_width_train_pair(
+            mname, params, cfg, dev)
     return out
+
+
+def odd_width_train_pair(mname: str, params, cfg, dev):
+    """Phase 3b's training side: ``pair_train_fwd`` and ``pair_train_bwd``
+    in bf16 on block 0's first pair of an odd-width model (the
+    FWN_TRAIN_KERNEL=1 route's block; Cc 79 or R 48, zero-padded to 80 or
+    64 for the tensor cores), two rows of the training geometry's T_k,
+    one launch each, vs their plain versions at phase 4's bf16 bars.
+    Returns (outputs rel, worst leaf gradient cosine)."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    pair = tree_map(lambda l: l.clone(),
+                    fwn._index(fwn._pair_params(params["blocks"][0]), 0))
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for leaf in (pair["coupling"]["zero"]["w"], pair["actnorm"]["b"],
+                 pair["actnorm"]["logs"]):
+        leaf.add_(0.05 * torch.randn(leaf.shape, generator=g, device=dev))
+    ops = pf.pair_forward_operands(pair, torch.bfloat16)
+    tk = cfg.data.max_time_steps >> 1
+    u, v, gu, gv = (torch.randn(2, tk, 1, generator=g, device=dev)
+                    .bfloat16() for _ in range(4))
+    ca, cb = (torch.rand(2, tk, cfg.model.num_mels, generator=g, device=dev)
+              .bfloat16() for _ in range(2))
+    scal = [torch.tensor(x, device=dev) for x in (0.7, 0.11, 1.3)]
+    want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+    d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(counts == {"pair_train_fwd": 1, "pair_train_bwd": 1},
+          (mname, "training pair launches", counts))
+    errs = [_errors(a, b) for a, b in zip(got[:2], want[:2])]
+    rel, corr = max(e[1] for e in errs), min(e[2] for e in errs)
+    st_rel = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-6)
+                 for a, b in zip(got[2:], want[2:]))
+    dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops)
+    g_cos = 1.0
+    for a, b in zip(list(d[0]) + list(d[1:]), list(dref[0]) + list(dref[1:])):
+        check(a.shape == b.shape and bool(torch.isfinite(a.float()).all()),
+              (mname, "training pair gradient", a.shape, b.shape))
+        if float(b.float().abs().max()) > 0:
+            g_cos = min(g_cos, _cos(a.double(), b.double()))
+    print(f"{mname} training pairs bf16 T_k={tk} Cc={cfg.model.num_mels} "
+          f"R={cfg.model.filter_size} vs plain: out rel={rel:.3e} "
+          f"corr={corr:.7f} stats rel={st_rel:.3e} grad cos={g_cos:.8f}",
+          flush=True)
+    check(rel <= 1e-2 and corr >= 0.999 and st_rel <= 1e-2
+          and g_cos >= 0.999, (mname, "training pairs", rel, corr, st_rel,
+                               g_cos))
+    return rel, g_cos
 
 
 SERVE_FRAMES = (180, 205, 231, 262, 289, 301, 322, 345)   # 8 requests
@@ -1667,18 +1732,17 @@ def main() -> int:
                    "pair_train_bwd", 0), range(n_tr)),
         rentry("resblock", 58),
         rentry("resblock_v2", 278)]
-    # device memory of one launch besides inputs and outputs, at the
-    # geometry of lj22k block 0 (the FWN_TRAIN_KERNEL=1 route)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # device memory of one launch besides inputs and outputs, as phase 4's
+    # bf16 launches at lj22k block 0 (the FWN_TRAIN_KERNEL=1 route's
+    # geometry) allocated it
+    row0 = next(r for r in trows if r["block"] == 0 and r["mode"] == "bf16")
     for k in kernels:
         if k["name"] in pft.TRAIN_KERNELS:
-            k.update(pft.train_launch_bytes(
-                tB, tT // 2, 1, cfg.model.num_mels, cfg.model.filter_size,
-                torch.bfloat16, k["name"], n_sm))
+            k.update(row0["launch"][k["name"]])
             print(f"{k['name']} bf16 per launch at lj22k block 0: tile "
                   f"{k['t_tile']} rows, {k['ctas']} CTAs, workspace "
                   f"{k['workspace_bytes'] / 1e6:.1f} MB, gradient slabs "
-                  f"{k['slab_bytes'] / 1e6:.1f} MB", flush=True)
+                  f"{k.get('slab_bytes', 0) / 1e6:.1f} MB", flush=True)
     for k in kernels:
         opts = PAIR_OPTIONS.get(k["name"])
         if k["name"] in pft.TRAIN_KERNELS:

@@ -303,6 +303,13 @@ def _gate_q8(fg: torch.Tensor) -> torch.Tensor:
                        * 127.0)
 
 
+def _gate(fg, rnd):
+    """tanh(filter) * sigmoid(gate) of a [.., filter R | gate R]
+    pre-activation, rounded once by ``rnd``."""
+    r = fg.shape[-1] // 2
+    return rnd(torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:]))
+
+
 def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
                   p0, T: int, w: dict, rnd, int8: bool, c_scale=None,
                   hoisted: bool = False, rs: bool = False, rg=None):
@@ -349,10 +356,6 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
                 c_scale * w["cond_s"][layer])
         return torch.matmul(tap, w["cond_w"][layer].to(wt))
 
-    def gate(fg):
-        r = fg.shape[-1] // 2
-        return rnd(torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:]))
-
     l_h0 = out_len + 8
     h0 = conv3(x_buf, w["front_w"], x_off - 4, l_h0, 1)
     h0 = _mask(rnd(torch.relu(h0 + w["front_b"])), p0 - 4, T)
@@ -367,7 +370,7 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
             [w["res_w"], w["skip_w"][0]], -1)) * rs_s
     else:
         rs_w = torch.cat([w["res_w"], w["skip_w"][0]], -1).to(wt)
-        rsk = torch.matmul(gate(fg0), rs_w)
+        rsk = torch.matmul(_gate(fg0, rnd), rs_w)
     res0 = rsk[..., :r] + w["res_b"]
     h1 = rnd(rg(h0[:, 1:1 + l_g0] + res0) * SQRT_HALF)
     h1 = _mask(h1, p0 - 3, T)
@@ -379,7 +382,7 @@ def _coupling_net(x_buf, c_buf, *, x_off: int, c_off: int, out_len: int,
         sk1 = _int_dot(_gate_q8(fg1), w["skip_w"][1]) * (
             w["skip_s"][1] * (1.0 / 127.0))
     else:
-        sk1 = torch.matmul(gate(fg1), w["skip_w"][1].to(wt))
+        sk1 = torch.matmul(_gate(fg1, rnd), w["skip_w"][1].to(wt))
     sk1 = sk1 + w["skip_b"][1]
     out = rnd(torch.relu(sk0 + sk1))
     out = rnd(torch.relu(torch.matmul(out, w["fin_w"].to(wt))

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 
 from ..utils.flags import HINGE_MARGIN as _HINGE_MARGIN
 from .pair_flow import (_OP_NAMES, LAUNCHES, _coupling_net, _mask,
-                        check_tc_geometry, pack_tc_weights, pair_cost)
+                        check_tc_geometry, kernel_widths, pack_tc_weights,
+                        pad_pair_widths, pair_cost)
 
 # Dead-zone margin of the hinge statistic (a live attribute: tests set it).
 HINGE_MARGIN = _HINGE_MARGIN
@@ -177,6 +178,10 @@ def _library():
 # the three kernels of csrc/pair_flow_train.cu, by their C number
 TRAIN_KERNELS = ("pair_fwd", "pair_train_fwd", "pair_train_bwd")
 SMEM_MAX = 232448               # bytes of shared memory one CTA may use
+# per kernel, what its last launch ran with: rows per tile ("t_tile"),
+# CTAs ("ctas") and the bytes it allocated besides its inputs and outputs
+# ("workspace_bytes", and "slab_bytes" for the backward's gradient slabs)
+LAST_LAUNCH: dict = {}
 
 
 def train_uses_tensor_cores(dtype: torch.dtype, kernel: str) -> bool:
@@ -289,9 +294,8 @@ def _check(u, v, c_a, c_b, operands, extra=()):
 def check_train_tc_geometry(r: int, cc: int) -> None:
     """Raise ValueError unless the tensor-core training instances take
     these widths: those of the tensor-core reverse pair (R dividing 512 and
-    a multiple of 32, Cc a multiple of 16; the lj22k widths all are).
-    Other widths train on the plain route (FWN_TRAIN_KERNEL=0) in bf16, or
-    on the kernel route in fp32."""
+    a multiple of 32, Cc a multiple of 16; the lj22k widths all are).  The
+    wrappers zero-pad other widths to these first (:func:`_pad_tc`)."""
     if r <= 0 or 512 % r:
         raise ValueError(f"the tensor-core training pair takes R dividing "
                          f"512, got R={r}")
@@ -301,6 +305,32 @@ def check_train_tc_geometry(r: int, cc: int) -> None:
 # folded operands the tensor-core instances take packed in fragment order
 # (slots of pair_forward_operands: kfg, cond_w, res_w, skip_w, fin_w)
 _TC_SLOTS = (2, 3, 5, 7, 9)
+
+
+def _pad_tc(c_a, c_b, ops, R: int, Cc: int):
+    """(c_a, c_b, ops, R, Cc) at the widths the tensor-core instances take
+    (``pair_flow.kernel_widths``): zero c columns and zero channels through
+    every weight (``pair_flow.pad_pair_widths``), so the real channels'
+    outputs are unchanged and the padded ones carry zero gradients; the
+    lj22k widths are never padded."""
+    Rk, Cck = kernel_widths(R, Cc, True)
+    if (Rk, Cck) == (R, Cc):
+        return c_a, c_b, ops, R, Cc
+    c_a, c_b, ops = pad_pair_widths(c_a, c_b, ops, Rk, Cck)
+    return c_a, c_b, [o.contiguous() for o in ops], Rk, Cck
+
+
+# operands whose last axis is [filter R | gate R] (pair_flow._pad_halves)
+_HALVES = ("kfg", "cond_w", "cond_b")
+
+
+def _unpad_grad(g, shape, name: str):
+    """The gradient ``g`` of an operand padded by :func:`_pad_tc`, cut back
+    to the operand's ``shape``."""
+    if name in _HALVES and g.shape[-1] != shape[-1]:
+        n, half = shape[-1] // 2, g.shape[-1] // 2
+        g = torch.cat([g[..., :n], g[..., half:half + n]], -1)
+    return g[tuple(slice(0, n) for n in shape)].contiguous()
 
 
 def _tc_operands(ops):
@@ -333,6 +363,7 @@ def launch_forward(u, v, c_a, c_b, operands, *, stats: bool):
     name = "pair_train_fwd" if stats else "pair_fwd"
     tc = train_uses_tensor_cores(dt, name)
     if tc:
+        c_a, c_b, ops, R, Cc = _pad_tc(c_a, c_b, ops, R, Cc)
         check_train_tc_geometry(R, Cc)
         ops, _ = _tc_operands(ops)
     tt, G, n_tiles = _geometry(u, tc, R, False)
@@ -348,6 +379,8 @@ def launch_forward(u, v, c_a, c_b, operands, *, stats: bool):
          ctypes.cast(ptr_arr, ctypes.c_void_p),
          ctypes.cast(dims, ctypes.c_void_p), float(HINGE_MARGIN), u.device)
     LAUNCHES[name] += 1
+    LAST_LAUNCH[name] = {"t_tile": tt, "ctas": G,
+                         "workspace_bytes": 4 * ws.numel()}
     raw = st[:, 0].sum()
     if not stats:
         return u_out, v_out, raw
@@ -366,9 +399,12 @@ def launch_backward(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
     dt = u.dtype
     tc = train_uses_tensor_cores(dt, "pair_train_bwd")
     shapes = [o.shape for o in ops]
-    extra = []
+    cc0, extra = Cc, []
     if tc:
+        c_a, c_b, ops, R, Cc = _pad_tc(c_a, c_b, ops, R, Cc)
         check_train_tc_geometry(R, Cc)
+    padded = [o.shape for o in ops]
+    if tc:
         ops, extra = _tc_operands(ops)
     tt, G, _ = _geometry(u, tc, R, True)
     ws = torch.empty(lib.pair_train_ws_bytes(1, int(tc), R, r_in, Cc, tt)
@@ -389,31 +425,19 @@ def launch_backward(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
          ctypes.cast(ptr_arr, ctypes.c_void_p),
          ctypes.cast(dims, ctypes.c_void_p), float(HINGE_MARGIN), u.device)
     LAUNCHES["pair_train_bwd"] += 1
+    LAST_LAUNCH["pair_train_bwd"] = {"t_tile": tt, "ctas": G,
+                                     "workspace_bytes": 4 * ws.numel(),
+                                     "slab_bytes": 4 * slab.numel()}
     d_ops, off = [], 0
-    for shp in shapes:
-        n = shp.numel()
-        d_ops.append(d_flat[off:off + n].view(shp))
+    for name, shp, pshp in zip(_OP_NAMES + ("an_s", "an_b"), shapes,
+                               padded):
+        n = pshp.numel()
+        d = d_flat[off:off + n].view(pshp)
+        d_ops.append(d if pshp == shp else _unpad_grad(d, shp, name))
         off += n
+    if Cc != cc0:
+        dca, dcb = (d[..., :cc0].contiguous() for d in (dca, dcb))
     return tuple(d_ops), du, dv, dca, dcb
-
-
-def train_launch_bytes(B: int, T: int, r_in: int, cc: int, r: int,
-                       dtype: torch.dtype, kernel: str, n_sm: int) -> dict:
-    """Device memory one launch of ``kernel`` allocates besides its inputs
-    and outputs: the workspace and (backward) the per-CTA gradient slabs,
-    in bytes, with the tile and the CTAs."""
-    lib = _library()
-    backward = kernel == "pair_train_bwd"
-    tc = train_uses_tensor_cores(dtype, kernel)
-    tt = (train_tc_t_tile(B, T, r, r_in, backward, n_sm) if tc
-          else train_t_tile(B, T, n_sm))
-    n_tiles = B * -(-T // tt)
-    G = n_tiles if tc and not backward else min(n_tiles, n_sm)
-    ws = lib.pair_train_ws_bytes(int(backward), int(tc), r, r_in, cc, tt) * G
-    slab = (4 * G * lib.pair_train_grad_floats(r, r_in, cc)
-            if backward else 0)
-    return {"t_tile": tt, "ctas": G, "workspace_bytes": ws,
-            "slab_bytes": slab}
 
 
 def train_kernel_attrs(dtype: torch.dtype, kernel: str) -> tuple[int, int]:

@@ -740,3 +740,81 @@ def test_odd_width_models_reverse_on_the_kernel_routes(cuda, monkeypatch,
     assert np.all(np.isfinite(a))
     assert np.abs(a - b).max() / np.abs(b).max() < 0.08
     assert np.corrcoef(a, b)[0, 1] > 0.998
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["num_mels79", "filter_size48"])
+def test_odd_width_models_train_on_the_kernel_route(cuda, monkeypatch,
+                                                    model):
+    """Widths the tensor-core training pair takes only padded (block 0's
+    Cc 79 -> 80, R 48 -> 64): block 0's pair on pair_train_fwd /
+    pair_train_bwd in bf16 vs the plain versions at the bf16 bars of
+    test_train_tc_kernels_match_plain, T = 300; then the bf16 loss and
+    gradient of the whole model on the FWN_TRAIN_KERNEL=1 route (block 0's
+    three pairs on the kernels) vs the plain route: first loss within rel
+    1e-3 or no farther from the fp32 loss than the plain route's, and the
+    gradient's cosine to the fp32 plain gradient no more than 0.01 below
+    the plain bf16 route's (chip_smoke.py phase 5's bars)."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    from flowavenet_tpu_torch.utils.tree import leaves
+    cfg, params = _odd_width_model(model)
+    pair = tree_map(lambda l: l.to(cuda), fwn._index(fwn._pair_params(
+        params["blocks"][0]), 0))
+    ops = pf.pair_forward_operands(pair, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    u, v, gu, gv = (torch.randn(2, 300, 1, generator=g, device=cuda)
+                    .bfloat16() for _ in range(4))
+    ca, cb = (torch.rand(2, 300, cfg.num_mels, generator=g, device=cuda)
+              .bfloat16() for _ in range(2))
+    scal = [torch.tensor(s, device=cuda) for s in (0.7, 0.11, 1.3)]
+    mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
+    monkeypatch.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
+    want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
+    n0 = dict(pf.LAUNCHES)
+    got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+    d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
+    assert pf.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 1
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-2
+        assert _cos(a - a.mean(), b - b.mean()) >= 0.999
+    for a, b in zip(got[2:], want[2:]):
+        assert abs(float(a) - float(b)) <= 1e-2 * abs(float(b)) + 1e-6
+    dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops)
+    for a, b in zip(list(d[0]) + list(d[1:]), list(dref[0]) + list(dref[1:])):
+        assert a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+        if float(b.float().abs().max()) > 0:
+            assert _cos(a, b) >= 0.999
+
+    monkeypatch.setattr(pft, "HINGE_MARGIN", 0.3)
+    params = tree_map(lambda l: l.to(cuda), params)
+    gx = torch.Generator(device=cuda).manual_seed(8)
+    x = 0.3 * torch.randn(2, 40 * cfg.hop_size, 1, generator=gx, device=cuda)
+    mel = torch.rand(2, 40, cfg.num_mels, generator=gx, device=cuda)
+
+    def loss_and_grad(on, dt):
+        monkeypatch.setattr(fwn, "TRAIN_KERNEL", on)
+        p = tree_map(lambda l: l.detach().requires_grad_(), params)
+        total, _ = fwn.loss_fn(p, cfg, x, mel, compute_dtype=dt,
+                               logs_l2=0.05, logs_hinge=1.0)
+        flat = leaves(p)
+        gs = torch.autograd.grad(total, flat, allow_unused=True)
+        return float(total.detach()), torch.cat([
+            (torch.zeros_like(q) if gq is None else gq).flatten()
+            for gq, q in zip(gs, flat)])
+
+    n0 = dict(pf.LAUNCHES)
+    l_k, g_k = loss_and_grad(True, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_pair = cfg.n_flow // 2
+    for k in ("pair_train_fwd", "pair_train_bwd"):
+        assert pf.LAUNCHES[k] == n0[k] + n_pair
+    l_p, g_p = loss_and_grad(False, torch.bfloat16)
+    l32, g32 = loss_and_grad(False, torch.float32)
+    assert np.isfinite(l_k) and bool(torch.isfinite(g_k).all())
+    assert (abs(l_k - l_p) <= 1e-3 * abs(l_p)
+            or abs(l_k - l32) <= abs(l_p - l32))
+    assert _cos(g_k, g32) >= _cos(g_p, g32) - 0.01

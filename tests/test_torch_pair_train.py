@@ -143,7 +143,40 @@ def test_train_pair_backward_ref_matches_jax_bwd(pair, monkeypatch):
         assert _rel(a.numpy(), b) < 1e-4
 
 
-def test_train_pair_backward_ref_matches_jax_bwd_bf16(pair, monkeypatch):
+@pytest.fixture(scope="module")
+def bwd_bf16(pair):
+    """bf16 inputs and cotangents of block 0 at T = 160 and the JAX
+    backward ``fused_pair_train_bwd`` of them in interpret mode, as a flat
+    list of the 15 operand gradients, du, dv, dc_a, dc_b in float64."""
+    jp, _ = pair
+    xs = [torch.from_numpy(x).bfloat16() for x in _data(160, seed=4)]
+    jx = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in xs]
+    saved = jpft.HINGE_MARGIN
+    jpft.HINGE_MARGIN = MARGIN
+    try:
+        dj = jpft.fused_pair_train_bwd(
+            *jx, 0.7, 0.11, 1.3, jpf.pair_forward_operands(jp, jnp.bfloat16),
+            interpret=True)
+    finally:
+        jpft.HINGE_MARGIN = saved
+    return xs, [np.asarray(b, np.float64) for b in list(dj[0]) + list(dj[1:])]
+
+
+def _plain_bwd_bf16(tp, xs):
+    """The port's plain bf16 backward of ``xs``, flat as in bwd_bf16."""
+    dt = tpft.fused_pair_train_bwd(
+        *xs, torch.tensor(0.7), torch.tensor(0.11), torch.tensor(1.3),
+        tpf.pair_forward_operands(tp, torch.bfloat16))
+    return [a.double().numpy() for a in list(dt[0]) + list(dt[1:])]
+
+
+def _cosine(a, b):
+    return float((a.ravel() @ b.ravel())
+                 / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def test_train_pair_backward_ref_matches_jax_bwd_bf16(pair, bwd_bf16,
+                                                      monkeypatch):
     """bf16: the backward's plain version (autograd through
     pair_train_fwd_ref, every product operand rounded at the JAX
     backward's cast points) vs ``fused_pair_train_bwd`` in interpret mode
@@ -152,24 +185,73 @@ def test_train_pair_backward_ref_matches_jax_bwd_bf16(pair, monkeypatch):
     rel-to-max <= 0.3.  The gap is not the cast points: the JAX backward
     recomputes its gates as rnd(rnd(tanh) * rnd(sigmoid)) (_net_fwd_res),
     a forward one bf16 rounding away from the one _pair_kernel_fws and the
-    port compute, rnd(tanh * sigmoid)."""
-    monkeypatch.setattr(jpft, "HINGE_MARGIN", MARGIN)
+    port compute, rnd(tanh * sigmoid)
+    (test_train_pair_backward_gap_to_jax_is_the_gate_recompute)."""
     monkeypatch.setattr(tpft, "HINGE_MARGIN", MARGIN)
-    jp, tp = pair
-    xs = [torch.from_numpy(x).bfloat16() for x in _data(160, seed=4)]
-    jx = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in xs]
-    dj = jpft.fused_pair_train_bwd(*jx, 0.7, 0.11, 1.3,
-                                   jpf.pair_forward_operands(jp, jnp.bfloat16),
-                                   interpret=True)
-    dt = tpft.fused_pair_train_bwd(
-        *xs, torch.tensor(0.7), torch.tensor(0.11), torch.tensor(1.3),
-        tpf.pair_forward_operands(tp, torch.bfloat16))
-    for a, b in zip(list(dt[0]) + list(dt[1:]), list(dj[0]) + list(dj[1:])):
-        a, b = a.double().numpy(), np.asarray(b, np.float64)
+    _, tp = pair
+    xs, dj = bwd_bf16
+    for a, b in zip(_plain_bwd_bf16(tp, xs), dj):
         assert a.shape == b.shape
-        cos = (a.ravel() @ b.ravel()) / (np.linalg.norm(a)
-                                         * np.linalg.norm(b))
-        assert cos >= 0.995 and _rel(a, b) <= 0.3
+        assert _cosine(a, b) >= 0.995 and _rel(a, b) <= 0.3
+
+
+class _JaxGate(torch.autograd.Function):
+    """A gate as the JAX backward recomputes and differentiates it
+    (_net_fwd_res, _net_bwd): t = rnd(tanh(f)) and s = rnd(sigmoid(g)),
+    the output rnd(t * s), and the pre-activation cotangent
+    [dg s (1 - t^2) | dg t s (1 - s)] from the rounded t and s with dg
+    unrounded."""
+
+    @staticmethod
+    def forward(ctx, fg, dt):
+        r = fg.shape[-1] // 2
+        t = torch.tanh(fg[..., :r]).to(dt).to(fg.dtype)
+        s = torch.sigmoid(fg[..., r:]).to(dt).to(fg.dtype)
+        ctx.save_for_backward(t, s)
+        return (t * s).to(dt).to(fg.dtype)
+
+    @staticmethod
+    def backward(ctx, dg):
+        t, s = ctx.saved_tensors
+        return torch.cat([dg * s * (1 - t * t), dg * t * s * (1 - s)],
+                         -1), None
+
+
+class _NoRound:
+    """_RoundGrad without its rounding: the identity, gradient unrounded."""
+
+    @staticmethod
+    def apply(x, dtype):
+        return x
+
+
+def test_train_pair_backward_gap_to_jax_is_the_gate_recompute(
+        pair, bwd_bf16, monkeypatch):
+    """Where the bf16 gap to ``_pair_kernel_bwd`` comes from.  With the
+    plain version's gates computed as the JAX backward recomputes them
+    (_JaxGate in place of pair_flow._gate), the gap falls from 0.234 to
+    fp32-accumulation noise: per leaf rel-to-max <= 1.5e-2 and cosine >=
+    0.99999 (measured 7.1e-3 and 0.999995).  And the cast points of
+    _RoundGrad bring the plain version closer to JAX: the mean over the 19
+    leaves of the L2-relative error is <= 1.6e-3 with them and at least
+    1.25x that without (measured 1.24e-3 and 2.00e-3)."""
+    monkeypatch.setattr(tpft, "HINGE_MARGIN", MARGIN)
+    monkeypatch.setattr(tpf, "_gate",
+                        lambda fg, rnd: _JaxGate.apply(fg, torch.bfloat16))
+    _, tp = pair
+    xs, dj = bwd_bf16
+
+    def mean_l2(grads):
+        return float(np.mean([np.linalg.norm(a - b) / np.linalg.norm(b)
+                              for a, b in zip(grads, dj)]))
+
+    grads = _plain_bwd_bf16(tp, xs)
+    for a, b in zip(grads, dj):
+        assert _cosine(a, b) >= 0.99999 and _rel(a, b) <= 1.5e-2
+    with_cast = mean_l2(grads)
+    monkeypatch.setattr(tpft, "_RoundGrad", _NoRound)
+    without = mean_l2(_plain_bwd_bf16(tp, xs))
+    assert with_cast <= 1.6e-3 and 1.25 * with_cast <= without
 
 
 @pytest.mark.parametrize("T", [192, 300])

@@ -216,3 +216,58 @@ def test_balanced_tile_fills_whole_waves():
     assert pft.balanced_t_tile(8, 1600, 132, fits) == 49
     with pytest.raises(ValueError):
         pft.balanced_t_tile(8, 3200, 132, lambda tt: False)
+
+
+@pytest.mark.parametrize("model", ["num_mels79", "filter_size48"])
+def test_padded_widths_give_the_unpadded_gradients(model):
+    """The zero-padding of the tensor-core training instances (_pad_tc,
+    _unpad_grad; block 0 of lj22k with num_mels 79: Cc 79 -> 80, with
+    filter_size 48: R 48 -> 64), through the plain versions in fp64: the
+    pair's outputs and statistics at the padded widths equal those at the
+    model's widths, every gradient cut back equals the unpadded one, and
+    every entry the cut drops is zero."""
+    import dataclasses
+    from flowavenet_tpu_torch.config import lj22k
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    kw = dict(num_mels=79) if model == "num_mels79" else dict(filter_size=48)
+    cfg = dataclasses.replace(lj22k().model, **kw)
+    gen = torch.Generator().manual_seed(3)
+    block = fwn.init_block(gen, 1, cfg.num_mels, cfg)
+    fl = block["flows"]
+    for leaf in (fl["coupling"]["zero"]["w"], fl["actnorm"]["b"],
+                 fl["actnorm"]["logs"]):
+        leaf.normal_(0, 0.05, generator=gen)
+    ops = [o.double() for o in pf.pair_forward_operands(
+        fwn._index(fwn._pair_params(block), 0), torch.float32)]
+    R, Cc = ops[5].shape[-1], cfg.num_mels
+    r = np.random.RandomState(4)
+    u, v, gu, gv = (torch.from_numpy(r.randn(2, 40, 1)) for _ in range(4))
+    ca, cb = (torch.from_numpy(r.rand(2, 40, Cc)) for _ in range(2))
+    scal = [torch.tensor(s, dtype=torch.float64) for s in (0.7, 0.11, 1.3)]
+    ca_p, cb_p, ops_p, Rk, Cck = pft._pad_tc(ca, cb, ops, R, Cc)
+    assert (Rk, Cck) == pf.kernel_widths(R, Cc, True) != (R, Cc)
+    pft.check_train_tc_geometry(Rk, Cck)
+    want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
+    got = pft.pair_train_fwd_ref(u, v, ca_p, cb_p, ops_p)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    d = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops)
+    dp = pft.pair_train_bwd_ref(u, v, ca_p, cb_p, gu, gv, *scal, ops_p)
+    names = pf._OP_NAMES + ("an_s", "an_b")
+    for name, o, g, gp in zip(names, ops, d[0], dp[0]):
+        cut = pft._unpad_grad(gp, o.shape, name)
+        np.testing.assert_allclose(cut.numpy(), g.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+        idx = pft._unpad_grad(torch.arange(gp.numel()).view(gp.shape),
+                              o.shape, name)
+        dropped = gp.flatten().clone()
+        dropped[idx.flatten()] = 0.0
+        assert float(dropped.abs().max()) == 0.0, name
+    for g, gp in zip(d[1:3], dp[1:3]):
+        np.testing.assert_allclose(gp.numpy(), g.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    for g, gp in zip(d[3:], dp[3:]):
+        np.testing.assert_allclose(gp[..., :Cc].numpy(), g.numpy(),
+                                   rtol=1e-12, atol=1e-12)
+        assert not bool(gp[..., Cc:].any())

@@ -1,6 +1,5 @@
 """Time the training pair kernels of the PyTorch port on the card, for one
-tree or two in turns, and split where ``pair_train_bwd`` spends its time.
-No JAX.  Run from the repository root on a machine with a CUDA card:
+tree or two in turns.  No JAX.  Run from the repository root on a machine with a CUDA card:
 
     python tools/train_pair_ab.py                # this tree
     python tools/train_pair_ab.py --parent DIR   # and DIR (another commit,
@@ -9,17 +8,12 @@ No JAX.  Run from the repository root on a machine with a CUDA card:
                                                  # this, this, parent
     python tools/train_pair_ab.py --phase4       # also chip_smoke.py's
                                                  # phase 4 rows of each tree
-    python tools/train_pair_ab.py --variants     # pair_train_bwd rebuilt
-                                                 # without parts of its work
 
 Times are CUDA events over repeated launches of ``fused_pair_train_fwd``
 and ``fused_pair_train_bwd`` in bf16 at the training geometry of lj22k
 block 0 (batch 8, T_k 3200, R_in 1, Cc 80), the FWN_TRAIN_KERNEL=1 route's.
-A variant is a copy of ``csrc/pair_flow_train.cu`` with one part of the
-backward removed (so its results are wrong): ``no_wgrad`` without the
-weight-gradient products, ``no_slab_read`` without their slab reads,
-``no_net_bwd`` without the coupling nets' backward.  Each tree runs in its
-own process, so it imports its own package and builds its own kernels.
+Each tree runs in its own process, so it imports its own package and
+builds its own kernels.
 """
 
 from __future__ import annotations
@@ -27,27 +21,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
 import subprocess
 import sys
-
-# (name, text in csrc/pair_flow_train.cu, replacement)
-VARIANTS = (
-    ("no_wgrad",
-     "                         bool first) {\n  const int lane = threadIdx.x "
-     "& 31, q = lane >> 3, l8 = lane & 7;",
-     "                         bool first) {\n  return;\n  const int lane = "
-     "threadIdx.x & 31, q = lane >> 3, l8 = lane & 7;"),
-    ("no_slab_read",
-     "        old[j][h] = first ? make_float2(0.f, 0.f)",
-     "        old[j][h] = true ? make_float2(0.f, 0.f)"),
-    ("no_net_bwd",
-     "int L, int T_,\n                           int R, int Rin, int Cc, "
-     "bool first) {",
-     "int L, int T_,\n                           int R, int Rin, int Cc, "
-     "bool first) {\n  return;"),
-)
-
 
 def _case():
     """lj22k block 0's training pair (0.05-scale zero conv and ActNorm
@@ -91,30 +66,8 @@ def _time_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def _variant_lib(name: str, old: str, new: str):
-    """Build the variant ``name`` of csrc/pair_flow_train.cu beside the
-    package's builds and return its path."""
-    from flowavenet_tpu_torch.ops import _build
-    src = (_build.CSRC / "pair_flow_train.cu").read_text()
-    if src.count(old) != 1:
-        raise RuntimeError(f"variant {name}: its anchor is not in the source")
-    d = _build.BUILD_DIR / "variants" / name
-    d.mkdir(parents=True, exist_ok=True)
-    for f in _build.CSRC.iterdir():
-        shutil.copy(f, d / f.name)
-    (d / "pair_flow_train.cu").write_text(src.replace(old, new))
-    out = d / "libpair_flow_train.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                           str(d / "pair_flow_train.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stderr}")
-    return out
-
-
 def child(mode: str) -> dict:
     """Runs inside one tree: builds, times (and checks) its kernels."""
-    import ctypes
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -133,23 +86,10 @@ def child(mode: str) -> dict:
         return {"phase4": [{k: v for k, v in r.items()
                             if not k.endswith("bound")} for r in rows]}
     ops, (u, v, gu, gv), (ca, cb), scal = _case()
-    libs = {"kernel": None}
-    if mode == "variants":
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(len(VARIANTS)) as pool:
-            paths = list(pool.map(lambda t: _variant_lib(*t), VARIANTS))
-        libs.update({t[0]: p for t, p in zip(VARIANTS, paths)})
-    out = {}
-    for name, path in libs.items():
-        if path is not None:
-            _build._LIBS["pair_flow_train"] = ctypes.CDLL(str(path))
-            pft._library.cache_clear()
-        fwd = _time_ms(lambda: pft.fused_pair_train_fwd(u, v, ca, cb, ops),
-                       10)
-        bwd = _time_ms(lambda: pft.fused_pair_train_bwd(
-            u, v, ca, cb, gu, gv, *scal, ops), 5)
-        out[name] = {"fwd_ms": fwd, "bwd_ms": bwd}
-    return out
+    fwd = _time_ms(lambda: pft.fused_pair_train_fwd(u, v, ca, cb, ops), 10)
+    bwd = _time_ms(lambda: pft.fused_pair_train_bwd(
+        u, v, ca, cb, gu, gv, *scal, ops), 5)
+    return {"kernel": {"fwd_ms": fwd, "bwd_ms": bwd}}
 
 
 def _run_tree(tree: str, mode: str) -> dict:
@@ -167,8 +107,6 @@ def main() -> int:
     ap.add_argument("--parent", help="another tree, run in turns with this")
     ap.add_argument("--phase4", action="store_true",
                     help="also chip_smoke.py's phase 4 rows of each tree")
-    ap.add_argument("--variants", action="store_true",
-                    help="also pair_train_bwd without parts of its work")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
@@ -193,9 +131,6 @@ def main() -> int:
     for name in order:
         res = _run_tree(trees[name], "time")
         print(f"{name}: " + json.dumps(res), flush=True)
-    if a.variants:
-        print("variants: " + json.dumps(_run_tree(here, "variants")),
-              flush=True)
     if a.phase4:
         for name, tree in trees.items():
             for row in _run_tree(tree, "phase4")["phase4"]:
