@@ -7,7 +7,7 @@
    once (one nvcc each) and prints the build times, ptxas' register and
    spill lines, the card's name and power limit, the versions, and the
    registers and local (spill) bytes per thread of each bf16 reverse pair
-   instance (cudaFuncGetAttributes; four of them run on the tensor cores).
+   instance (cudaFuncGetAttributes; five of them run on the tensor cores).
 2. Holds the direct reverse pair kernel against its plain PyTorch version
    (``pair_reverse_ref``, TF32 off) at the lj22k geometry of every block
    the kernel routes (R_in = 2^bi, Cc = 80*2^bi, R = 256), at the batch
@@ -37,20 +37,20 @@
    Each route runs one warm-up call and ``REPS`` timed calls; the median
    and the range are printed.  Phase 3b (``odd_width_phase``) reverses
    lj22k models with num_mels 79 and filter_size 48, whose widths the
-   kernels take only zero-padded, on the int8, FWN_INT8=0 and FWN_WINO4=1
-   routes against their plain route at the same bar, and holds the bf16
-   training pairs of their block 0 against the plain versions at phase
-   4's bars.
+   kernels take only zero-padded, on the int8, FWN_INT8=0, FWN_WINO4=1
+   and FWN_INT8_RS=1 routes against their plain route at the same bar,
+   and holds the bf16 forward and training pairs of their block 0 against
+   the plain versions at phase 4's bars.
 4. Holds ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` against
    their plain versions at the lj22k training geometry of blocks 0-3
    (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
    ``train_kernel_checks``), checks that two backward launches give the
-   same bits, and prints kernel, plain and bound ms.  In bf16
-   ``pair_train_fwd`` and ``pair_train_bwd`` run on the tensor cores;
-   their design, registers and local bytes per thread and the tile, CTAs,
-   workspace and gradient-slab bytes that the bf16 launches at lj22k
-   block 0 used (``pair_flow_train.LAST_LAUNCH``) are printed and put in
-   the kernel line.
+   same bits, and prints kernel, plain and bound ms.  In bf16 all three
+   run on the tensor cores; their design, registers and local bytes per
+   thread and the tile, CTAs, workspace and gradient-slab bytes that the
+   bf16 launches at lj22k block 0 used (``pair_flow_train.LAST_LAUNCH``;
+   for ``pair_fwd``, which runs on blocks 0-3, those of every block) are
+   printed and put in the kernel line.
 5. Trains lj22k at full width (batch 8 x 6400 samples, bf16 compute, fp32
    params) through the port's entry points on a seeded fwrec corpus: DDI,
    then ``TRAIN_STEPS`` steps on the FWN_TRAIN_KERNEL=1 route and on the
@@ -1035,13 +1035,17 @@ ODD_MODELS = {"num_mels=79": dict(num_mels=79),
               "filter_size=48": dict(filter_size=48)}
 
 
+# The routes of ``ROUTES`` whose kernels run padded at those widths
+ODD_ROUTES = ("int8", "FWN_INT8=0", "FWN_INT8=0 FWN_WINO4=1",
+              "FWN_INT8_RS=1")
+
+
 def odd_width_phase(dev):
     """Phase 3b: lj22k at full depth with num_mels 79 or filter_size 48,
     bf16 synthesize_mels of two mels on the kernel routes of ``ROUTES``
-    that the issue of widths touches (int8, FWN_INT8=0, FWN_INT8=0
-    FWN_WINO4=1; launch counts checked exactly, as for lj22k) against the
-    plain route of the same params, at the bar of phase 3 (rel < 0.08,
-    corr > 0.998)."""
+    whose kernels run padded there (``ODD_ROUTES``; launch counts checked
+    exactly, as for lj22k) against the plain route of the same params, at
+    the bar of phase 3 (rel < 0.08, corr > 0.998)."""
     import torch
     from flowavenet_tpu_torch.config import lj22k
     from flowavenet_tpu_torch.models import flowavenet as fwn
@@ -1067,7 +1071,8 @@ def odd_width_phase(dev):
                 params, cfg.replace(model=model_cfg), mels, seed=SEED,
                 compute_dtype=torch.bfloat16, device=dev))
         want = synth(dataclasses.replace(cfg.model, use_pallas=False))
-        for name, switches, expect in ROUTES[:3]:
+        for name, switches, expect in (r for r in ROUTES
+                                       if r[0] in ODD_ROUTES):
             saved = {k: getattr(fwn, k) for k in switches}
             try:
                 for k, val in switches.items():
@@ -1092,12 +1097,13 @@ def odd_width_phase(dev):
 
 
 def odd_width_train_pair(mname: str, params, cfg, dev):
-    """Phase 3b's training side: ``pair_train_fwd`` and ``pair_train_bwd``
-    in bf16 on block 0's first pair of an odd-width model (the
-    FWN_TRAIN_KERNEL=1 route's block; Cc 79 or R 48, zero-padded to 80 or
-    64 for the tensor cores), two rows of the training geometry's T_k,
-    one launch each, vs their plain versions at phase 4's bf16 bars.
-    Returns (outputs rel, worst leaf gradient cosine)."""
+    """Phase 3b's training side: ``pair_fwd``, ``pair_train_fwd`` and
+    ``pair_train_bwd`` in bf16 on block 0's first pair of an odd-width
+    model (the FWN_TRAIN_KERNEL=1 and FWN_FWD_KERNEL=1 routes' block; Cc 79
+    or R 48, zero-padded to 80 or 64 for the tensor cores), two rows of
+    the training geometry's T_k, one launch each, vs their plain versions
+    at phase 4's bf16 bars.  Returns (outputs rel, worst leaf gradient
+    cosine)."""
     import torch
     from flowavenet_tpu_torch.models import flowavenet as fwn
     from flowavenet_tpu_torch.ops import pair_flow as pf
@@ -1121,15 +1127,20 @@ def odd_width_train_pair(mname: str, params, cfg, dev):
     torch.cuda.synchronize()
     _reset_counts()
     got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+    fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
     d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
     torch.cuda.synchronize()
     counts = _counts()
-    check(counts == {"pair_train_fwd": 1, "pair_train_bwd": 1},
+    check(counts == {k: 1 for k in pft.TRAIN_KERNELS},
           (mname, "training pair launches", counts))
-    errs = [_errors(a, b) for a, b in zip(got[:2], want[:2])]
+    # pair_fwd's plain version is pair_train_fwd_ref without the last
+    # three statistics: its (u3, v3, raw) are want[:3]
+    errs = [_errors(a, b) for a, b in
+            list(zip(got[:2], want[:2])) + list(zip(fwd[:2], want[:2]))]
     rel, corr = max(e[1] for e in errs), min(e[2] for e in errs)
     st_rel = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-6)
-                 for a, b in zip(got[2:], want[2:]))
+                 for a, b in list(zip(got[2:], want[2:]))
+                 + [(fwd[2], want[2])])
     dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops)
     g_cos = 1.0
     for a, b in zip(list(d[0]) + list(d[1:]), list(dref[0]) + list(dref[1:])):
@@ -1137,7 +1148,8 @@ def odd_width_train_pair(mname: str, params, cfg, dev):
               (mname, "training pair gradient", a.shape, b.shape))
         if float(b.float().abs().max()) > 0:
             g_cos = min(g_cos, _cos(a.double(), b.double()))
-    print(f"{mname} training pairs bf16 T_k={tk} Cc={cfg.model.num_mels} "
+    print(f"{mname} forward and training pairs bf16 T_k={tk} "
+          f"Cc={cfg.model.num_mels} "
           f"R={cfg.model.filter_size} vs plain: out rel={rel:.3e} "
           f"corr={corr:.7f} stats rel={st_rel:.3e} grad cos={g_cos:.8f}",
           flush=True)
@@ -1743,6 +1755,17 @@ def main() -> int:
                   f"{k['t_tile']} rows, {k['ctas']} CTAs, workspace "
                   f"{k['workspace_bytes'] / 1e6:.1f} MB, gradient slabs "
                   f"{k.get('slab_bytes', 0) / 1e6:.1f} MB", flush=True)
+        if k["name"] == "pair_fwd":
+            # the FWN_FWD_KERNEL=1 route runs it on blocks 0-3
+            k["per_block"] = [{"block": r["block"], "T_k": r["T_k"],
+                               **r["launch"]["pair_fwd"],
+                               "ms": r["pfw_ms"]}
+                              for r in trows if r["mode"] == "bf16"]
+            for b in k["per_block"]:
+                print(f"pair_fwd bf16 block {b['block']} T_k={b['T_k']}: "
+                      f"tile {b['t_tile']} rows, {b['ctas']} CTAs, "
+                      f"workspace {b['workspace_bytes']} bytes, "
+                      f"{b['ms']:.3f} ms per launch", flush=True)
     for k in kernels:
         opts = PAIR_OPTIONS.get(k["name"])
         if k["name"] in pft.TRAIN_KERNELS:

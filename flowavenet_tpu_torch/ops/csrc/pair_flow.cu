@@ -8,11 +8,13 @@
 //   _pair_kernel_hoisted_i8   variant 4 (variant 3 with int8 fg convs).
 // The kernel body, its design and what bounds it are described in
 // pair_flow_common.cuh; the direct variants run with a 10-row halo (the
-// pair's receptive field).  Variants 0 and 1 in bf16 (pair_flow on the
-// FWN_INT8=0 route's block 3, pair_flow_i8 on the default synthesis route)
-// run their products on the tensor cores: bf16 mma.sync for variant 0's
-// filter|gate convs and conditioning 1x1s, int8 for variant 1's, bf16 for
-// res/skip and the final 1x1 of both.  The other variants, and every fp32
+// pair's receptive field).  Variants 0, 1 and 2 in bf16 (pair_flow on the
+// FWN_INT8=0 route's block 3, pair_flow_i8 on the default synthesis route,
+// pair_flow_i8rs on the FWN_INT8_RS=1 route) run their products on the
+// tensor cores: bf16 mma.sync for variant 0's filter|gate convs and
+// conditioning 1x1s, int8 for those of variants 1 and 2; res/skip in bf16
+// for variants 0 and 1 and in int8 on the gate codes for variant 2; the
+// final 1x1 in bf16 for all three.  The hoisted variants, and every fp32
 // instance, run on CUDA cores (FMAs and __dp4a).
 
 #include "pair_flow_common.cuh"
@@ -28,11 +30,11 @@ constexpr bool kI8[5] = {false, true, true, false, true};
 constexpr bool kRS[5] = {false, false, true, false, false};
 
 // The direct instances on the tensor cores: bf16 storage with bf16 convs
-// (variant 0, pair_flow) or int8 fg convs and conditioning (variant 1,
-// pair_flow_i8 of the main path).  Every other instance runs the
-// CUDA-core product.
+// (variant 0, pair_flow), int8 fg convs and conditioning (variant 1,
+// pair_flow_i8 of the main path), and with int8 res/skip too (variant 2,
+// pair_flow_i8rs).  Every other instance runs the CUDA-core product.
 constexpr bool tc_instance(int dtype, int variant) {
-  return dtype == 1 && (variant == 0 || variant == 1);
+  return dtype == 1 && variant >= 0 && variant <= 2;
 }
 
 // fn(pf::Instance<...>{}) for the instance of (T, variant).
@@ -43,7 +45,7 @@ int with_variant(int variant, Fn fn) {
     // bf16: the tensor-core instances; the CUDA-core ones run in fp32 only
     case 0: return fn(pf::Instance<T, false, COND_DENSE, false, 0, bf>{});
     case 1: return fn(pf::Instance<T, true, COND_I8, false, 0, bf>{});
-    case 2: return fn(pf::Instance<T, true, COND_I8, true, 0>{});
+    case 2: return fn(pf::Instance<T, true, COND_I8, true, 0, bf>{});
     case 3: return fn(pf::Instance<T, false, COND_HOIST, false, 0>{});
     case 4: return fn(pf::Instance<T, true, COND_HOIST, false, 0>{});
     default: return (int)cudaErrorInvalidValue;
@@ -61,7 +63,7 @@ int with_instance(int dtype, int variant, Fn fn) {
 extern "C" {
 
 // Dynamic shared memory one CTA needs (bytes).  dtype: 0 fp32, 1 bf16;
-// tc: a tensor-core instance (variant 0 or 1 in bf16 only).
+// tc: a tensor-core instance (variant 0, 1 or 2 in bf16 only).
 int pair_reverse_smem_bytes(int dtype, int variant, int tc, int R, int Rin,
                             int TT) {
   if (variant < 0 || variant > 4 || (tc != 0) != tc_instance(dtype, variant))

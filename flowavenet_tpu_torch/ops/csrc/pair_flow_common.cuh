@@ -54,14 +54,18 @@
 // conv (K = 3*R_in) and the zero conv (N = 2*R_in), under 1 % of the
 // operations, stay on CUDA cores in every instance.
 //
-// TC is set on exactly four instances, all with bf16 storage: the direct
-// pair (pair_flow.cu variant 0, pair_flow), the int8 pair (variant 1,
-// pair_flow_i8 on the main path), and the F(2,3) and F(4,3) Winograd pairs
-// with dense conditioning (pair_flow_wino.cu P = 6 and 12, pair_flow_wino
-// and pair_flow_wino4).  Every fp32 instance, i8rs and the hoisted pairs
-// run the CUDA-core product.  int8 sums are exact either way; a bf16
-// product is exact in fp32, so the tensor cores change only the fp32
-// summation order.  The tensor-core instances take R a multiple of 32 and
+// TC is set on exactly five reverse-pair instances, all with bf16 storage:
+// the direct pair (pair_flow.cu variant 0, pair_flow), the int8 pair
+// (variant 1, pair_flow_i8 on the main path), the int8 res/skip pair
+// (variant 2, pair_flow_i8rs: its res|skip-0 and skip-1 products take the
+// int8 gate codes, stored at the Q stride, through ldmatrix into m16n8k32;
+// the final 1x1 stays bf16), and the F(2,3) and F(4,3) Winograd pairs with
+// dense conditioning (pair_flow_wino.cu P = 6 and 12, pair_flow_wino and
+// pair_flow_wino4); the training pairs (pair_flow_train.cu) run the direct
+// bf16 body forward.  Every fp32 instance and the hoisted pairs run the
+// CUDA-core product.  int8 sums are exact either way; a bf16 product is
+// exact in fp32, so the tensor cores change only the fp32 summation
+// order.  The tensor-core instances take R a multiple of 32 and
 // Cc of 16, every instance R dividing NT and R, Cc multiples of 4; the
 // wrapper pads other widths with zero channels (ops/pair_flow.py:
 // kernel_widths, pad_pair_widths).
@@ -101,6 +105,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -614,32 +620,40 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// Warp items over rows [rb, re) of the bf16 buffer A (row stride lda):
-// item = (16-row m-tile, column group g), m-tile fastest.  The warp
-// accumulates A[rows, :K] @ B0[:, tiles tstep*g + {0, 1}] and the same
-// with B1 (both packed and offset to this lane, ntl tiles per k-step), then
+// Warp items over rows [rb, re) of the bf16 or int8 buffer A (row stride
+// lda elements): item = (16-row m-tile, column group g), m-tile fastest.
+// The warp accumulates A[rows, :K] @ B0[:, tiles tstep*g + {0, 1}] and the
+// same with B1 (both packed and offset to this lane, ntl tiles per k-step;
+// bf16 m16n8k16 into fp32, or int8 m16n8k32 into exact int32 sums), then
 // calls epi(row, n, v0, v1) for each of its rows below re, where n is the
 // column of v0 in B0's tiles and v1 is B1's value at the same position.
-template <typename Epi>
-__device__ __forceinline__ void tc_rows(const __nv_bfloat16* A, int lda,
-                                        int rb, int re, int K,
-                                        const uint2* B0, const uint2* B1,
-                                        int ntl, int ngroups, int tstep,
-                                        Epi epi) {
+template <typename TA, typename Epi>
+__device__ __forceinline__ void tc_rows(const TA* A, int lda, int rb, int re,
+                                        int K, const uint2* B0,
+                                        const uint2* B1, int ntl,
+                                        int ngroups, int tstep, Epi epi) {
+  constexpr bool S8 = sizeof(TA) == 1;
+  constexpr int KS = S8 ? 32 : 16;       // k per step: 32 bytes of A
+  using Acc = typename std::conditional<S8, int, float>::type;
   const int lane = threadIdx.x & 31, n_mt = (re - rb + 15) >> 4;
   for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
     const int m0 = rb + 16 * (it % n_mt), t0 = tstep * (it / n_mt);
-    const __nv_bfloat16* a = A + (size_t)min(m0 + (lane & 15), re - 1) * lda
-                             + (lane >> 4) * 8;
-    float c0[TJ][4] = {}, c1[TJ][4] = {};
+    const TA* a = A + (size_t)min(m0 + (lane & 15), re - 1) * lda +
+                  (lane >> 4) * (KS / 2);
+    Acc c0[TJ][4] = {}, c1[TJ][4] = {};
 #pragma unroll 4
-    for (int ks = 0; ks < K / 16; ++ks) {
+    for (int ks = 0; ks < K / KS; ++ks) {
       uint32_t af[4];
-      ldsm_x4(af, a + ks * 16);
+      ldsm_x4(af, a + ks * KS);
 #pragma unroll
       for (int j = 0; j < TJ; ++j) {
-        mma_bf16(c0[j], af, tc_b(B0, ntl, ks, t0 + j));
-        mma_bf16(c1[j], af, tc_b(B1, ntl, ks, t0 + j));
+        if constexpr (S8) {
+          mma_s8(c0[j], af, tc_b(B0, ntl, ks, t0 + j));
+          mma_s8(c1[j], af, tc_b(B1, ntl, ks, t0 + j));
+        } else {
+          mma_bf16(c0[j], af, tc_b(B0, ntl, ks, t0 + j));
+          mma_bf16(c1[j], af, tc_b(B1, ntl, ks, t0 + j));
+        }
       }
     }
 #pragma unroll
@@ -653,13 +667,16 @@ __device__ __forceinline__ void tc_rows(const __nv_bfloat16* A, int lda,
 }
 
 // Direct int8 filter|gate layer on the tensor cores over rows [rb, re) at
-// dilation dil -> G: the TC twin of direct_layer<T, true, COND_I8, false>.
+// dilation dil -> G: the TC twin of direct_layer<T, true, COND_I8, RS>.
 // The int8 codes of h (Q, through ldmatrix) against the packed int8 kfg,
 // and this layer's int8 c rows (per-lane global loads, rows clamped into
 // [0, T) as in direct_layer) against the packed cond_w, whose K is padded
 // to 32 with zero rows; both sums are exact in int32, then scaled, biased
-// and gated in the order of direct_layer, add_cond and gate_store.
-template <typename T>
+// and gated in the order of direct_layer, add_cond and gate_store.  RS
+// stores the gate output as its int8 code at the fixed scale 1/127, as
+// gate_store does, with G's rows at the Q stride (ldq bytes) so that the
+// res/skip products read them through ldmatrix.
+template <typename T, bool RS>
 __device__ void direct_layer_tc(const Params& p, const Flow& f,
                                 const Smem& s, int layer, int rb, int re,
                                 int dil, float a_scale, const void* cglob,
@@ -730,8 +747,12 @@ __device__ void direct_layer_tc(const Params& p, const Flow& f,
         float gg = (float)gi[j][i] * (a_scale * ks_w[R + n]);
         ff += (float)fc[j][i] * (c_scale * cs_w[n]);
         gg += (float)gc[j][i] * (c_scale * cs_w[R + n]);
-        G[(size_t)row * s.ldh + n] =
-            from_f<T>(gated(ff + bias[n], gg + bias[R + n]));
+        const float g = gated(ff + bias[n], gg + bias[R + n]);
+        if constexpr (RS)
+          static_cast<int8_t*>(s.G)[(size_t)row * s.ldq + n] =
+              (int8_t)rintf(g * 127.f);
+        else
+          G[(size_t)row * s.ldh + n] = from_f<T>(g);
       }
   }
 }
@@ -1030,8 +1051,8 @@ __device__ void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
 // rows [o0-EH0-1, o1+EH0+1) valid), conditioning rows from global.  Leaves
 // the zero-conv output (log_s || t) for rows [o0, o1) in s.net.  TC: the
 // filter|gate layers, res/skip and the final 1x1 run on the tensor cores
-// (T is bf16; I8 with COND_I8 and P = 0, or COND_DENSE with P = 0, 6 or
-// 12).
+// (T is bf16; I8 with COND_I8 and P = 0, with or without RS, or
+// COND_DENSE with P = 0, 6 or 12).
 template <typename T, bool I8, int COND, bool RS, int P, bool TC,
           class Save = NoSave>
 __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
@@ -1039,11 +1060,11 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
                              float c_scale, int b, int win0,
                              const Save& save = Save{}) {
   constexpr int EH0 = Geo<P>::EH0, EG0 = Geo<P>::EG0;
-  static_assert(!TC || (!RS && sizeof(T) == 2 &&
+  static_assert(!TC || (sizeof(T) == 2 &&
                         ((I8 && COND == COND_I8 && P == 0) ||
-                         (!I8 && COND == COND_DENSE))),
-                "the tensor-core product covers the bf16 direct, i8, F(2,3) "
-                "and F(4,3) pairs");
+                         (!I8 && !RS && COND == COND_DENSE))),
+                "the tensor-core product covers the bf16 direct, i8, i8rs, "
+                "F(2,3) and F(4,3) pairs");
   const int R = p.R, Rin = p.Rin, ld = s.ldh;
   const int ngrp = NT / R, grp = threadIdx.x / R, n = threadIdx.x % R;
   T* H = static_cast<T*>(s.H);
@@ -1109,8 +1130,8 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 
   // layer 0 (d=1) over [o0-EG0, o1+EG0): gated -> G
   if constexpr (TC && I8)
-    direct_layer_tc<T>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, a_scale, cglob, b,
-                       win0, c_scale);
+    direct_layer_tc<T, RS>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, a_scale, cglob,
+                           b, win0, c_scale);
   else if constexpr (TC && P)
     wino_layer_tc<P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
   else if constexpr (TC)
@@ -1127,7 +1148,18 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 
   // res and skip-0 share the gate outputs: h1 = (h0 + res)*sqrt(.5) in
   // place over H (each thread owns its element), skip-0 -> S
-  if constexpr (TC) {
+  if constexpr (TC && RS) {
+    // int8 gate codes (rows at the Q stride) against the int8 res_w and
+    // skip-0 weights, exact int32 sums scaled as the CUDA-core branch does
+    const int lane = threadIdx.x & 31;
+    tc_rows(static_cast<const int8_t*>(s.G), s.ldq, o0 - EG0, o1 + EG0, R,
+            static_cast<const uint2*>(f.res_w) + lane,
+            static_cast<const uint2*>(f.skip_w) + lane, R / 8, R / (8 * TJ),
+            TJ, [&](int j, int c, int ri, int si) {
+              res_epi(j, c, (float)ri * (f.res_s[c] * (1.f / 127.f)),
+                      (float)si * (f.skip_s[c] * (1.f / 127.f)));
+            });
+  } else if constexpr (TC) {
     const int nt = R / 8;
     const int lane = threadIdx.x & 31;
     tc_rows(reinterpret_cast<const __nv_bfloat16*>(G), ld, o0 - EG0,
@@ -1173,8 +1205,8 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 
   // layer 1 (d=3) over [o0, o1): gated -> G
   if constexpr (TC && I8)
-    direct_layer_tc<T>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b, win0,
-                       c_scale);
+    direct_layer_tc<T, RS>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b, win0,
+                           c_scale);
   else if constexpr (TC && P)
     wino_layer_tc<P>(p, f, s, 1, o0, o1, 3, cglob, b, win0);
   else if constexpr (TC)
@@ -1188,7 +1220,21 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   save.rows(ACT_G1, G, o0, o1);
 
   // skip-1, relu(skip0 + skip1) rounded -> H
-  if constexpr (TC) {
+  if constexpr (TC && RS) {
+    // as the bf16 branch below, on the int8 gate codes and the int8 skip-1
+    // weight (R/32 k-steps of 32 per packed matrix)
+    const int lane = threadIdx.x & 31;
+    const uint2* W1 = static_cast<const uint2*>(f.skip_w) +
+                      (size_t)(R / 32) * (R / 8) * 32 + lane;
+    const float* ss = f.skip_s + R;
+    tc_rows(static_cast<const int8_t*>(s.G), s.ldq, o0, o1, R, W1,
+            W1 + TJ * 32, R / 8, R / (16 * TJ), 2 * TJ,
+            [&](int j, int c, int v0, int v1) {
+              skip_epi(j, c, (float)v0 * (ss[c] * (1.f / 127.f)));
+              skip_epi(j, c + 8 * TJ,
+                       (float)v1 * (ss[c + 8 * TJ] * (1.f / 127.f)));
+            });
+  } else if constexpr (TC) {
     // a warp item takes 4 n-tiles of one matrix: tiles t, t+1 as "B0" and
     // t+2, t+3 as "B1" (16 columns on)
     const int lane = threadIdx.x & 31;

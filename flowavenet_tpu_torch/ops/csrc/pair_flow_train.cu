@@ -39,10 +39,11 @@
 // What bounds it on this card: arithmetic (~4.2 MFLOP per pair per row
 // forward, ~3x that backward, against tens of bytes per row of u, v, c).
 // Two designs, chosen per instance by a template flag (TC):
-//   - bf16 pair_train_fwd and pair_train_bwd run their products on the
-//     tensor cores (the section "Tensor-core instances" below);
-//   - pair_fwd and every fp32 instance keep every activation of the window
-//     in a per-CTA fp32 workspace in device memory and run every product
+//   - every bf16 instance (pair_fwd, pair_train_fwd and pair_train_bwd)
+//     runs its products on the tensor cores (the section "Tensor-core
+//     instances" below);
+//   - every fp32 instance keeps every activation of the window in a
+//     per-CTA fp32 workspace in device memory and runs every product
 //     through one shared-memory-tiled CUDA-core GEMM (64x64 tiles, fp32
 //     FMA); fp32 holds its rel <= 1e-4 bar, which a bf16 product cannot.
 //
@@ -949,17 +950,18 @@ __device__ void pair_bwd_cc(const Args& p) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core instances: pair_fwd_kernel<bf16, true, true> (pair_train_fwd)
-// and pair_bwd_kernel<bf16, true> (pair_train_bwd)
+// Tensor-core instances: pair_fwd_kernel<bf16, STATS, true> (pair_train_fwd
+// with STATS, pair_fwd without) and pair_bwd_kernel<bf16, true>
+// (pair_train_bwd)
 // ---------------------------------------------------------------------------
 //
-// Both run on the reverse pairs' tensor-core body (pair_flow_common.cuh:
+// All three run on the reverse pairs' tensor-core body (pair_flow_common.cuh:
 // pf::coupling_net with TC, 512 threads, one CTA per (batch row, tile)
 // window in shared memory, B packed by the wrapper): the forward pair is
 // the even net on u0 over window rows [5, L-5) and the odd net on v3m over
 // [10, L-10), the same two output regions as the reverse pair's, so the
-// body runs unchanged in the forward direction.  pair_train_fwd and the
-// backward's recompute call the same function (pair_window_tc); the
+// body runs unchanged in the forward direction.  pair_fwd, pair_train_fwd
+// and the backward's recompute call the same function (pair_window_tc); the
 // backward passes a hook that copies each stage's activations (h0, g0, h1,
 // g1, o1, o2 in bf16, the filter|gate pre-activations in fp32) and the
 // pair-level rows to its per-CTA workspace in device memory.
@@ -1232,8 +1234,9 @@ __device__ inline pf::Smem tc_smem(unsigned char* raw, int R, int Rin,
   return s;
 }
 
-// pair_train_fwd on the tensor cores: one CTA per (batch row, tile of TT
-// rows), a 10-row halo per side (the pair's receptive field).
+// pair_train_fwd (STATS) or pair_fwd on the tensor cores: one CTA per
+// (batch row, tile of TT rows), a 10-row halo per side (the pair's
+// receptive field); pair_fwd reduces and stores only the -log_s sum.
 template <bool STATS>
 __device__ void pair_fwd_tc(const TcArgs& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1852,8 +1855,8 @@ __device__ void pair_bwd_tc(const TcArgs& ta) {
 template <typename T, bool STATS, bool TC>
 __global__ void __launch_bounds__(TC ? TNT : NT) pair_fwd_kernel(TcArgs a) {
   if constexpr (TC) {
-    static_assert(sizeof(T) == 2 && STATS,
-                  "pair_train_fwd in bf16 is the tensor-core instance");
+    static_assert(sizeof(T) == 2,
+                  "the tensor-core forward pairs are bf16");
     pair_fwd_tc<STATS>(a);
   } else {
     pair_fwd_cc<T, STATS>(a.p);
@@ -1917,11 +1920,11 @@ void fill_dims(Args& p, const int* dims, int bwd) {
 
 }  // namespace
 
-// The training instances on the tensor cores: pair_train_fwd (stats) and
-// pair_train_bwd in bf16.  pair_fwd and every fp32 instance run the
-// CUDA-core GEMM.
+// The training instances on the tensor cores: all three kernels (0
+// pair_fwd, 1 pair_train_fwd, 2 pair_train_bwd) in bf16.  Every fp32
+// instance runs the CUDA-core GEMM.
 constexpr bool tc_instance(int dtype, int kernel) {
-  return dtype == 1 && kernel != 0;   // 0 pair_fwd, 1 train_fwd, 2 bwd
+  return dtype == 1 && kernel >= 0 && kernel <= 2;
 }
 
 // The shared body's view of the operands: pf::Flow per flow (B packed in
@@ -2009,16 +2012,13 @@ int pair_train_fwd_launch(int dtype, int stats, int tc,
   const int G = dims[6];
   if (tc) {
     a.pp = body_params(p);
-    return launch_tc(pair_fwd_kernel<__nv_bfloat16, true, true>,
+    return launch_tc(stats ? pair_fwd_kernel<__nv_bfloat16, true, true>
+                           : pair_fwd_kernel<__nv_bfloat16, false, true>,
                      p.B * p.n_t, tc_smem_bytes(false, p.R, p.Rin, p.TT), a,
                      st);
   }
-  if (dtype == 0) {
-    if (stats) pair_fwd_kernel<float, true, false><<<G, NT, 0, st>>>(a);
-    else pair_fwd_kernel<float, false, false><<<G, NT, 0, st>>>(a);
-  } else {
-    pair_fwd_kernel<__nv_bfloat16, false, false><<<G, NT, 0, st>>>(a);
-  }
+  if (stats) pair_fwd_kernel<float, true, false><<<G, NT, 0, st>>>(a);
+  else pair_fwd_kernel<float, false, false><<<G, NT, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -2095,7 +2095,7 @@ int pair_train_attrs(int kernel, int dtype, int* out) {
     e = kernel == 1 ? cudaFuncGetAttributes(
                           &a, pair_fwd_kernel<__nv_bfloat16, true, true>)
                     : cudaFuncGetAttributes(
-                          &a, pair_fwd_kernel<__nv_bfloat16, false, false>);
+                          &a, pair_fwd_kernel<__nv_bfloat16, false, true>);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;

@@ -675,11 +675,12 @@ def uses_tensor_cores(dtype: torch.dtype, *, int8: bool = False,
                       phases: int = 0) -> bool:
     """Whether the pair kernel of these options runs its products on the
     tensor cores (mma.sync): with bf16 storage, the direct pair
-    (``pair_flow``), the int8 pair (``pair_flow_i8``) and the F(2,3) and
-    F(4,3) Winograd pairs with dense conditioning (``pair_flow_wino``,
-    ``pair_flow_wino4``).  fp32, the int8 res/skip pair and the hoisted
-    pairs run on CUDA cores."""
-    return dtype == torch.bfloat16 and not rs and not hoisted
+    (``pair_flow``), the int8 pair (``pair_flow_i8``), the int8 pair with
+    int8 res/skip (``pair_flow_i8rs``: those two products on the int8 gate
+    codes, its final 1x1 in bf16) and the F(2,3) and F(4,3) Winograd pairs
+    with dense conditioning (``pair_flow_wino``, ``pair_flow_wino4``).
+    fp32 and the hoisted pairs run on CUDA cores."""
+    return dtype == torch.bfloat16 and not hoisted
 
 
 def check_tc_geometry(r: int, cc: int) -> None:

@@ -21,9 +21,9 @@ outside the kernel; the cotangent of max|log_s| is dropped.
 
 A CPU tensor runs :func:`pair_train_fwd_ref` (and autograd through it for
 the backward); a CUDA tensor launches the kernels or raises.  In bf16,
-``pair_train_fwd`` and ``pair_train_bwd`` run on the tensor cores
-(:func:`train_uses_tensor_cores`); ``pair_fwd`` and every fp32 instance on
-CUDA cores.
+``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` run on the tensor
+cores (:func:`train_uses_tensor_cores`); every fp32 instance on CUDA
+cores.
 """
 
 from __future__ import annotations
@@ -187,12 +187,13 @@ LAST_LAUNCH: dict = {}
 def train_uses_tensor_cores(dtype: torch.dtype, kernel: str) -> bool:
     """Whether the training-side kernel ``kernel`` (one of
     :data:`TRAIN_KERNELS`) runs its products on the tensor cores in
-    ``dtype``: ``pair_train_fwd`` and ``pair_train_bwd`` in bf16.
-    ``pair_fwd`` and every fp32 instance run the CUDA-core GEMM (fp32 keeps
-    its rel <= 1e-4 bar, which a bf16 product cannot meet)."""
+    ``dtype``: all three in bf16 (``pair_fwd`` is ``pair_train_fwd``'s
+    body without the three statistics).  Every fp32 instance runs the
+    CUDA-core GEMM (fp32 keeps its rel <= 1e-4 bar, which a bf16 product
+    cannot meet)."""
     if kernel not in TRAIN_KERNELS:
         raise ValueError(f"unknown training kernel {kernel!r}")
-    return dtype == torch.bfloat16 and kernel != "pair_fwd"
+    return dtype == torch.bfloat16
 
 
 def train_t_tile(B: int, T: int, n_sm: int) -> int:
@@ -205,7 +206,8 @@ def train_t_tile(B: int, T: int, n_sm: int) -> int:
     return tt
 
 
-def balanced_t_tile(B: int, T: int, n_sm: int, fits) -> int:
+def balanced_t_tile(B: int, T: int, n_sm: int, fits, *,
+                    shortest: bool = False) -> int:
     """Rows per tile of a tensor-core instance (one CTA per SM): the fewest
     waves of B * ceil(T / tile) tiles over ``n_sm`` SMs among the tiles of
     16-72 rows that ``fits(tile)`` accepts; with several waves the
@@ -213,7 +215,13 @@ def balanced_t_tile(B: int, T: int, n_sm: int, fits) -> int:
     the card idle: lj22k block 0 at batch 8 takes 66 rows, 392 tiles in 3
     waves, where 64 rows would give 400 tiles and 4), in one wave the
     longest (on the card, at T = 400 and 300, 64-row tiles beat 25- and
-    16-row ones, and 95-row ones lost to 64)."""
+    16-row ones, and 95-row ones lost to 64).  With ``shortest`` (the
+    forward's rule: one CTA per tile, no persistent grid) the shortest in
+    one wave too, since a CTA's time follows its window's rows and a
+    part-filled wave leaves SMs idle: pair_fwd at lj22k block 3 (batch 8,
+    T 400) takes 0.360 ms of kernel time on 25-row tiles (128 CTAs) and
+    0.771 ms on 72-row ones (48 CTAs) (H100 80GB HBM3, 700 W;
+    tools/train_pair_ab.py --fwd-tiles)."""
     fit = [tt for tt in range(16, 73) if fits(tt)]
     if not fit:
         raise ValueError("no tile of the tensor-core training pair fits in "
@@ -223,17 +231,18 @@ def balanced_t_tile(B: int, T: int, n_sm: int, fits) -> int:
         return -(-B * -(-T // tt) // n_sm)
     least = min(waves(tt) for tt in fit)
     best = [tt for tt in fit if waves(tt) == least]
-    return best[-1] if least == 1 else best[0]
+    return best[-1] if least == 1 and not shortest else best[0]
 
 
+@functools.lru_cache(maxsize=None)
 def train_tc_t_tile(B: int, T: int, r: int, r_in: int, backward: bool,
                     n_sm: int) -> int:
     """:func:`balanced_t_tile` over the tiles whose window (the tile plus
     10 rows per side forward, 20 backward) fits in one CTA's shared
-    memory."""
+    memory; the forward takes the shortest tile of the fewest waves."""
     lib = _library()
     return balanced_t_tile(B, T, n_sm, lambda tt: 0 < lib.pair_train_smem_bytes(
-        int(backward), 1, r, r_in, tt) <= SMEM_MAX)
+        int(backward), 1, r, r_in, tt) <= SMEM_MAX, shortest=not backward)
 
 
 def _geometry(u, tc: bool, r: int, backward: bool):
@@ -333,14 +342,16 @@ def _unpad_grad(g, shape, name: str):
     return g[tuple(slice(0, n) for n in shape)].contiguous()
 
 
-def _tc_operands(ops):
+def _tc_operands(ops, transposed: bool = True):
     """The 15 operands with kfg, cond_w, res_w, skip_w and fin_w packed
-    for the shared forward body (pack_tc_weights), and the transposed
-    weights the backward's input-gradient products take (pack_tc_weights of
-    W^T: [.., N, K] packed as K = N rows)."""
+    for the shared forward body (pack_tc_weights), and (``transposed``,
+    else an empty list) the transposed weights the backward's
+    input-gradient products take (pack_tc_weights of W^T: [.., N, K]
+    packed as K = N rows)."""
     fwd = [pack_tc_weights(o) if i in _TC_SLOTS else o
            for i, o in enumerate(ops)]
-    bwd = [pack_tc_weights(ops[i].transpose(-1, -2)) for i in _TC_SLOTS]
+    bwd = ([pack_tc_weights(ops[i].transpose(-1, -2)) for i in _TC_SLOTS]
+           if transposed else [])
     return fwd, bwd
 
 
@@ -365,7 +376,7 @@ def launch_forward(u, v, c_a, c_b, operands, *, stats: bool):
     if tc:
         c_a, c_b, ops, R, Cc = _pad_tc(c_a, c_b, ops, R, Cc)
         check_train_tc_geometry(R, Cc)
-        ops, _ = _tc_operands(ops)
+        ops, _ = _tc_operands(ops, transposed=False)
     tt, G, n_tiles = _geometry(u, tc, R, False)
     ws = torch.empty(lib.pair_train_ws_bytes(0, int(tc), R, r_in, Cc, tt)
                      // 4 * G, dtype=torch.float32, device=u.device)

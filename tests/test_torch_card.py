@@ -339,35 +339,36 @@ def test_train_kernels_match_plain(cuda, monkeypatch, bi, mode):
 @pytest.mark.parametrize("bi", [0, 1, 2, 3])
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
 def test_train_tc_kernels_match_plain(cuda, monkeypatch, bi, mode):
-    """pair_train_fwd and pair_train_bwd vs their plain versions at the
-    lj22k widths of blocks 0-3, T=300 (a ragged last tile of the
-    tensor-core instances' 64 rows), hinge live; in bf16 both run on the
-    tensor cores (train_uses_tensor_cores).  bf16: outputs rel-to-max <=
-    1e-2 with corr >= 0.999, statistics rel <= 1e-2, cosine >= 0.999 per
-    gradient leaf; fp32 (CUDA cores): rel-to-max <= 1e-4 on outputs,
-    statistics and every gradient."""
+    """pair_fwd, pair_train_fwd and pair_train_bwd vs their plain versions
+    at the lj22k widths of blocks 0-3, T=300 (a ragged last tile of the
+    tensor-core instances' tiles), hinge live; in bf16 all three run on
+    the tensor cores (train_uses_tensor_cores).  bf16: outputs rel-to-max
+    <= 1e-2 with corr >= 0.999, statistics (pair_fwd: the -log_s sum) rel
+    <= 1e-2, cosine >= 0.999 per gradient leaf; fp32 (CUDA cores):
+    rel-to-max <= 1e-4 on outputs, statistics and every gradient."""
     dt = torch.float32 if mode == "fp32" else torch.bfloat16
     pft, ops, u, v, ca, cb, gu, gv, (gr, gq, gh) = _train_case(bi, dt, cuda)
-    for k in ("pair_train_fwd", "pair_train_bwd"):
+    for k in pft.TRAIN_KERNELS:
         assert pft.train_uses_tensor_cores(dt, k) == (mode == "bf16")
     mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
     monkeypatch.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
     want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
     n0 = dict(pf.LAUNCHES)
     got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+    fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
     d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
-    assert pf.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 1
+    for k in pft.TRAIN_KERNELS:
+        assert pf.LAUNCHES[k] == n0[k] + 1
     assert float(want[5]) > 0.0
     bar = 1e-4 if mode == "fp32" else 1e-2
-    for a, b in zip(got[:2], want[:2]):
+    for a, b in list(zip(got[:2], want[:2])) + list(zip(fwd[:2], want[:2])):
         a, b = a.float(), b.float()
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max() / b.abs().max()) <= bar
         if mode == "bf16":
             assert _cos(a - a.mean(), b - b.mean()) >= 0.999
-    for a, b in zip(got[2:], want[2:]):
+    for a, b in list(zip(got[2:], want[2:])) + [(fwd[2], want[2])]:
         assert abs(float(a) - float(b)) <= bar * abs(float(b)) + 1e-6
     dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
     for a, b in zip(list(d[0]) + list(d[1:]), list(dref[0]) + list(dref[1:])):
@@ -408,7 +409,7 @@ def test_train_tc_kernels_are_deterministic_and_row_local(cuda, bi):
 @pytest.mark.cuda
 def test_train_launchers_refuse_mismatched_flags(cuda):
     """The C launchers refuse a tc flag that does not name the instance
-    (pair_fwd and fp32 on the tensor cores, the bf16 pair_train_fwd /
+    (fp32 on the tensor cores, the bf16 pair_fwd / pair_train_fwd /
     pair_train_bwd off them) and widths the tensor-core instances do not
     take (R = 48, R = 16, Cc = 88), returning cudaErrorInvalidValue before
     anything is launched."""
@@ -421,7 +422,7 @@ def test_train_launchers_refuse_mismatched_flags(cuda):
         return (ctypes.c_int * 7)(1, 120, 1, R, Cc, 64, 1)
     fwd, bwd = lib.pair_train_fwd_launch, lib.pair_train_bwd_launch
     bad = [fwd(1, 1, 0, ptrs, dims(256, 80), 5.0, None),   # bf16 train off
-           fwd(1, 0, 1, ptrs, dims(256, 80), 5.0, None),   # pair_fwd tc
+           fwd(1, 0, 0, ptrs, dims(256, 80), 5.0, None),   # bf16 fwd off
            fwd(0, 1, 1, ptrs, dims(256, 80), 5.0, None),   # fp32 tc
            bwd(1, 0, ptrs, dims(256, 80), 5.0, None),      # bf16 bwd off
            bwd(0, 1, ptrs, dims(256, 80), 5.0, None),      # fp32 tc
@@ -543,8 +544,9 @@ def test_resblock_rejects_bad_inputs(cuda):
 def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
     """Inputs and a launcher of a tensor-core pair at lj22k block bi's widths
     (or ``pair``'s R): ``i8`` (pair_flow_i8, int8 codes of c with per-row
-    scales), ``direct`` (pair_flow), ``wino`` (pair_flow_wino, F(2,3)) or
-    ``wino4`` (pair_flow_wino4, F(4,3)), all with bf16 storage; returns
+    scales), ``i8rs`` (pair_flow_i8rs, the same with int8 res/skip),
+    ``direct`` (pair_flow), ``wino`` (pair_flow_wino, F(2,3)) or ``wino4``
+    (pair_flow_wino4, F(4,3)), all with bf16 storage; returns
     (kernel(rows), plain(rows), passthru(rows), counter name)."""
     r_in, cc = 1 << bi, 80 << bi
     dt = torch.bfloat16
@@ -554,15 +556,15 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
     c = [torch.rand(B, T, cc, generator=g, device=dev).to(dt)
          for _ in range(2)]
     pair = _pair(bi, dev) if pair is None else pair
-    if kind in ("i8", "direct"):
-        int8 = kind == "i8"
+    if kind in ("i8", "i8rs", "direct"):
+        int8 = kind != "direct"
         crs = None
         if int8:
             q = [quantize_act(x, per_row=True) for x in c]
             c = [q[0][0], q[1][0]]
             crs = torch.cat([q[0][1].reshape(-1, 1), q[1][1].reshape(-1, 1)],
                             1)
-            ops = pf.pair_reverse_operands_int8(pair, dt)
+            ops = pf.pair_reverse_operands_int8(pair, dt, rs=kind == "i8rs")
         else:
             ops = pf.pair_reverse_operands(pair, dt)
         tt = pf.kernel_t_tile(dt, r_in)
@@ -576,7 +578,8 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
             return pf.pair_reverse_ref(
                 u[rows], v[rows], c[0][rows], c[1][rows], ops, t_tile=tt,
                 int8=int8, c_row_scales=None if crs is None else crs[rows])
-        name = "pair_flow_i8" if int8 else "pair_flow"
+        name = {"i8": "pair_flow_i8", "i8rs": "pair_flow_i8rs",
+                "direct": "pair_flow"}[kind]
     else:
         P = 6 if kind == "wino" else 12
         ops = (pf.pair_reverse_operands_wino(pair, dt) if P == 6
@@ -596,9 +599,9 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
 
 
 TC_CASES = [("i8", 0), ("i8", 3), ("wino", 1), ("direct", 0), ("direct", 3),
-            ("wino4", 1)]
-TC_OPTIONS = {"i8": dict(int8=True), "direct": {}, "wino": dict(phases=6),
-              "wino4": dict(phases=12)}
+            ("wino4", 1), ("i8rs", 0), ("i8rs", 3)]
+TC_OPTIONS = {"i8": dict(int8=True), "i8rs": dict(int8=True, rs=True),
+              "direct": {}, "wino": dict(phases=6), "wino4": dict(phases=12)}
 
 
 @pytest.mark.cuda
@@ -617,7 +620,7 @@ def test_tc_kernels_match_plain(cuda, kind, bi):
     torch.cuda.synchronize()
     assert pf.LAUNCHES[name] == n0 + 1
     _check(got, plain(rows), passthru(rows), 1e-2,
-           0.9999 if kind == "i8" else 0.999)
+           0.9999 if kind.startswith("i8") else 0.999)
 
 
 @pytest.mark.cuda
@@ -639,10 +642,11 @@ def test_tc_kernels_are_deterministic_and_row_local(cuda, kind, bi):
 @pytest.mark.cuda
 def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
     """The C launchers are the guard against a wrapper that forgets to pad:
-    R = 16 on a tensor-core instance, R = 48 (not dividing the 512
-    threads) and Cc = 79 anywhere, and a tc flag that does not name the
-    instance, return a cudaError (cudaErrorInvalidValue) before anything
-    is launched."""
+    R = 16 or Cc = 88 on a tensor-core instance (i8rs included), R = 48
+    (not dividing the 512 threads) and Cc = 79 anywhere, and a tc flag
+    that does not name the instance (the bf16 i8rs pair off the tensor
+    cores among them), return a cudaError (cudaErrorInvalidValue) before
+    anything is launched."""
     import ctypes
     ptrs = (ctypes.c_void_p * 26)()            # never dereferenced
 
@@ -657,7 +661,9 @@ def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
            direct(1, 0, 1, ptrs, dims(32, 88, 64), None),      # tc, Cc=88
            direct(1, 0, 0, ptrs, dims(256, 160, 64), None),    # flag off
            direct(0, 0, 1, ptrs, dims(256, 160, 32), None),    # fp32 tc
-           direct(1, 2, 1, ptrs, dims(256, 160, 64), None),    # i8rs tc
+           direct(1, 2, 0, ptrs, dims(256, 160, 64), None),    # i8rs off
+           direct(1, 2, 1, ptrs, dims(16, 160, 64), None),     # i8rs R=16
+           direct(1, 2, 1, ptrs, dims(32, 88, 64), None),      # i8rs Cc=88
            wino(1, 6, 0, 1, ptrs, dims(16, 160, 72), None),
            wino(1, 12, 0, 1, ptrs, dims(16, 160, 60), None),
            wino(1, 12, 0, 1, ptrs, dims(64, 79, 60), None),
@@ -668,7 +674,7 @@ def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["i8", "direct", "wino", "wino4"])
+@pytest.mark.parametrize("kind", ["i8", "direct", "wino", "wino4", "i8rs"])
 def test_tc_padded_narrow_pair_matches_plain(cuda, kind):
     """A filter_size 16 pair (R = 16 divides the threads but is no multiple
     of 32) runs on its tensor-core instance padded to R = 32, and matches
@@ -686,7 +692,7 @@ def test_tc_padded_narrow_pair_matches_plain(cuda, kind):
     torch.cuda.synchronize()
     assert pf.LAUNCHES[name] == n0 + 1
     _check(got, plain(rows), passthru(rows), 1e-2,
-           0.9999 if kind == "i8" else 0.999)
+           0.9999 if kind.startswith("i8") else 0.999)
 
 
 def _odd_width_model(name: str):

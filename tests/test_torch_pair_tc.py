@@ -1,8 +1,9 @@
 """PyTorch port, the tensor-core pair kernels' layouts (ops/pair_flow.py,
 csrc/pair_flow_common.cuh): the fragment-order weight packing that the
-wrapper hands to ``pair_flow``, ``pair_flow_i8``, ``pair_flow_wino`` and
-``pair_flow_wino4``, emulated lane by lane as the PTX ISA lays out the
-mma.sync operands, and the wrapper's geometry checks.  No JAX and no card:
+wrapper hands to ``pair_flow``, ``pair_flow_i8``, ``pair_flow_i8rs``,
+``pair_flow_wino`` and ``pair_flow_wino4``, emulated lane by lane as the
+PTX ISA lays out the mma.sync operands (with ``pair_flow_i8rs``'s int8
+res/skip products on the gate codes), and the wrapper's geometry checks.  No JAX and no card:
 the kernels themselves are held against their plain versions by
 tests/test_torch_card.py (``-k tc``) and chip_smoke.py."""
 
@@ -147,15 +148,17 @@ def test_tc_geometry_check_rejects_other_widths():
             pf.check_tc_geometry(r, cc)
 
 
-def test_uses_tensor_cores_only_on_the_four_redesigned_instances():
-    """pair_flow, pair_flow_i8, pair_flow_wino and pair_flow_wino4 in bf16
-    only; fp32, i8rs and the hoisted pairs stay on CUDA cores."""
+def test_uses_tensor_cores_only_on_the_five_redesigned_instances():
+    """pair_flow, pair_flow_i8, pair_flow_i8rs, pair_flow_wino and
+    pair_flow_wino4 in bf16 only; fp32 and the hoisted pairs stay on CUDA
+    cores."""
     bf, f32 = torch.bfloat16, torch.float32
-    on = [dict(dtype=bf), dict(dtype=bf, int8=True), dict(dtype=bf, phases=6),
+    on = [dict(dtype=bf), dict(dtype=bf, int8=True),
+          dict(dtype=bf, int8=True, rs=True), dict(dtype=bf, phases=6),
           dict(dtype=bf, phases=12)]
     off = [dict(dtype=f32), dict(dtype=f32, int8=True),
+           dict(dtype=f32, int8=True, rs=True),
            dict(dtype=f32, phases=6), dict(dtype=f32, phases=12),
-           dict(dtype=bf, int8=True, rs=True),
            dict(dtype=bf, hoisted=True), dict(dtype=bf, int8=True,
                                               hoisted=True),
            dict(dtype=bf, phases=6, hoisted=True),
@@ -164,14 +167,18 @@ def test_uses_tensor_cores_only_on_the_four_redesigned_instances():
     assert not any(pf.uses_tensor_cores(**kw) for kw in off)
 
 
+@pytest.mark.parametrize("rs", [False, True], ids=["main", "rs"])
 @pytest.mark.parametrize("preset,bi", [("lj22k", 0), ("lj22k", 4),
                                        ("tiny", 0), ("tiny", 1)])
-def test_tc_packed_operands_have_the_kernel_sizes(preset, bi):
-    """The packed main-path operands hold the element counts the kernel's
+def test_tc_packed_operands_have_the_kernel_sizes(preset, bi, rs):
+    """The packed operands hold the element counts the kernel's
     make_params strides by: every flow's kfg, res_w, skip_w and fin_w
     as many as before packing, an int8 cond_w 2 * ceil(Cc/32)*32 * 2R
     per flow (its K padded with zero rows), a bf16 cond_w 2 * Cc * 2R; for
-    the int8, F(2,3), bf16 direct and F(4,3) operands."""
+    the int8, F(2,3), bf16 direct and F(4,3) operands (``main``), or the
+    int8 res/skip operands (``rs``: res_w and skip_w int8, packed whole in
+    32-deep k-steps, so a flow's skip-1 matrix starts R/32 * R/8 * 32
+    fragments after its skip-0, where pair_flow_common.cuh reads it)."""
     cfg = (lj22k() if preset == "lj22k" else tiny()).model
     block = fwn.init_block(torch.Generator().manual_seed(bi), 1 << bi,
                            cfg.num_mels << bi, cfg)
@@ -180,10 +187,13 @@ def test_tc_packed_operands_have_the_kernel_sizes(preset, bi):
     pf.check_tc_geometry(R, cc)
     names = ("kfg", "cond_w", "res_w", "skip_w", "fin_w")
     bf = torch.bfloat16
-    for ops, ks in ((pf.pair_reverse_operands_int8(pair, bf), 32),
-                    (pf.pair_reverse_operands_wino(pair, bf), 16),
-                    (pf.pair_reverse_operands(pair, bf), 16),
-                    (pf.pair_reverse_operands_wino4(pair, bf), 16)):
+    families = ([(pf.pair_reverse_operands_int8(pair, bf, rs=True), 32)]
+                if rs else
+                [(pf.pair_reverse_operands_int8(pair, bf), 32),
+                 (pf.pair_reverse_operands_wino(pair, bf), 16),
+                 (pf.pair_reverse_operands(pair, bf), 16),
+                 (pf.pair_reverse_operands_wino4(pair, bf), 16)])
+    for ops, ks in families:
         d = dict(zip(pf._operand_names(len(ops), ks == 32, False), ops))
         for name in names:
             packed = pf.pack_tc_weights(d[name])
@@ -192,3 +202,116 @@ def test_tc_packed_operands_have_the_kernel_sizes(preset, bi):
                 want = 2 * 2 * (-(-cc // ks) * ks) * 2 * R
             assert packed.numel() == want, (name, packed.shape)
             assert packed.dtype == d[name].dtype
+        if rs:
+            for name in ("res_w", "skip_w"):
+                assert d[name].dtype == torch.int8
+            skip = pf.pack_tc_weights(d["skip_w"])
+            assert skip.shape == (2, 2, R // 32, R // 8, 32, 8)
+            # uint2 fragments from flow f's skip-0 to its skip-1
+            assert (skip[0, 1].data_ptr() - skip[0, 0].data_ptr()) // 8 == (
+                R // 32) * (R // 8) * 32
+
+
+def _a_s8(regs: np.ndarray) -> np.ndarray:
+    """The [16, 32] int8 A tile of an m16n8k32 product from the registers
+    that ldmatrix.x4 gave each lane ([32 lanes, 4 registers, 4 bytes]):
+    byte i of lane l is A[groupID + 8 * ((i // 4) % 2), 4 * (l % 4) +
+    i % 4 + 16 * (i >= 8)] (PTX ISA)."""
+    a = np.full((16, 32), 999, np.int64)
+    for lane in range(32):
+        vals = regs[lane].reshape(-1).view(np.int8)
+        for i in range(16):
+            row = (lane >> 2) + (8 if (i // 4) % 2 else 0)
+            a[row, 4 * (lane % 4) + (i & 3) + (16 if i >= 8 else 0)] = vals[i]
+    assert np.all(a != 999)
+    return a
+
+
+def _b_s8(frag: np.ndarray) -> np.ndarray:
+    """The [32, 8] int8 B tile of one (k-step, n-tile) from its packed
+    fragments [32 lanes, 8 bytes] (pack_tc_weights, the PTX layout)."""
+    b = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        for i in range(8):
+            k, n = _b_coords(lane, i, 0, 0, True)
+            b[k, n] = frag[lane, i]
+    return b
+
+
+def _tc_rows_s8(buf, ld, rb, re, K, B0, B1, ngroups, tstep, tj=2):
+    """tc_rows with int8 A (pair_flow_common.cuh), lane by lane: warp items
+    of one 16-row m-tile (row addresses clamped to re - 1) and tj n-tiles
+    from tstep * g of the packed B0 and the same of B1, A through
+    ldmatrix.x4 at byte offset 16 * (lane >> 4) of each 32-byte k-step.
+    Returns the int32 sums (v0 by B0's columns, v1 beside them) of the
+    rows below re, as the epilogue receives them."""
+    n0 = 8 * B0.shape[1]
+    v0 = np.zeros((re, n0), np.int64)
+    v1 = np.zeros((re, n0), np.int64)
+    for m0 in range(rb, re, 16):
+        for g in range(ngroups):
+            for j in range(tj):
+                t = tstep * g + j
+                acc0, acc1 = np.zeros((16, 8), np.int64), np.zeros(
+                    (16, 8), np.int64)
+                for ks in range(K // 32):
+                    addr = [min(m0 + (l & 15), re - 1) for l in range(32)]
+                    coff = [32 * ks + 16 * (l >> 4) for l in range(32)]
+                    a = _a_s8(_ldmatrix_x4(buf, addr, coff))
+                    acc0 += a @ _b_s8(B0[ks, t])
+                    acc1 += a @ _b_s8(B1[ks, t])
+                rows = slice(m0, min(m0 + 16, re))
+                v0[rows, 8 * t:8 * t + 8] = acc0[:rows.stop - m0]
+                v1[rows, 8 * t:8 * t + 8] = acc1[:rows.stop - m0]
+    return v0[rb:], v1[rb:]
+
+
+@pytest.mark.parametrize("R", [32, 64])
+def test_i8rs_gate_codes_through_ldmatrix_give_the_int_dot(R):
+    """pair_flow_i8rs on the tensor cores: the int8 gate codes (``_gate_q8``)
+    stored at G's row stride ldq = R + 16 bytes (row_ld_q: the 8 row
+    addresses of an ldmatrix matrix fall in 8 distinct 16-byte bank
+    groups), read through ldmatrix into the m16n8k32 A fragment against
+    the packed int8 res_w | skip-0 (tiles t, t+1 of each) and skip-1
+    (tiles t..t+3, as B0 and B1 16 columns on), give exactly the plain
+    version's _int_dot over rows [rb, re) with a ragged last m-tile, and
+    the epilogue's scaling res_s * (1/127) in fp32 gives its bits."""
+    r = np.random.RandomState(R)
+    L, rb, re, ldq = 48, 3, 40, R + 16
+    fg = torch.from_numpy(r.randn(L, 2 * R).astype(np.float32) * 2)
+    codes = pf._gate_q8(fg)
+    buf = r.randint(0, 256, (L, ldq)).astype(np.uint8)      # pad bytes: junk
+    buf[:, :R] = codes.numpy().astype(np.int8).view(np.uint8)
+    for m0 in range(0, L - 16, 16):
+        for j in range(4):
+            addr = [(m0 + l) * ldq + 16 * j for l in range(8)]
+            assert len({(x // 16) % 8 for x in addr}) == 8
+    w = [torch.from_numpy(r.randint(-127, 128, (R, R)).astype(np.int8))
+         for _ in range(3)]                         # res, skip-0, skip-1
+    res_s, skip_s = (torch.from_numpy(r.rand(R).astype(np.float32) * 1e-2)
+                     for _ in range(2))
+    packed = [pf.pack_tc_weights(x).numpy() for x in w]
+    tj = 2
+    ri, si = _tc_rows_s8(buf, ldq, rb, re, R, packed[0], packed[1],
+                         R // (8 * tj), tj)
+    q = codes[rb:re]
+    want = pf._int_dot(q, torch.cat([w[0], w[1]], -1))
+    np.testing.assert_array_equal(ri, want[:, :R].numpy())
+    np.testing.assert_array_equal(si, want[:, R:].numpy())
+    rs_s = torch.cat([res_s, skip_s]) * (1.0 / 127.0)
+    got = np.concatenate([ri.astype(np.float32) * (res_s.numpy()
+                                                   * np.float32(1 / 127)),
+                          si.astype(np.float32) * (skip_s.numpy()
+                                                   * np.float32(1 / 127))],
+                         -1)
+    np.testing.assert_array_equal(got, (want * rs_s).numpy())
+    # skip-1: 4 n-tiles per item, the second pair as "B1" 16 columns on
+    p1 = packed[2]
+    v0, v1 = _tc_rows_s8(buf, ldq, rb, re, R, p1, p1[:, tj:],
+                         R // (16 * tj), 2 * tj)
+    sk1 = np.zeros_like(v0)
+    for t0 in range(0, R // 8, 2 * tj):
+        c = slice(8 * t0, 8 * t0 + 8 * tj)
+        sk1[:, c] = v0[:, c]
+        sk1[:, 8 * t0 + 8 * tj:8 * t0 + 16 * tj] = v1[:, c]
+    np.testing.assert_array_equal(sk1, pf._int_dot(q, w[2]).numpy())

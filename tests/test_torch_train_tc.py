@@ -170,14 +170,15 @@ def test_transposed_conv_rows_give_the_input_gradient(dil):
     np.testing.assert_allclose(out[rb:re], want, rtol=1e-12, atol=1e-12)
 
 
-def test_only_the_two_bf16_training_instances_use_tensor_cores():
-    """pair_train_fwd and pair_train_bwd in bf16 run on the tensor cores;
-    pair_fwd (both types) and every fp32 instance on CUDA cores."""
+def test_only_the_three_bf16_training_instances_use_tensor_cores():
+    """pair_fwd, pair_train_fwd and pair_train_bwd in bf16 run on the
+    tensor cores; every fp32 instance on CUDA cores."""
     got = {(dt, k): pft.train_uses_tensor_cores(dt, k)
            for dt in (torch.float32, torch.bfloat16)
            for k in pft.TRAIN_KERNELS}
     assert {key for key, tc in got.items() if tc} == {
-        (torch.bfloat16, "pair_train_fwd"), (torch.bfloat16, "pair_train_bwd")}
+        (torch.bfloat16, "pair_fwd"), (torch.bfloat16, "pair_train_fwd"),
+        (torch.bfloat16, "pair_train_bwd")}
     with pytest.raises(ValueError):
         pft.train_uses_tensor_cores(torch.bfloat16, "pair_flow")
 
@@ -208,12 +209,17 @@ def test_balanced_tile_fills_whole_waves():
     """balanced_t_tile over the tiles a window fits: lj22k block 0 at batch
     8 on 132 SMs takes 66 rows (392 tiles, 3 waves), not 64 (400 tiles, a
     fourth wave of 4); a problem that fits one wave takes the longest
-    tile; nothing that fits raises."""
+    tile, or with ``shortest`` (the forward's rule) the shortest (lj22k
+    blocks 2 and 3 at batch 8: 50 rows, 128 tiles, and 25 rows, 128
+    tiles, where the longest would leave 36 and 84 SMs idle); nothing that
+    fits raises."""
     def fits(tt):
         return tt <= 68
     assert pft.balanced_t_tile(8, 3200, 132, fits) == 66
     assert pft.balanced_t_tile(2, 300, 132, fits) == 68
     assert pft.balanced_t_tile(8, 1600, 132, fits) == 49
+    for T, tt in ((3200, 66), (1600, 49), (800, 50), (400, 25)):
+        assert pft.balanced_t_tile(8, T, 132, fits, shortest=True) == tt
     with pytest.raises(ValueError):
         pft.balanced_t_tile(8, 3200, 132, lambda tt: False)
 
