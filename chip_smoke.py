@@ -7,7 +7,7 @@
    once (one nvcc each) and prints the build times, ptxas' register and
    spill lines, the card's name and power limit, the versions, and the
    registers and local (spill) bytes per thread of each bf16 reverse pair
-   instance (cudaFuncGetAttributes; five of them run on the tensor cores).
+   instance (cudaFuncGetAttributes; seven of them run on the tensor cores).
 2. Holds the direct reverse pair kernel against its plain PyTorch version
    (``pair_reverse_ref``, TF32 off) at the lj22k geometry of every block
    the kernel routes (R_in = 2^bi, Cc = 80*2^bi, R = 256), at the batch
@@ -22,9 +22,13 @@
    and the H100 bound.  Phase 2b (``variant_checks``) does the same for
    the Winograd pairs (F(2,3), F(4,3), also with hoisted conditioning;
    blocks 0-2, fp32 and bf16), the hoisted pairs (blocks 4-7 fp32/bf16;
-   int8 blocks 5-7, with the hoist matmul's ms) and the int8 res/skip
-   pair (blocks 0-4).  Phase 2c (``resblock_checks``) runs one coupling
-   net per lj22k block through the fused ResBlock route
+   int8 blocks 5-7, with the hoist matmul's ms; the plain version at the
+   tile the launch recorded; the tensor-core rows with their tile, CTAs
+   and the profiler's kernel ms) and the int8 res/skip pair (blocks 0-4).
+   Phase 2d (``hoisted_sweep``) runs the hoisted tensor-core pairs over
+   several tiles and with their front and zero convs on CUDA cores, each
+   point against its plain version.  Phase 2c (``resblock_checks``) runs
+   one coupling net per lj22k block through the fused ResBlock route
    (``coupling_reverse(use_pallas=True)``, launches checked exactly), a
    causal net and an lj8k_gin net with g, holds ``resblock`` and
    ``resblock_v2`` against their plain versions, and the route's fp32
@@ -38,9 +42,10 @@
    and the range are printed.  Phase 3b (``odd_width_phase``) reverses
    lj22k models with num_mels 79 and filter_size 48, whose widths the
    kernels take only zero-padded, on the int8, FWN_INT8=0, FWN_WINO4=1
-   and FWN_INT8_RS=1 routes against their plain route at the same bar,
-   and holds the bf16 forward and training pairs of their block 0 against
-   the plain versions at phase 4's bars.
+   and FWN_INT8_RS=1 routes (filter_size 48 also on FWN_INT8=0
+   FWN_HOISTED=1 and FWN_HOISTED=1) against their plain route at the same
+   bar, and holds the bf16 forward and training pairs of their block 0
+   against the plain versions at phase 4's bars.
 4. Holds ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` against
    their plain versions at the lj22k training geometry of blocks 0-3
    (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
@@ -151,6 +156,25 @@ def _time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _kernel_ms(fn, reps: int, name: str = "pair_reverse_kernel") -> float:
+    """Device time per call of the kernels whose name contains ``name``,
+    summed from a torch.profiler trace of ``reps`` calls: the kernel's own
+    time, without the wrapper's host work that CUDA events around short
+    launches also see (0 if the trace holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0)
+             or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if name in e.key)
+    return us / 1e3 / reps
 
 
 def randomized_params(cfg, seed: int):
@@ -357,14 +381,16 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                         bound = pf.pair_bound_ms(B, tk, r_in, c[0].shape[-1],
                                                  int8=kw["int8"],
                                                  hoisted=True)
-                    tt = pf.kernel_t_tile(dt, r_in)
 
                     def kern(ops=ops, c=c, kw=kw):
                         return pf.fused_pair_reverse(u, v, *c, ops, **kw)
 
-                    def plain(ops=ops, c=c, kw=kw, tt=tt):
-                        return pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt,
-                                                   **kw)
+                    def plain(ops=ops, c=c, kw=kw, name=name):
+                        # at the launch's tile: the int8 pairs' per-window
+                        # scales follow it
+                        return pf.pair_reverse_ref(
+                            u, v, *c, ops,
+                            t_tile=pf.LAST_LAUNCH[name]["t_tile"], **kw)
                 torch.cuda.synchronize()
                 _reset_counts()
                 uk, vk = kern()
@@ -382,10 +408,19 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                 upd = _update_err((uk, vk), (ur, vr), passthru)
                 ms = _time_ms(kern, 3)
                 plain_ms = _time_ms(plain, 1)
+                launch = dict(pf.LAST_LAUNCH[name])
+                # the hoisted tensor-core pairs' launches are short enough
+                # that the events also time the wrapper: their kernel time
+                # comes from the profiler
+                kernel_ms = (_kernel_ms(kern, 5) if name in HOISTED
+                             and mode != "fp32" else None)
                 print(f"{name} block {bi} {mode:4s} T_k={tk:6d} R_in="
                       f"{r_in:3d} Cc={cc:5d}: max_abs={err:.3e} rel={rel:.3e} "
                       f"corr={corr:.7f} update_err={upd:.3e} kernel={ms:.3f}"
                       f" ms plain={plain_ms:.3f} ms bound={bound[0]:.4f} ms"
+                      f" tile={launch['t_tile']} ctas={launch['ctas']}"
+                      + (f" profiler_kernel={kernel_ms:.4f} ms" if kernel_ms
+                         is not None else "")
                       + (f" hoist_matmul={hoist_ms:.3f} ms" if hoist_ms
                          is not None else ""), flush=True)
                 bars = {"fp32": (1e-4, -1.0), "bf16": (1e-2, 0.999),
@@ -397,7 +432,92 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                              "max_abs_err": err, "rel": rel, "corr": corr,
                              "update_err": upd, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound[0],
-                             "bound_by": bound[1], "hoist_ms": hoist_ms})
+                             "bound_by": bound[1], "hoist_ms": hoist_ms,
+                             "kernel_ms": kernel_ms, **launch})
+    return rows
+
+
+# The hoisted tensor-core pairs: name -> (blocks their routes run, mode)
+HOISTED = {"pair_flow_hoisted": (range(4, 8), "bf16"),
+           "pair_flow_hoisted_i8": (range(5, 8), "int8")}
+# Tiles of phase 2d's sweep (those whose window fits in shared memory run)
+SWEEP_TILES = (8, 11, 12, 16, 22, 32, 44, 56, 64, 72, 80)
+
+
+def hoisted_sweep(params, cfg, B: int, T: int, dev):
+    """Phase 2d: the hoisted tensor-core pairs at phase 3's batch on every
+    block their routes run, once per tile of ``SWEEP_TILES`` that fits
+    (the rule's tile, ``pair_flow.hoisted_t_tile``, marked ``rule``), and
+    at the rule's tile with the front and zero convs on CUDA cores
+    (``pair_flow.front_zero_tc`` forced off; ``front_zero_tc`` False in
+    the row): CUDA-event ms per call and profiler kernel ms per launch.
+    Every point is held to its plain version at that tile with phase 2b's
+    bars, so the sweep also checks the tiles and the CUDA-core front and
+    zero convs that the main path does not run."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    rows = []
+    pick, front = pf._hoisted_tile, pf.front_zero_tc
+    for name, (blocks, mode) in HOISTED.items():
+        int8 = mode == "int8"
+        for bi in blocks:
+            r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
+            pair = fwn._index(fwn._pair_params(params["blocks"][bi]), 0)
+            zero = pair["coupling"]["zero"]      # as in phase 2b
+            zero["w"] = 0.05 * torch.randn(
+                zero["w"].shape,
+                generator=torch.Generator().manual_seed(SEED + bi))
+            pair = tree_map(lambda l: l.to(dev), pair)
+            g = torch.Generator(device=dev).manual_seed(SEED + bi)
+            u, v = (torch.randn(B, tk, r_in, generator=g, device=dev)
+                    .bfloat16() for _ in range(2))
+            ca, cb = (torch.rand(B, tk, cc, generator=g, device=dev)
+                      .bfloat16() for _ in range(2))
+            make = (pf.pair_reverse_operands_hoisted_int8 if int8
+                    else pf.pair_reverse_operands_hoisted)
+            ops, (we, wo) = make(pair, torch.bfloat16)
+            c = (pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo))
+
+            def kern():
+                return pf.fused_pair_reverse(u, v, *c, ops, int8=int8,
+                                             hoisted=True)
+            kern()
+            rule = pf.LAST_LAUNCH[name]["t_tile"]
+            smem = pf._library().pair_reverse_smem_bytes
+            points = [(tt, True) for tt in sorted(set(SWEEP_TILES) | {rule})
+                      if 0 < smem(1, 4 if int8 else 3, 1, 256, r_in, tt)
+                      <= 232448]
+            if front(r_in):
+                points.append((rule, False))
+            for tt, fz in points:
+                try:
+                    pf._hoisted_tile = lambda *a, tt=tt: tt
+                    pf.front_zero_tc = lambda r, fz=fz: fz and front(r)
+                    uk, vk = kern()
+                    ur, vr = pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt,
+                                                 int8=int8, hoisted=True)
+                    ms = _time_ms(kern, 5)
+                    kms = _kernel_ms(kern, 5)
+                finally:
+                    pf._hoisted_tile, pf.front_zero_tc = pick, front
+                e_u, e_v = _errors(uk, ur), _errors(vk, vr)
+                rel, corr = max(e_u[1], e_v[1]), min(e_u[2], e_v[2])
+                check(rel <= 1e-2 and corr >= (0.9999 if int8 else 0.999),
+                      (name, bi, tt, fz, "sweep vs plain", rel, corr))
+                row = {"name": name, "block": bi, "t_tile": tt,
+                       "ctas": B * -(-tk // tt), "rule": tt == rule,
+                       "front_zero_tc": fz and front(r_in), "ms": ms,
+                       "kernel_ms": kms, "rel": rel}
+                print(f"sweep {name} block {bi} R_in={r_in:3d} tile {tt:3d} "
+                      f"({row['ctas']} CTAs{', rule' if row['rule'] else ''}"
+                      f", front/zero on "
+                      f"{'tensor' if row['front_zero_tc'] else 'CUDA'} cores)"
+                      f": {ms:.4f} ms per call, {kms:.4f} ms kernel, rel "
+                      f"{rel:.2e}", flush=True)
+                rows.append(row)
     return rows
 
 
@@ -1036,8 +1156,10 @@ ODD_MODELS = {"num_mels=79": dict(num_mels=79),
 
 
 # The routes of ``ROUTES`` whose kernels run padded at those widths
-ODD_ROUTES = ("int8", "FWN_INT8=0", "FWN_INT8=0 FWN_WINO4=1",
-              "FWN_INT8_RS=1")
+_ODD = ("int8", "FWN_INT8=0", "FWN_INT8=0 FWN_WINO4=1", "FWN_INT8_RS=1")
+ODD_ROUTES = {"num_mels=79": _ODD,
+              "filter_size=48": _ODD + ("FWN_INT8=0 FWN_HOISTED=1",
+                                        "FWN_HOISTED=1")}
 
 
 def odd_width_phase(dev):
@@ -1072,7 +1194,7 @@ def odd_width_phase(dev):
                 compute_dtype=torch.bfloat16, device=dev))
         want = synth(dataclasses.replace(cfg.model, use_pallas=False))
         for name, switches, expect in (r for r in ROUTES
-                                       if r[0] in ODD_ROUTES):
+                                       if r[0] in ODD_ROUTES[mname]):
             saved = {k: getattr(fwn, k) for k in switches}
             try:
                 for k, val in switches.items():
@@ -1615,6 +1737,9 @@ def main() -> int:
     rows = kernel_checks(params, cfg, B, T, range(5), dev)
     # phase 2b: the Winograd, hoisted and int8 res/skip pairs
     vrows = variant_checks(params, cfg, B, T, dev)
+    # phase 2d: the hoisted tensor-core pairs over tiles, and with the front
+    # and zero convs on CUDA cores
+    srows = hoisted_sweep(params, cfg, B, T, dev)
     # phase 2c: the fused ResBlock route, one coupling net per block
     rrows, r_launches, r_grads = resblock_checks(params, cfg, B, T, dev)
     # phase 3: synthesis on every route, the first slice's main path
@@ -1693,6 +1818,16 @@ def main() -> int:
              "library_ms": None}
         if sel[0]["hoist_ms"] is not None:
             e["hoist_matmul_ms"] = n_pair * sum(r["hoist_ms"] for r in sel)
+        if sel[0]["kernel_ms"] is not None:
+            # the hoisted tensor-core pairs: profiler kernel time per
+            # reverse beside the CUDA-event ms, each block's launch and its
+            # tile sweep (phase 2d)
+            e["kernel_ms"] = n_pair * sum(r["kernel_ms"] for r in sel)
+            e["per_block"] = [{k: r[k] for k in ("block", "t_tile", "ctas",
+                                                 "ms", "kernel_ms")}
+                              for r in sel]
+            e["tile_sweep"] = [{k: v for k, v in r.items() if k != "name"}
+                               for r in srows if r["name"] == name]
         if swept:
             e["launches_from"] = ("phase 2b, one bf16 pair per lj22k block "
                                   "0-2; no model route runs it")

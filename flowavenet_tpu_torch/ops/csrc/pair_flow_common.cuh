@@ -51,21 +51,33 @@
 // tensor-core kernels then is the L2 weight traffic (each CTA re-reads a
 // pair's weights once per m-tile) and, in the Winograd pair, the input
 // transforms, which run on CUDA cores once per warp A fragment.  The front
-// conv (K = 3*R_in) and the zero conv (N = 2*R_in), under 1 % of the
-// operations, stay on CUDA cores in every instance.
+// conv (K = 3*R_in) and the zero conv (N = 2*R_in) cost 2560*R_in
+// operations per net and row against ~2.1 M for the rest of the net: under
+// 1 % at R_in <= 4, so they stay on CUDA cores in the dense instances, but
+// 2-14 % at the hoisted pairs' R_in = 16-128, where on the CUDA cores'
+// 1/15 of the rate they would outlast the tensor-core rest of the net.
+// The hoisted tensor-core instances therefore run them on the tensor cores
+// too when R_in is a multiple of 16 (Params::ftc): the front conv as three
+// taps of K = R_in over the u/v windows (row stride R_in + 8, row_ld_h, so
+// that an ldmatrix's 8 rows fall in distinct banks) into N = R, the zero
+// conv as K = R over G into N = 2*R_in with an fp32 result.
 //
-// TC is set on exactly five reverse-pair instances, all with bf16 storage:
+// TC is set on exactly seven reverse-pair instances, all with bf16 storage:
 // the direct pair (pair_flow.cu variant 0, pair_flow), the int8 pair
 // (variant 1, pair_flow_i8 on the main path), the int8 res/skip pair
 // (variant 2, pair_flow_i8rs: its res|skip-0 and skip-1 products take the
 // int8 gate codes, stored at the Q stride, through ldmatrix into m16n8k32;
-// the final 1x1 stays bf16), and the F(2,3) and F(4,3) Winograd pairs with
-// dense conditioning (pair_flow_wino.cu P = 6 and 12, pair_flow_wino and
+// the final 1x1 stays bf16), the hoisted pairs (variants 3 and 4,
+// pair_flow_hoisted and pair_flow_hoisted_i8: the direct bf16 and int8
+// bodies without the conditioning product; each lane adds the precomputed
+// pre-activations of the elements it holds, read as bf16x2 words before
+// the taps' products), and the F(2,3) and F(4,3) Winograd pairs with dense
+// conditioning (pair_flow_wino.cu P = 6 and 12, pair_flow_wino and
 // pair_flow_wino4); the training pairs (pair_flow_train.cu) run the direct
-// bf16 body forward.  Every fp32 instance and the hoisted pairs run the
-// CUDA-core product.  int8 sums are exact either way; a bf16 product is
-// exact in fp32, so the tensor cores change only the fp32 summation
-// order.  The tensor-core instances take R a multiple of 32 and
+// bf16 body forward.  Every fp32 instance and the hoisted Winograd pairs
+// run the CUDA-core product.  int8 sums are exact either way; a bf16
+// product is exact in fp32, so the tensor cores change only the fp32
+// summation order.  The tensor-core instances take R a multiple of 32 and
 // Cc of 16, every instance R dividing NT and R, Cc multiples of 4; the
 // wrapper pads other widths with zero channels (ops/pair_flow.py:
 // kernel_widths, pad_pair_widths).
@@ -187,6 +199,9 @@ struct Params {
   const float* an_b;
   const float* crs;        // [B][2] per-row c scales (COND_I8), else null
   int B, T, Rin, R, Cc, TT, n_t;
+  int ftc;                 // front and zero convs on the tensor cores (the
+                           // hoisted TC instances, R_in % 16 == 0; front_w
+                           // and zw then come packed)
 };
 
 struct Smem {
@@ -196,9 +211,9 @@ struct Smem {
   float* red;   // [32] reduction scratch
   void* H;      // [L][ldh] h0 -> h1 -> relu'd skip sum
   void* G;      // [L][ldh] gate outputs (RS: int8 codes) -> final 1x1 output
-  void* U;      // [L][Rin] window of u
-  void* V;      // [L][Rin] window of v
-  void* UM;     // [L][Rin] u after the odd coupling and ActNorm
+  void* U;      // [L][ldx] window of u (ldx: R_in, or R_in + 8 in the
+  void* V;      // [L][ldx] window of v   hoisted TC instances)
+  void* UM;     // [L][ldx] u after the odd coupling and ActNorm
   int8_t* Q;    // [L][ldq] int8 codes of h0 / h1 (I8)
   int ldh;      // row stride of H and G in elements: R, or R + 8 (TC)
   int ldq;      // row stride of Q in bytes: R, or R + 16 (TC)
@@ -227,12 +242,23 @@ __host__ __device__ inline int row_ld_q(int R, bool tc) {
   return tc ? R + 16 : R;
 }
 
+// Whether an instance keeps its u/v windows at the padded row stride
+// row_ld_h(Rin, true): the hoisted tensor-core instances, whose front conv
+// may read them through ldmatrix (Params::ftc).
+__host__ __device__ constexpr bool pad_windows(bool tc, int cond) {
+  return tc && cond == COND_HOIST;
+}
+
 // Byte offsets of the Smem regions for a window of L rows whose first net
-// covers ``rows`` output rows; the last entry is the total size.
+// covers ``rows`` output rows; the last entry is the total size.  padx:
+// the u/v windows' rows padded as H's (row_ld_h(Rin, true)), for the front
+// conv's ldmatrix in the hoisted tensor-core instances.
 __host__ __device__ inline void smem_layout(int es, bool i8, bool tc, int R,
                                             int Rin, int L, int rows,
-                                            size_t off[11]) {
+                                            size_t off[11],
+                                            bool padx = false) {
   const size_t ldh = row_ld_h(R, tc), ldq = row_ld_q(R, tc);
+  const size_t ldx = row_ld_h(Rin, padx);
   size_t o = 0;
   off[0] = o; o = align16(o + sizeof(float) * rows * R);
   off[1] = o; o = align16(o + sizeof(float) * rows * 2 * Rin);
@@ -240,19 +266,20 @@ __host__ __device__ inline void smem_layout(int es, bool i8, bool tc, int R,
   off[3] = o; o = align16(o + sizeof(float) * 32);
   off[4] = o; o = align16(o + (size_t)es * L * ldh);
   off[5] = o; o = align16(o + (size_t)es * L * ldh);
-  off[6] = o; o = align16(o + (size_t)es * L * Rin);
-  off[7] = o; o = align16(o + (size_t)es * L * Rin);
-  off[8] = o; o = align16(o + (size_t)es * L * Rin);
+  off[6] = o; o = align16(o + (size_t)es * L * ldx);
+  off[7] = o; o = align16(o + (size_t)es * L * ldx);
+  off[8] = o; o = align16(o + (size_t)es * L * ldx);
   off[9] = o; o = align16(o + (i8 ? (size_t)L * ldq : 0));
   off[10] = o;
 }
 
 template <int P>
 __host__ __device__ inline size_t smem_bytes(int es, bool i8, bool tc, int R,
-                                             int Rin, int TT) {
+                                             int Rin, int TT,
+                                             bool padx = false) {
   const int L = TT + 2 * Geo<P>::HALO;
   size_t off[11];
-  smem_layout(es, i8, tc, R, Rin, L, L - 2 * Geo<P>::O1, off);
+  smem_layout(es, i8, tc, R, Rin, L, L - 2 * Geo<P>::O1, off, padx);
   return off[10];
 }
 
@@ -666,21 +693,57 @@ __device__ __forceinline__ void tc_rows(const TA* A, int lda, int rb, int re,
   }
 }
 
+// The hoisted conditioning of a warp item on the tensor cores (COND_HOIST):
+// for each of its TW n-tiles j, the bf16x2 words of the precomputed filter
+// pre-activations at columns n, n + 1 (frag_col of accumulator elements
+// 0, 1 and of 2, 3) in this lane's rows lo and hi, then the gate's: h[j] =
+// {filter lo, filter hi, gate lo, gate hi}.  c_lo / c_hi point at the
+// layer's pre-activations (c + row*Cc + layer*2R) of the rows, already
+// clamped into [0, T).  Issued before the taps' products, whose mma.syncs
+// hide the loads' latency.
+template <int TW>
+__device__ __forceinline__ void hoist_words(uint32_t (&h)[TW][4],
+                                            const __nv_bfloat16* c_lo,
+                                            const __nv_bfloat16* c_hi, int R,
+                                            int t0) {
+#pragma unroll
+  for (int j = 0; j < TW; ++j) {
+    const int n = frag_col(t0 + j, 0);
+    h[j][0] = ld_g32(c_lo + n);
+    h[j][1] = ld_g32(c_hi + n);
+    h[j][2] = ld_g32(c_lo + R + n);
+    h[j][3] = ld_g32(c_hi + R + n);
+  }
+}
+
+// Accumulator element i's pre-activation from its n-tile's hoist_words:
+// the row (lo, hi) is i >> 1, the column (n: the word's low half, n + 1:
+// its high half) i & 1; bf16 -> fp32 is exact.
+__device__ __forceinline__ float hoist_elem(const uint32_t (&h)[4], int i,
+                                            bool gate) {
+  const uint32_t w = h[2 * gate + (i >> 1)];
+  return __uint_as_float(i & 1 ? w & 0xffff0000u : w << 16);
+}
+
 // Direct int8 filter|gate layer on the tensor cores over rows [rb, re) at
-// dilation dil -> G: the TC twin of direct_layer<T, true, COND_I8, RS>.
-// The int8 codes of h (Q, through ldmatrix) against the packed int8 kfg,
-// and this layer's int8 c rows (per-lane global loads, rows clamped into
-// [0, T) as in direct_layer) against the packed cond_w, whose K is padded
-// to 32 with zero rows; both sums are exact in int32, then scaled, biased
-// and gated in the order of direct_layer, add_cond and gate_store.  RS
-// stores the gate output as its int8 code at the fixed scale 1/127, as
-// gate_store does, with G's rows at the Q stride (ldq bytes) so that the
-// res/skip products read them through ldmatrix.
-template <typename T, bool RS>
+// dilation dil -> G: the TC twin of direct_layer<T, true, COND, RS>.  The
+// int8 codes of h (Q, through ldmatrix) against the packed int8 kfg, and
+// (COND_I8) this layer's int8 c rows (per-lane global loads, rows clamped
+// into [0, T) as in direct_layer) against the packed cond_w, whose K is
+// padded to 32 with zero rows; both sums are exact in int32, then scaled,
+// biased and gated in the order of direct_layer, add_cond and gate_store.
+// COND_HOIST adds the precomputed pre-activations (hoist_words: bf16 c rows
+// of width Cc = 2 layers * 2R) after the scaled fg sum instead.  RS stores
+// the gate output as its int8 code at the fixed scale 1/127, as gate_store
+// does, with G's rows at the Q stride (ldq bytes) so that the res/skip
+// products read them through ldmatrix.
+template <typename T, bool RS, int COND = COND_I8>
 __device__ void direct_layer_tc(const Params& p, const Flow& f,
                                 const Smem& s, int layer, int rb, int re,
                                 int dil, float a_scale, const void* cglob,
                                 int b, int win0, float c_scale) {
+  static_assert(COND == COND_I8 || COND == COND_HOIST,
+                "int8 tensor-core layers take int8 or hoisted conditioning");
   const int R = p.R, R2 = 2 * R, Cc = p.Cc, lane = threadIdx.x & 31;
   const int nks = R / 32, ntl = R2 / 8, kc = (Cc + 31) / 32;
   const int n_mt = (re - rb + 15) >> 4, ngroups = R / (8 * TJ);
@@ -694,6 +757,16 @@ __device__ void direct_layer_tc(const Params& p, const Flow& f,
   const float* bias = f.cond_b + layer * R2;
   for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
     const int m0 = rb + 16 * (it % n_mt), t0 = TJ * (it / n_mt);
+    uint32_t hc[TJ][4];
+    if constexpr (COND == COND_HOIST) {
+      const __nv_bfloat16* Ch = static_cast<const __nv_bfloat16*>(cglob) +
+                                (size_t)b * p.T * Cc + layer * R2;
+      const int r_lo = min(m0 + frag_row(0), re - 1);
+      const int r_hi = min(m0 + frag_row(2), re - 1);
+      hoist_words<TJ>(hc, Ch + (size_t)min(max(win0 + r_lo, 0), p.T - 1) * Cc,
+                      Ch + (size_t)min(max(win0 + r_hi, 0), p.T - 1) * Cc, R,
+                      t0);
+    }
     int fi[TJ][4] = {}, gi[TJ][4] = {};
     const int8_t* a = s.Q + (size_t)(min(m0 + (lane & 15), re - 1) - dil) *
                       s.ldq + (lane >> 4) * 16;
@@ -712,7 +785,7 @@ __device__ void direct_layer_tc(const Params& p, const Flow& f,
       }
     }
     int fc[TJ][4] = {}, gc[TJ][4] = {};
-    {
+    if constexpr (COND == COND_I8) {
       const int r_lo = min(m0 + frag_row(0), re - 1);
       const int r_hi = min(m0 + frag_row(2), re - 1);
       const int8_t* c_lo = C + (size_t)min(max(win0 + r_lo, 0), p.T - 1) *
@@ -745,8 +818,13 @@ __device__ void direct_layer_tc(const Params& p, const Flow& f,
         if (row >= re) continue;
         float ff = (float)fi[j][i] * (a_scale * ks_w[n]);
         float gg = (float)gi[j][i] * (a_scale * ks_w[R + n]);
-        ff += (float)fc[j][i] * (c_scale * cs_w[n]);
-        gg += (float)gc[j][i] * (c_scale * cs_w[R + n]);
+        if constexpr (COND == COND_HOIST) {
+          ff += hoist_elem(hc[j], i, false);
+          gg += hoist_elem(hc[j], i, true);
+        } else {
+          ff += (float)fc[j][i] * (c_scale * cs_w[n]);
+          gg += (float)gc[j][i] * (c_scale * cs_w[R + n]);
+        }
         const float g = gated(ff + bias[n], gg + bias[R + n]);
         if constexpr (RS)
           static_cast<int8_t*>(s.G)[(size_t)row * s.ldq + n] =
@@ -800,19 +878,22 @@ struct NoSave {
 };
 
 // Direct bf16 filter|gate layer on the tensor cores over rows [rb, re) at
-// dilation dil -> G: the TC twin of direct_layer<bf16, false, COND_DENSE,
+// dilation dil -> G: the TC twin of direct_layer<bf16, false, COND,
 // false>.  The three taps are three bf16 products over R/16 k-steps with A
 // from H through ldmatrix (tap k of row r is row r + (k-1)*dil; rows past
 // re are clamped to re - 1 and never stored) against the packed kfg, then
-// the conditioning 1x1 (cond_tc, c rows clamped into [0, T) as in
-// direct_layer) into its own accumulators, added after the fg sum, biased
-// and gated in the order of direct_layer, add_cond and gate_store.
-template <class Save = NoSave>
+// (COND_DENSE) the conditioning 1x1 (cond_tc, c rows clamped into [0, T)
+// as in direct_layer) into its own accumulators, or (COND_HOIST) the
+// precomputed pre-activations (hoist_words), added after the fg sum,
+// biased and gated in the order of direct_layer, add_cond and gate_store.
+template <int COND = COND_DENSE, class Save = NoSave>
 __device__ inline void direct_layer_tc_bf(const Params& p, const Flow& f,
                                           const Smem& s, int layer, int rb,
                                           int re, int dil, const void* cglob,
                                           int b, int win0,
                                           const Save& save = Save{}) {
+  static_assert(COND == COND_DENSE || COND == COND_HOIST,
+                "bf16 tensor-core layers take dense or hoisted conditioning");
   using bf = __nv_bfloat16;
   const int R = p.R, R2 = 2 * R, lane = threadIdx.x & 31;
   const int nks = R / 16, ntl = R2 / 8;
@@ -825,6 +906,16 @@ __device__ inline void direct_layer_tc_bf(const Params& p, const Flow& f,
   const float* bias = f.cond_b + layer * R2;
   for (int it = threadIdx.x >> 5; it < n_mt * ngroups; it += NT / 32) {
     const int m0 = rb + 16 * (it % n_mt), t0 = TJ * (it / n_mt);
+    uint32_t hc[TJ][4];
+    if constexpr (COND == COND_HOIST) {
+      const bf* Ch = C + layer * R2;
+      const int r_lo = min(m0 + frag_row(0), re - 1);
+      const int r_hi = min(m0 + frag_row(2), re - 1);
+      hoist_words<TJ>(hc,
+                      Ch + (size_t)min(max(win0 + r_lo, 0), p.T - 1) * p.Cc,
+                      Ch + (size_t)min(max(win0 + r_hi, 0), p.T - 1) * p.Cc,
+                      R, t0);
+    }
     float fa[TJ][4] = {}, ga[TJ][4] = {};
     const bf* a = static_cast<const bf*>(s.H) +
                   (size_t)(min(m0 + (lane & 15), re - 1) - dil) * s.ldh +
@@ -844,10 +935,12 @@ __device__ inline void direct_layer_tc_bf(const Params& p, const Flow& f,
       }
     }
     float cf[TJ][4] = {}, cg[TJ][4] = {};
-    const int r_lo = min(m0 + frag_row(0), re - 1);
-    const int r_hi = min(m0 + frag_row(2), re - 1);
-    cond_tc<TJ>(cf, cg, C, p.Cc, min(max(win0 + r_lo, 0), p.T - 1),
-                min(max(win0 + r_hi, 0), p.T - 1), Wc, ntl, t0, R / 8);
+    if constexpr (COND == COND_DENSE) {
+      const int r_lo = min(m0 + frag_row(0), re - 1);
+      const int r_hi = min(m0 + frag_row(2), re - 1);
+      cond_tc<TJ>(cf, cg, C, p.Cc, min(max(win0 + r_lo, 0), p.T - 1),
+                  min(max(win0 + r_hi, 0), p.T - 1), Wc, ntl, t0, R / 8);
+    }
     bf* G = static_cast<bf*>(s.G);
 #pragma unroll
     for (int j = 0; j < TJ; ++j)
@@ -855,6 +948,10 @@ __device__ inline void direct_layer_tc_bf(const Params& p, const Flow& f,
       for (int i = 0; i < 4; ++i) {
         const int row = m0 + frag_row(i), n = frag_col(t0 + j, i);
         if (row >= re) continue;
+        if constexpr (COND == COND_HOIST) {
+          cf[j][i] = hoist_elem(hc[j], i, false);
+          cg[j][i] = hoist_elem(hc[j], i, true);
+        }
         const float fv = fa[j][i] + cf[j][i], gv = ga[j][i] + cg[j][i];
         const float fb = fv + bias[n], gb = gv + bias[R + n];
         save.fg(layer, row, n, fb, gb);
@@ -1047,12 +1144,52 @@ __device__ void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
   }
 }
 
+// The front conv of a hoisted tensor-core net (Params::ftc) over rows [rb,
+// re): acc = sum over taps k of X[row - 1 + k] @ W[k], three bf16 products
+// of K = Rin (a multiple of 16) with A from the window X through ldmatrix
+// (row stride ldx = Rin + 8; rows past re are clamped to re - 1 and never
+// stored) against front_w packed per tap (W: [3][Rin/16][N/8] fragments,
+// this lane's first; ntl = N/8 = R/8).  A warp item is a 16-row m-tile x 4
+// n-tiles, m-tile fastest; epi(row, n, acc) for each of its rows below re.
+template <typename Epi>
+__device__ __forceinline__ void front_tc(const __nv_bfloat16* X, int ldx,
+                                         int rb, int re, int Rin,
+                                         const uint2* W, int ntl, Epi epi) {
+  constexpr int TN = 2 * TJ;             // n-tiles per warp item
+  const int lane = threadIdx.x & 31, n_mt = (re - rb + 15) >> 4;
+  const int nks = Rin / 16;
+  const size_t tap = (size_t)nks * ntl * 32;
+  for (int it = threadIdx.x >> 5; it < n_mt * (ntl / TN); it += NT / 32) {
+    const int m0 = rb + 16 * (it % n_mt), t0 = TN * (it / n_mt);
+    const __nv_bfloat16* a = X + (size_t)(min(m0 + (lane & 15), re - 1) - 1) *
+                                     ldx + (lane >> 4) * 8;
+    float c[TN][4] = {};
+    for (int k = 0; k < 3; ++k)
+      for (int ks = 0; ks < nks; ++ks) {
+        uint32_t af[4];
+        ldsm_x4(af, a + (size_t)k * ldx + ks * 16);
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          mma_bf16(c[j], af, tc_b(W + k * tap, ntl, ks, t0 + j));
+      }
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + frag_row(i);
+        if (row < re) epi(row, frag_col(t0 + j, i), c[j][i]);
+      }
+  }
+}
+
 // One WaveNet coupling net over window rows [o0, o1): input X (shared,
 // rows [o0-EH0-1, o1+EH0+1) valid), conditioning rows from global.  Leaves
 // the zero-conv output (log_s || t) for rows [o0, o1) in s.net.  TC: the
 // filter|gate layers, res/skip and the final 1x1 run on the tensor cores
-// (T is bf16; I8 with COND_I8 and P = 0, with or without RS, or
-// COND_DENSE with P = 0, 6 or 12).
+// (T is bf16; I8 with COND_I8 and P = 0, with or without RS, COND_DENSE
+// with P = 0, 6 or 12, or COND_HOIST with P = 0, with or without I8); with
+// COND_HOIST and p.ftc the front and zero convs too (X's rows then at the
+// stride row_ld_h(Rin, true)).
 template <typename T, bool I8, int COND, bool RS, int P, bool TC,
           class Save = NoSave>
 __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
@@ -1062,10 +1199,14 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   constexpr int EH0 = Geo<P>::EH0, EG0 = Geo<P>::EG0;
   static_assert(!TC || (sizeof(T) == 2 &&
                         ((I8 && COND == COND_I8 && P == 0) ||
-                         (!I8 && !RS && COND == COND_DENSE))),
+                         (!I8 && !RS && COND == COND_DENSE) ||
+                         (!RS && COND == COND_HOIST && P == 0))),
                 "the tensor-core product covers the bf16 direct, i8, i8rs, "
-                "F(2,3) and F(4,3) pairs");
-  const int R = p.R, Rin = p.Rin, ld = s.ldh;
+                "hoisted, hoisted i8, F(2,3) and F(4,3) pairs");
+  // the hoisted tensor-core instances: u/v windows at a padded row stride,
+  // front and zero convs on the tensor cores where p.ftc says so
+  constexpr bool HT = pad_windows(TC, COND);
+  const int R = p.R, Rin = p.Rin, ld = s.ldh, ldx = row_ld_h(Rin, HT);
   const int ngrp = NT / R, grp = threadIdx.x / R, n = threadIdx.x % R;
   T* H = static_cast<T*>(s.H);
   T* G = static_cast<T*>(s.G);
@@ -1095,7 +1236,14 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   };
 
   // h0 = relu(front(X) + b) over [o0-EH0, o1+EH0), rounded, masked
-  {
+  if (HT && p.ftc) {
+    const uint2* W = static_cast<const uint2*>(f.front_w) + (threadIdx.x & 31);
+    front_tc(reinterpret_cast<const __nv_bfloat16*>(X), ldx, o0 - EH0,
+             o1 + EH0, Rin, W, R / 8, [&](int j, int c, float acc) {
+               H[(size_t)j * ld + c] = from_f<T>(
+                   valid(j) ? rnd<T>(fmaxf(acc + f.front_b[c], 0.f)) : 0.f);
+             });
+  } else {
     const int rb = o0 - EH0, re = o1 + EH0;
     const T* W = static_cast<const T*>(f.front_w);
     FOR_ROW_CHUNKS(rb, re) {
@@ -1110,7 +1258,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
         int rk[RM];
 #pragma unroll
         for (int i = 0; i < RM; ++i) rk[i] = rows[i] + k;
-        mm1(acc, X, Rin, rk, Rin, W + (size_t)k * Rin * R + n, R);
+        mm1(acc, X, ldx, rk, Rin, W + (size_t)k * Rin * R + n, R);
       }
       const float bias = f.front_b[n];
 #pragma unroll
@@ -1130,13 +1278,13 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 
   // layer 0 (d=1) over [o0-EG0, o1+EG0): gated -> G
   if constexpr (TC && I8)
-    direct_layer_tc<T, RS>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, a_scale, cglob,
-                           b, win0, c_scale);
+    direct_layer_tc<T, RS, COND>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, a_scale,
+                                 cglob, b, win0, c_scale);
   else if constexpr (TC && P)
     wino_layer_tc<P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
   else if constexpr (TC)
-    direct_layer_tc_bf(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0,
-                       save);
+    direct_layer_tc_bf<COND>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b,
+                             win0, save);
   else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b,
                            win0, c_scale);
@@ -1205,12 +1353,12 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 
   // layer 1 (d=3) over [o0, o1): gated -> G
   if constexpr (TC && I8)
-    direct_layer_tc<T, RS>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b, win0,
-                           c_scale);
+    direct_layer_tc<T, RS, COND>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b,
+                                 win0, c_scale);
   else if constexpr (TC && P)
     wino_layer_tc<P>(p, f, s, 1, o0, o1, 3, cglob, b, win0);
   else if constexpr (TC)
-    direct_layer_tc_bf(p, f, s, 1, o0, o1, 3, cglob, b, win0, save);
+    direct_layer_tc_bf<COND>(p, f, s, 1, o0, o1, 3, cglob, b, win0, save);
   else if constexpr (P)
     wino_layer<T, COND, P>(p, f, s, 1, o0, o1, 3, cglob, b, win0, c_scale);
   else
@@ -1307,7 +1455,19 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   save.rows(ACT_O2, G, o0, o1);
 
   // zero conv (fp32 out): net[j - o0][ch] for ch < 2Rin
-  {
+  if (HT && p.ftc) {
+    // K = R over G into N = 2Rin: a warp item takes 4 n-tiles, tiles t, t+1
+    // as "B0" and t+2, t+3 as "B1" (16 columns on), as the final 1x1
+    const int R2in = 2 * Rin;
+    const uint2* Wz = static_cast<const uint2*>(f.zw) + (threadIdx.x & 31);
+    tc_rows(reinterpret_cast<const __nv_bfloat16*>(G), ld, o0, o1, R, Wz,
+            Wz + TJ * 32, R2in / 8, R2in / (16 * TJ), 2 * TJ,
+            [&](int j, int c, float v0, float v1) {
+              float* net = s.net + (size_t)(j - o0) * R2in;
+              net[c] = v0 + f.zb[c];
+              net[c + 8 * TJ] = v1 + f.zb[c + 8 * TJ];
+            });
+  } else {
     const int R2in = 2 * Rin, rows = o1 - o0;
     const T* Wz = static_cast<const T*>(f.zw);
     for (int idx = threadIdx.x; idx < rows * R2in; idx += NT) {
@@ -1325,10 +1485,12 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 template <typename T, bool I8, int COND, bool RS, int P, bool TC>
 __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
   using Gm = Geo<P>;
+  constexpr bool HT = pad_windows(TC, COND);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int TT = p.TT, L = TT + 2 * Gm::HALO, Rin = p.Rin;
+  const int ldx = row_ld_h(Rin, HT);
   size_t off[11];
-  smem_layout(sizeof(T), I8, TC, p.R, Rin, L, L - 2 * Gm::O1, off);
+  smem_layout(sizeof(T), I8, TC, p.R, Rin, L, L - 2 * Gm::O1, off, HT);
   Smem s;
   s.ldh = row_ld_h(p.R, TC);
   s.ldq = row_ld_q(p.R, TC);
@@ -1361,8 +1523,9 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
   for (int idx = threadIdx.x; idx < L * Rin; idx += NT) {
     const int j = idx / Rin;
     const size_t g = (size_t)(win0 + j) * Rin + idx % Rin;
-    U[idx] = valid(j) ? ug[g] : from_f<T>(0.f);
-    V[idx] = valid(j) ? vg[g] : from_f<T>(0.f);
+    const int x = HT ? j * ldx + idx % Rin : idx;
+    U[x] = valid(j) ? ug[g] : from_f<T>(0.f);
+    V[x] = valid(j) ? vg[g] : from_f<T>(0.f);
   }
   __syncthreads();
 
@@ -1379,10 +1542,10 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
     for (int idx = threadIdx.x; idx < (L - 2 * Gm::O1) * Rin; idx += NT) {
       const int j = Gm::O1 + idx / Rin, ch = idx % Rin;
       const float* net = s.net + (size_t)(j - Gm::O1) * 2 * Rin;
-      float um = to_f(U[j * Rin + ch]) * expf(net[ch]) + net[Rin + ch];
-      s.VA[j * Rin + ch] = to_f(V[j * Rin + ch]) * as[ch] - ab[ch];
+      float um = to_f(U[j * ldx + ch]) * expf(net[ch]) + net[Rin + ch];
+      s.VA[j * Rin + ch] = to_f(V[j * ldx + ch]) * as[ch] - ab[ch];
       um = rnd<T>(um * as[Rin + ch] - ab[Rin + ch]);
-      UM[j * Rin + ch] = from_f<T>(valid(j) ? um : 0.f);
+      UM[j * ldx + ch] = from_f<T>(valid(j) ? um : 0.f);
     }
   }
   __syncthreads();
@@ -1399,7 +1562,7 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
       if (!valid(j)) continue;
       const float* net = s.net + (size_t)(j - Gm::O2) * 2 * Rin;
       const float vn = s.VA[j * Rin + ch] * expf(net[ch]) + net[Rin + ch];
-      const float uf = to_f(UM[j * Rin + ch]) * p.an_s[ch] - p.an_b[ch];
+      const float uf = to_f(UM[j * ldx + ch]) * p.an_s[ch] - p.an_b[ch];
       const float vf = vn * p.an_s[Rin + ch] - p.an_b[Rin + ch];
       const size_t g = (size_t)(win0 + j) * Rin + ch;
       uo[g] = from_f<T>(uf);
@@ -1413,7 +1576,8 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
 template <typename T, bool I8, int COND, bool RS, int P, bool TC = false>
 struct Instance {
   static int launch(Params p, cudaStream_t stream) {
-    const int smem = (int)smem_bytes<P>(sizeof(T), I8, TC, p.R, p.Rin, p.TT);
+    const int smem = (int)smem_bytes<P>(sizeof(T), I8, TC, p.R, p.Rin, p.TT,
+                                        pad_windows(TC, COND));
     cudaError_t e = cudaFuncSetAttribute(
         pair_reverse_kernel<T, I8, COND, RS, P, TC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1441,13 +1605,15 @@ struct Instance {
 // Cc, TT.  K: filter|gate taps per layer; es: storage bytes; i8 / rs:
 // int8 fg convs and cond / res-skip weights (1 byte per element); tc: the
 // weights come packed for the tensor cores (same sizes, except that an
-// int8 cond_w has its K padded to a multiple of 32).
+// int8 cond_w has its K padded to a multiple of 32; front_w and zw, packed
+// where p.ftc is set by the caller, keep theirs).
 inline Params make_params(const void* const* ptrs, const int* dims, int K,
                           size_t es, bool i8, bool rs, bool tc = false) {
   Params p;
   p.B = dims[0]; p.T = dims[1]; p.Rin = dims[2]; p.R = dims[3];
   p.Cc = dims[4]; p.TT = dims[5];
   p.n_t = (p.T + p.TT - 1) / p.TT;
+  p.ftc = 0;
   p.u = ptrs[0]; p.v = ptrs[1]; p.ca = ptrs[2]; p.cb = ptrs[3];
   p.u_out = const_cast<void*>(ptrs[4]);
   p.v_out = const_cast<void*>(ptrs[5]);

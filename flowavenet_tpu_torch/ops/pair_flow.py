@@ -46,12 +46,18 @@ LAUNCHES = {"pair_flow": 0, "pair_flow_i8": 0, "pair_flow_i8rs": 0,
             "pair_flow_wino": 0, "pair_flow_wino4": 0,
             "pair_flow_wino_hoisted": 0, "pair_flow_wino4_hoisted": 0,
             "pair_fwd": 0, "pair_train_fwd": 0, "pair_train_bwd": 0}
+# per reverse-pair kernel, what its last launch ran with: rows per tile
+# ("t_tile") and CTAs ("ctas"); the int8 pairs' output depends on the tile
+# (per-window activation scales), so a plain check runs at this tile
+LAST_LAUNCH: dict = {}
 
 
 def kernel_t_tile(dtype: torch.dtype, r_in: int = 1) -> int:
     """Output rows per CTA of the direct pair: 64 in bf16, 32 in fp32
     (twice as wide shared-memory buffers); halved for R_in > 32 (the deep
-    blocks' u/v windows)."""
+    blocks' u/v windows).  The hoisted tensor-core pairs take
+    :func:`hoisted_t_tile` on the card instead; on the CPU every pair's
+    plain version runs at this tile."""
     tt = 32 if dtype == torch.float32 else 64
     return tt if r_in <= 32 else tt // 2
 
@@ -677,10 +683,48 @@ def uses_tensor_cores(dtype: torch.dtype, *, int8: bool = False,
     tensor cores (mma.sync): with bf16 storage, the direct pair
     (``pair_flow``), the int8 pair (``pair_flow_i8``), the int8 pair with
     int8 res/skip (``pair_flow_i8rs``: those two products on the int8 gate
-    codes, its final 1x1 in bf16) and the F(2,3) and F(4,3) Winograd pairs
-    with dense conditioning (``pair_flow_wino``, ``pair_flow_wino4``).
-    fp32 and the hoisted pairs run on CUDA cores."""
-    return dtype == torch.bfloat16 and not hoisted
+    codes, its final 1x1 in bf16), the direct hoisted pairs
+    (``pair_flow_hoisted``, ``pair_flow_hoisted_i8``: no conditioning
+    product, the precomputed pre-activations added per element) and the
+    F(2,3) and F(4,3) Winograd pairs with dense conditioning
+    (``pair_flow_wino``, ``pair_flow_wino4``).  fp32 and the hoisted
+    Winograd pairs run on CUDA cores."""
+    return dtype == torch.bfloat16 and not (hoisted and phases)
+
+
+def front_zero_tc(r_in: int) -> bool:
+    """Whether a hoisted tensor-core pair also runs its front conv (three
+    taps of K = R_in into N = R) and its zero conv (K = R into N = 2R_in)
+    on the tensor cores: R_in a multiple of 16 (a bf16 k-step, and 2R_in
+    then fills the 4 n-tiles of a warp item).  Otherwise they stay on CUDA
+    cores; the wrapper then passes front_w and zw unpacked."""
+    return r_in % 16 == 0
+
+
+def hoisted_t_tile(B: int, T: int, n_sm: int, smem) -> int:
+    """Rows per CTA of the hoisted tensor-core pairs (one CTA per tile):
+    ``pair_flow_train.balanced_t_tile(shortest=True)`` over the tiles of
+    16-72 rows whose window needs at most 232448 bytes of shared memory
+    (``smem(tile)``, the launcher's ``pair_reverse_smem_bytes``): the
+    fewest waves of B * ceil(T / tile) CTAs over ``n_sm`` SMs, then the
+    shortest tile, since a CTA's time follows its window's rows and a
+    part-filled wave leaves SMs idle.  Shorter tiles pay for their 20 halo
+    rows only where they fill a wave that 16 rows leave part-empty (lj22k
+    block 7 at 4 x 360 frames: 11-12 rows, 120-132 CTAs, 4-9 % less kernel
+    time than 16 rows, 92 CTAs; H100 80GB HBM3, 700 W, chip_smoke.py
+    phase 2d), and they would make the int8 pair's per-window scales, so
+    its output, follow the batch size more often; the floor stays at 16."""
+    from .pair_flow_train import SMEM_MAX, balanced_t_tile
+    return balanced_t_tile(B, T, n_sm, lambda tt: 0 < smem(tt) <= SMEM_MAX,
+                           shortest=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _hoisted_tile(B: int, T: int, r: int, r_in: int, variant: int,
+                  n_sm: int) -> int:
+    lib = _library("pair_flow")
+    return hoisted_t_tile(B, T, n_sm, lambda tt: lib.pair_reverse_smem_bytes(
+        1, variant, 1, r, r_in, tt))
 
 
 def check_tc_geometry(r: int, cc: int) -> None:
@@ -914,7 +958,11 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
         ops = dict(zip(names, padded))
         R, Cc = Rk, Cck
     check_kernel_geometry(R, Cc, tc, threads)
-    ops = {k: (pack_tc_weights(o) if tc and k in _TC_WEIGHTS else
+    # the hoisted tensor-core pairs run their front and zero convs on the
+    # tensor cores too where R_in allows (front_zero_tc)
+    ftc = tc and hoisted and not phases and front_zero_tc(r_in)
+    packed = _TC_WEIGHTS + (("front_w", "zw") if ftc else ())
+    ops = {k: (pack_tc_weights(o) if tc and k in packed else
                _pack_int8(o) if k in int8_w else o).contiguous()
            for k, o in ops.items()}
     crs = None
@@ -929,6 +977,10 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
         counter = ("pair_flow_wino" if phases == 6 else "pair_flow_wino4"
                    ) + ("_hoisted" if hoisted else "")
         t_tile = wino_t_tile(dt, phases)
+    elif tc and hoisted:
+        variant, counter = _VARIANTS[int8, rs, hoisted]
+        n_sm = torch.cuda.get_device_properties(u.device).multi_processor_count
+        t_tile = _hoisted_tile(B, T, R, r_in, variant, n_sm)
     else:
         variant, counter = _VARIANTS[int8, rs, hoisted]
         t_tile = kernel_t_tile(dt, r_in)
@@ -948,13 +1000,14 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         args = ((dcode, variant) + ((int(hoisted),) if phases else ())
-                + (int(tc),))
+                + (2 if ftc else int(tc),))
         err = getattr(lib, f"{pre}_launch")(
             *args, ctypes.cast(ptr_arr, ctypes.c_void_p),
             ctypes.cast(dims, ctypes.c_void_p), stream)
     if err != 0:
         raise RuntimeError(f"{counter} kernel launch failed: cudaError {err}")
     LAUNCHES[counter] += 1
+    LAST_LAUNCH[counter] = {"t_tile": t_tile, "ctas": B * -(-T // t_tile)}
     return u_out, v_out
 
 
@@ -987,9 +1040,10 @@ def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,
     :func:`pair_reverse_operands_hoisted` (or its ``_int8`` twin, with
     ``int8``).  Returns (u', v').
 
-    A CPU tensor runs the plain version at the kernel's tile
-    (:func:`kernel_t_tile`); a CUDA tensor launches the kernel (or
-    raises)."""
+    A CPU tensor runs the plain version at the tile of
+    :func:`kernel_t_tile`; a CUDA tensor launches the kernel (or raises),
+    the hoisted bf16 pairs on the tile of :func:`hoisted_t_tile` (recorded
+    in :data:`LAST_LAUNCH`; the int8 pair's output depends on it)."""
     if int8 and not hoisted and c_row_scales is None:
         raise ValueError("the int8 pair takes per-row c scales [B, 2]")
     if u.device.type == "cpu":

@@ -224,7 +224,7 @@ def balanced_t_tile(B: int, T: int, n_sm: int, fits, *,
     tools/train_pair_ab.py --fwd-tiles)."""
     fit = [tt for tt in range(16, 73) if fits(tt)]
     if not fit:
-        raise ValueError("no tile of the tensor-core training pair fits in "
+        raise ValueError("no tile of the tensor-core pair fits in "
                          f"{SMEM_MAX} bytes of shared memory")
 
     def waves(tt):

@@ -176,7 +176,7 @@ def test_wino_kernel_matches_plain(cuda, phases, mode):
 @pytest.mark.parametrize("kind", ["hoisted", "hoisted_i8", "i8rs"])
 def test_hoisted_and_rs_kernels_match_plain(cuda, kind):
     """pair_flow_hoisted (fp32 and bf16), pair_flow_hoisted_i8 and
-    pair_flow_i8rs (bf16) vs pair_reverse_ref at the kernel's tile, block
+    pair_flow_i8rs (bf16) vs pair_reverse_ref at the launch's tile, block
     5's widths (R_in 32, hoisted c 1024 wide) or block 0's (i8rs): rel <=
     1e-4 in fp32, <= 1e-2 with corr >= 0.9999 otherwise, and the update
     bar."""
@@ -209,7 +209,8 @@ def test_hoisted_and_rs_kernels_match_plain(cuda, kind):
         got = pf.fused_pair_reverse(u, v, *c, ops, **kw)
         torch.cuda.synchronize()
         assert pf.LAUNCHES[name] == n0 + 1
-        tt = pf.kernel_t_tile(dt, r_in)
+        # the launch's tile: the int8 pairs' per-window scales follow it
+        tt = pf.LAST_LAUNCH[name]["t_tile"]
         want = pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt, **kw)
         # zw = zb = 0 (operands 11, 12; 10, 11 without cond_w)
         zi = (11, 12) if kind == "i8rs" else (10, 11)
@@ -545,9 +546,12 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
     """Inputs and a launcher of a tensor-core pair at lj22k block bi's widths
     (or ``pair``'s R): ``i8`` (pair_flow_i8, int8 codes of c with per-row
     scales), ``i8rs`` (pair_flow_i8rs, the same with int8 res/skip),
-    ``direct`` (pair_flow), ``wino`` (pair_flow_wino, F(2,3)) or ``wino4``
-    (pair_flow_wino4, F(4,3)), all with bf16 storage; returns
-    (kernel(rows), plain(rows), passthru(rows), counter name)."""
+    ``direct`` (pair_flow), ``hoisted`` / ``hoisted_i8`` (pair_flow_hoisted
+    / pair_flow_hoisted_i8: c through the hoist matmul), ``wino``
+    (pair_flow_wino, F(2,3)) or ``wino4`` (pair_flow_wino4, F(4,3)), all
+    with bf16 storage; returns (kernel(rows), plain(rows), passthru(rows),
+    counter name).  The plain version runs at the tile of the kernel's
+    last launch (the int8 pairs' per-window scales follow it)."""
     r_in, cc = 1 << bi, 80 << bi
     dt = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(11 + bi)
@@ -580,6 +584,28 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
                 int8=int8, c_row_scales=None if crs is None else crs[rows])
         name = {"i8": "pair_flow_i8", "i8rs": "pair_flow_i8rs",
                 "direct": "pair_flow"}[kind]
+    elif kind in ("hoisted", "hoisted_i8"):
+        int8 = kind == "hoisted_i8"
+        make = (pf.pair_reverse_operands_hoisted_int8 if int8
+                else pf.pair_reverse_operands_hoisted)
+        ops, (we, wo) = make(pair, dt)
+        c = [pf.hoist_cond(c[0], we), pf.hoist_cond(c[1], wo)]
+        name = "pair_flow_" + kind
+
+        def kern(rows, ops=ops):
+            return pf.fused_pair_reverse(u[rows], v[rows], c[0][rows],
+                                         c[1][rows], ops, int8=int8,
+                                         hoisted=True)
+
+        def plain(rows, ops=ops):
+            return pf.pair_reverse_ref(
+                u[rows], v[rows], c[0][rows], c[1][rows], ops,
+                t_tile=pf.LAST_LAUNCH[name]["t_tile"], int8=int8,
+                hoisted=True)
+        # zw = zb = 0 (operands 10, 11: the hoisted family has no cond_w)
+        ops_pass = tuple(torch.zeros_like(o) if i in (10, 11) else o
+                         for i, o in enumerate(ops))
+        return kern, plain, lambda rows: plain(rows, ops=ops_pass), name
     else:
         P = 6 if kind == "wino" else 12
         ops = (pf.pair_reverse_operands_wino(pair, dt) if P == 6
@@ -599,9 +625,12 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
 
 
 TC_CASES = [("i8", 0), ("i8", 3), ("wino", 1), ("direct", 0), ("direct", 3),
-            ("wino4", 1), ("i8rs", 0), ("i8rs", 3)]
+            ("wino4", 1), ("i8rs", 0), ("i8rs", 3), ("hoisted", 4),
+            ("hoisted", 7), ("hoisted_i8", 5), ("hoisted_i8", 7)]
 TC_OPTIONS = {"i8": dict(int8=True), "i8rs": dict(int8=True, rs=True),
-              "direct": {}, "wino": dict(phases=6), "wino4": dict(phases=12)}
+              "direct": {}, "wino": dict(phases=6), "wino4": dict(phases=12),
+              "hoisted": dict(hoisted=True),
+              "hoisted_i8": dict(int8=True, hoisted=True)}
 
 
 @pytest.mark.cuda
@@ -620,7 +649,7 @@ def test_tc_kernels_match_plain(cuda, kind, bi):
     torch.cuda.synchronize()
     assert pf.LAUNCHES[name] == n0 + 1
     _check(got, plain(rows), passthru(rows), 1e-2,
-           0.9999 if kind.startswith("i8") else 0.999)
+           0.9999 if "i8" in kind else 0.999)
 
 
 @pytest.mark.cuda
@@ -628,11 +657,14 @@ def test_tc_kernels_match_plain(cuda, kind, bi):
 def test_tc_kernels_are_deterministic_and_row_local(cuda, kind, bi):
     """Two launches give the same bits, and a batch row computed alone
     equals the same row computed beside another (one CTA per (row, tile);
-    every scale is row-local)."""
-    kern, _, _, _ = _tc_case(kind, bi, cuda)
+    every scale is row-local; at T = 1000 the hoisted pairs' tile rule
+    gives one and two rows the same tile)."""
+    kern, _, _, name = _tc_case(kind, bi, cuda)
     a = kern(slice(0, 2))
+    tile = pf.LAST_LAUNCH[name]["t_tile"]
     b = kern(slice(0, 2))
     alone = kern(slice(1, 2))
+    assert pf.LAST_LAUNCH[name]["t_tile"] == tile
     torch.cuda.synchronize()
     for x, y, z in zip(a, b, alone):
         assert torch.equal(x, y)
@@ -642,16 +674,18 @@ def test_tc_kernels_are_deterministic_and_row_local(cuda, kind, bi):
 @pytest.mark.cuda
 def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
     """The C launchers are the guard against a wrapper that forgets to pad:
-    R = 16 or Cc = 88 on a tensor-core instance (i8rs included), R = 48
-    (not dividing the 512 threads) and Cc = 79 anywhere, and a tc flag
-    that does not name the instance (the bf16 i8rs pair off the tensor
-    cores among them), return a cudaError (cudaErrorInvalidValue) before
-    anything is launched."""
+    R = 16 or Cc = 88 on a tensor-core instance (i8rs and the hoisted pairs
+    included), R = 48 (not dividing the 512 threads) and Cc = 79 anywhere,
+    hoisted c not 4R wide, and a tc flag that does not name the instance
+    (the bf16 i8rs and hoisted pairs off the tensor cores among them; tc =
+    2, the front and zero convs on the tensor cores, anywhere but a hoisted
+    pair with R_in a multiple of 16), return a cudaError
+    (cudaErrorInvalidValue) before anything is launched."""
     import ctypes
     ptrs = (ctypes.c_void_p * 26)()            # never dereferenced
 
-    def dims(R, Cc, TT):
-        return (ctypes.c_int * 6)(1, 120, 2, R, Cc, TT)
+    def dims(R, Cc, TT, Rin=2):
+        return (ctypes.c_int * 6)(1, 120, Rin, R, Cc, TT)
     direct = pf._library("pair_flow").pair_reverse_launch
     wino = pf._library("pair_flow_wino").pair_wino_launch
     bad = [direct(1, 0, 1, ptrs, dims(16, 160, 64), None),     # tc, R=16
@@ -664,6 +698,16 @@ def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
            direct(1, 2, 0, ptrs, dims(256, 160, 64), None),    # i8rs off
            direct(1, 2, 1, ptrs, dims(16, 160, 64), None),     # i8rs R=16
            direct(1, 2, 1, ptrs, dims(32, 88, 64), None),      # i8rs Cc=88
+           direct(1, 3, 0, ptrs, dims(256, 1024, 32), None),   # hoisted off
+           direct(1, 4, 0, ptrs, dims(256, 1024, 32), None),   # hoisted_i8
+           direct(1, 3, 1, ptrs, dims(16, 64, 32), None),      # R=16
+           direct(1, 4, 1, ptrs, dims(16, 64, 32), None),
+           direct(1, 3, 1, ptrs, dims(256, 1040, 32), None),   # Cc != 4R
+           direct(1, 4, 1, ptrs, dims(256, 512, 32), None),
+           direct(0, 3, 0, ptrs, dims(256, 1040, 32), None),
+           direct(1, 3, 2, ptrs, dims(256, 1024, 32, 8), None),  # tc=2
+           direct(1, 0, 2, ptrs, dims(256, 160, 64, 16), None),
+           direct(0, 3, 2, ptrs, dims(256, 1024, 32, 16), None),
            wino(1, 6, 0, 1, ptrs, dims(16, 160, 72), None),
            wino(1, 12, 0, 1, ptrs, dims(16, 160, 60), None),
            wino(1, 12, 0, 1, ptrs, dims(64, 79, 60), None),
@@ -674,7 +718,8 @@ def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["i8", "direct", "wino", "wino4", "i8rs"])
+@pytest.mark.parametrize("kind", ["i8", "direct", "wino", "wino4", "i8rs",
+                                  "hoisted", "hoisted_i8"])
 def test_tc_padded_narrow_pair_matches_plain(cuda, kind):
     """A filter_size 16 pair (R = 16 divides the threads but is no multiple
     of 32) runs on its tensor-core instance padded to R = 32, and matches
@@ -692,7 +737,7 @@ def test_tc_padded_narrow_pair_matches_plain(cuda, kind):
     torch.cuda.synchronize()
     assert pf.LAUNCHES[name] == n0 + 1
     _check(got, plain(rows), passthru(rows), 1e-2,
-           0.9999 if kind.startswith("i8") else 0.999)
+           0.9999 if "i8" in kind else 0.999)
 
 
 def _odd_width_model(name: str):

@@ -1,7 +1,8 @@
 """PyTorch port, the tensor-core pair kernels' layouts (ops/pair_flow.py,
 csrc/pair_flow_common.cuh): the fragment-order weight packing that the
 wrapper hands to ``pair_flow``, ``pair_flow_i8``, ``pair_flow_i8rs``,
-``pair_flow_wino`` and ``pair_flow_wino4``, emulated lane by lane as the
+``pair_flow_hoisted``, ``pair_flow_hoisted_i8``, ``pair_flow_wino`` and
+``pair_flow_wino4``, emulated lane by lane as the
 PTX ISA lays out the mma.sync operands (with ``pair_flow_i8rs``'s int8
 res/skip products on the gate codes), and the wrapper's geometry checks.  No JAX and no card:
 the kernels themselves are held against their plain versions by
@@ -148,19 +149,20 @@ def test_tc_geometry_check_rejects_other_widths():
             pf.check_tc_geometry(r, cc)
 
 
-def test_uses_tensor_cores_only_on_the_five_redesigned_instances():
-    """pair_flow, pair_flow_i8, pair_flow_i8rs, pair_flow_wino and
-    pair_flow_wino4 in bf16 only; fp32 and the hoisted pairs stay on CUDA
-    cores."""
+def test_uses_tensor_cores_only_on_the_seven_redesigned_instances():
+    """pair_flow, pair_flow_i8, pair_flow_i8rs, pair_flow_hoisted,
+    pair_flow_hoisted_i8, pair_flow_wino and pair_flow_wino4 in bf16 only;
+    fp32 and the hoisted Winograd pairs stay on CUDA cores."""
     bf, f32 = torch.bfloat16, torch.float32
     on = [dict(dtype=bf), dict(dtype=bf, int8=True),
           dict(dtype=bf, int8=True, rs=True), dict(dtype=bf, phases=6),
-          dict(dtype=bf, phases=12)]
+          dict(dtype=bf, phases=12), dict(dtype=bf, hoisted=True),
+          dict(dtype=bf, int8=True, hoisted=True)]
     off = [dict(dtype=f32), dict(dtype=f32, int8=True),
            dict(dtype=f32, int8=True, rs=True),
            dict(dtype=f32, phases=6), dict(dtype=f32, phases=12),
-           dict(dtype=bf, hoisted=True), dict(dtype=bf, int8=True,
-                                              hoisted=True),
+           dict(dtype=f32, hoisted=True),
+           dict(dtype=f32, int8=True, hoisted=True),
            dict(dtype=bf, phases=6, hoisted=True),
            dict(dtype=bf, phases=12, hoisted=True)]
     assert all(pf.uses_tensor_cores(**kw) for kw in on)
