@@ -7,7 +7,7 @@
    once (one nvcc each) and prints the build times, ptxas' register and
    spill lines, the card's name and power limit, the versions, and the
    registers and local (spill) bytes per thread of each bf16 reverse pair
-   instance (cudaFuncGetAttributes; seven of them run on the tensor cores).
+   instance (cudaFuncGetAttributes; all nine run on the tensor cores).
 2. Holds the direct reverse pair kernel against its plain PyTorch version
    (``pair_reverse_ref``, TF32 off) at the lj22k geometry of every block
    the kernel routes (R_in = 2^bi, Cc = 80*2^bi, R = 256), at the batch
@@ -24,7 +24,10 @@
    blocks 0-2, fp32 and bf16), the hoisted pairs (blocks 4-7 fp32/bf16;
    int8 blocks 5-7, with the hoist matmul's ms; the plain version at the
    tile the launch recorded; the tensor-core rows with their tile, CTAs
-   and the profiler's kernel ms) and the int8 res/skip pair (blocks 0-4).
+   and the profiler's kernel ms) and the int8 res/skip pair (blocks 0-4);
+   the bf16 Winograd rows print their instance's registers and local bytes,
+   and each block's hoisted Winograd time is printed beside its dense
+   twin's.
    Phase 2d (``hoisted_sweep``) runs the hoisted tensor-core pairs over
    several tiles and with their front and zero convs on CUDA cores, each
    point against its plain version.  Phase 2c (``resblock_checks``) runs
@@ -44,8 +47,10 @@
    kernels take only zero-padded, on the int8, FWN_INT8=0, FWN_WINO4=1
    and FWN_INT8_RS=1 routes (filter_size 48 also on FWN_INT8=0
    FWN_HOISTED=1 and FWN_HOISTED=1) against their plain route at the same
-   bar, and holds the bf16 forward and training pairs of their block 0
-   against the plain versions at phase 4's bars.
+   bar, holds the bf16 forward and training pairs of their block 0
+   against the plain versions at phase 4's bars, and (filter_size 48) the
+   two hoisted Winograd pairs of block 0 against theirs at phase 2b's bf16
+   bars.
 4. Holds ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` against
    their plain versions at the lj22k training geometry of blocks 0-3
    (B = 8, T_k = 6400 >> (bi+1)) in fp32 and bf16 (bars in
@@ -313,6 +318,12 @@ def variant_checks(params, cfg, B: int, T: int, dev):
 
     rows = []
     for name, (blocks, modes) in VARIANTS.items():
+        attrs = ""
+        if name.startswith("pair_flow_wino"):
+            regs, local = pf.kernel_attrs(
+                torch.bfloat16, phases=12 if "wino4" in name else 6,
+                hoisted=name.endswith("hoisted"))
+            attrs = f" numRegs={regs} localSizeBytes={local}"
         for bi in blocks:
             r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
             pair = fwn._index(fwn._pair_params(params["blocks"][bi]), 0)
@@ -422,7 +433,8 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                       + (f" profiler_kernel={kernel_ms:.4f} ms" if kernel_ms
                          is not None else "")
                       + (f" hoist_matmul={hoist_ms:.3f} ms" if hoist_ms
-                         is not None else ""), flush=True)
+                         is not None else "")
+                      + (attrs if mode == "bf16" else ""), flush=True)
                 bars = {"fp32": (1e-4, -1.0), "bf16": (1e-2, 0.999),
                         "int8": (1e-2, 0.9999)}[mode]
                 check(rel <= bars[0] and corr >= bars[1] and upd <= bars[0],
@@ -434,6 +446,16 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                              "plain_ms": plain_ms, "bound_ms": bound[0],
                              "bound_by": bound[1], "hoist_ms": hoist_ms,
                              "kernel_ms": kernel_ms, **launch})
+    # each block's hoisted Winograd pair beside its dense twin, same run
+    for twin in ("pair_flow_wino", "pair_flow_wino4"):
+        for r in rows:
+            if r["name"] == twin + "_hoisted" and r["mode"] == "bf16":
+                d = next(x for x in rows if x["name"] == twin
+                         and x["mode"] == "bf16" and x["block"] == r["block"])
+                r["twin_ms"] = d["ms"]
+                print(f"{r['name']} block {r['block']} bf16: {r['ms']:.3f} ms"
+                      f" vs {twin} {d['ms']:.3f} ms "
+                      f"({100 * (r['ms'] / d['ms'] - 1):+.1f} %)", flush=True)
     return rows
 
 
@@ -1215,7 +1237,65 @@ def odd_width_phase(dev):
             out[f"{mname} {name}"] = (rel, corr)
         out[f"{mname} training pairs"] = odd_width_train_pair(
             mname, params, cfg, dev)
+        if "filter_size" in kw:
+            out[f"{mname} hoisted Winograd pairs"] = odd_width_wino_hoisted(
+                mname, params, cfg, dev)
     return out
+
+
+def odd_width_wino_hoisted(mname: str, params, cfg, dev, tk: int = 1500):
+    """Phase 3b's hoisted Winograd pairs: ``pair_flow_wino_hoisted`` and
+    ``pair_flow_wino4_hoisted`` in bf16 on block 0's first pair of the
+    filter_size 48 model (R run as 64, its hoisted c as 4 * 64 = 256), with
+    0.05-scale zero-conv weights as in phase 2b, two rows of ``tk``
+    frames, one launch each, vs ``pair_reverse_wino_ref(hoisted=True)`` at
+    phase 2b's bf16 bars (rel <= 1e-2, corr >= 0.999, update_err <=
+    1e-2).  Returns the worst (rel, corr)."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    pair = tree_map(lambda l: l.clone(),
+                    fwn._index(fwn._pair_params(params["blocks"][0]), 0))
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    zero = pair["coupling"]["zero"]
+    zero["w"] = 0.05 * torch.randn(zero["w"].shape, generator=g, device=dev)
+    dt, R = torch.bfloat16, cfg.model.filter_size
+    u, v = (torch.randn(2, tk, 1, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    ca, cb = (torch.rand(2, tk, cfg.model.num_mels, generator=g,
+                         device=dev).to(dt) for _ in range(2))
+    rk, cck = pf.kernel_widths(R, 4 * R, True, hoisted=True)
+    worst = (0.0, 1.0)
+    for name, P in (("pair_flow_wino_hoisted", 6),
+                    ("pair_flow_wino4_hoisted", 12)):
+        ops, (we, wo) = pf.pop_cond_w(
+            pf.pair_reverse_operands_wino(pair, dt) if P == 6
+            else pf.pair_reverse_operands_wino4(pair, dt))
+        c = (pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo))
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = pf.fused_pair_reverse_wino(u, v, *c, ops, hoisted=True)
+        torch.cuda.synchronize()
+        counts = _counts()
+        check(counts == {name: 1}, (mname, name, "launches", counts))
+        want = pf.pair_reverse_wino_ref(u, v, *c, ops, t_tile=160 * P,
+                                        hoisted=True)
+        passthru = pf.pair_reverse_wino_ref(
+            u, v, *c, tuple(torch.zeros_like(o) if i in (10, 11) else o
+                            for i, o in enumerate(ops)),
+            t_tile=160 * P, hoisted=True)
+        errs = [_errors(a, b) for a, b in zip(got, want)]
+        rel, corr = max(e[1] for e in errs), min(e[2] for e in errs)
+        upd = _update_err(got, want, passthru)
+        print(f"{mname} {name} block 0 bf16 T_k={tk} R={R} (run as {rk}) "
+              f"c={4 * R} (run as {cck}) vs plain: rel={rel:.3e} "
+              f"corr={corr:.7f} update_err={upd:.3e}", flush=True)
+        check(rel <= 1e-2 and corr >= 0.999 and upd <= 1e-2,
+              (mname, name, rel, corr, upd))
+        worst = (max(worst[0], rel), min(worst[1], corr))
+    return worst
 
 
 def odd_width_train_pair(mname: str, params, cfg, dev):
@@ -1831,6 +1911,9 @@ def main() -> int:
         if swept:
             e["launches_from"] = ("phase 2b, one bf16 pair per lj22k block "
                                   "0-2; no model route runs it")
+            # each block's time beside its dense twin's in this run
+            e["per_block"] = [{k: r[k] for k in ("block", "ms", "twin_ms")}
+                              for r in sel]
         return e
 
     def rentry(name, src_line):

@@ -82,7 +82,7 @@ int pair_reverse_smem_bytes(int dtype, int variant, int tc, int R, int Rin,
     return -1;
   return (int)pf::smem_bytes<0>(
       dtype == 0 ? 4 : 2, kI8[variant], tc != 0, R, Rin, TT,
-      pf::pad_windows(tc != 0, variant >= 3 ? COND_HOIST : COND_DENSE));
+      pf::pad_windows(tc != 0, variant >= 3 ? COND_HOIST : COND_DENSE, 0));
 }
 
 int pair_reverse_threads() { return pf::NT; }
@@ -117,8 +117,9 @@ int pair_reverse_launch(int dtype, int variant, int tc,
                        [&](auto k) { return k.launch(p, st); });
 }
 
-// out = registers and local (spill) bytes per thread of the (dtype,
-// variant) instance, from cudaFuncGetAttributes.  Returns its cudaError_t.
+// out[3] = registers and local (spill) bytes per thread of the (dtype,
+// variant) instance and the dynamic shared memory its last launch set,
+// from cudaFuncGetAttributes.  Returns its cudaError_t.
 int pair_reverse_attrs(int dtype, int variant, int* out) {
   return with_instance(dtype, variant,
                        [&](auto k) { return k.attrs(out); });

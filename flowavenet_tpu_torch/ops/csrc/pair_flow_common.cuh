@@ -34,10 +34,10 @@
 // 1x1 and filter|gate product on mma.sync: m16n8k16 bf16 -> fp32 and
 // m16n8k32 s8 -> s32.  A warp owns a 16-row m-tile and two n-tiles of the
 // filter together with the same two of the gate (or res with skip-0; one
-// of each in the F(4,3) layer), so one lane holds f and g of the same
-// (row, column) and gates in registers.  A comes from shared memory
-// through ldmatrix, one row address per lane (a tap's shift and the
-// ragged-edge clamp are just row addresses); the window buffers get a
+// of each in the F(4,3) and hoisted F(2,3) layers), so one lane holds f
+// and g of the same (row, column) and gates in registers.  A comes from
+// shared memory through ldmatrix, one row address per lane (a tap's shift
+// and the ragged-edge clamp are just row addresses); the window buffers get a
 // padded row stride (ldh, ldq) so that the 8 rows of an ldmatrix fall in
 // distinct banks.  The conditioning A fragments are read per lane from
 // global memory (a c row is re-read once per column-group warp, 16 times
@@ -62,7 +62,7 @@
 // that an ldmatrix's 8 rows fall in distinct banks) into N = R, the zero
 // conv as K = R over G into N = 2*R_in with an fp32 result.
 //
-// TC is set on exactly seven reverse-pair instances, all with bf16 storage:
+// TC is set on exactly nine reverse-pair instances, all with bf16 storage:
 // the direct pair (pair_flow.cu variant 0, pair_flow), the int8 pair
 // (variant 1, pair_flow_i8 on the main path), the int8 res/skip pair
 // (variant 2, pair_flow_i8rs: its res|skip-0 and skip-1 products take the
@@ -72,10 +72,11 @@
 // bodies without the conditioning product; each lane adds the precomputed
 // pre-activations of the elements it holds, read as bf16x2 words before
 // the taps' products), and the F(2,3) and F(4,3) Winograd pairs with dense
-// conditioning (pair_flow_wino.cu P = 6 and 12, pair_flow_wino and
-// pair_flow_wino4); the training pairs (pair_flow_train.cu) run the direct
-// bf16 body forward.  Every fp32 instance and the hoisted Winograd pairs
-// run the CUDA-core product.  int8 sums are exact either way; a bf16
+// or hoisted conditioning (pair_flow_wino.cu P = 6 and 12, pair_flow_wino,
+// pair_flow_wino4 and their _hoisted twins, which add the pre-activations
+// of each output of a group as the direct hoisted pairs do); the training
+// pairs (pair_flow_train.cu) run the direct bf16 body forward.  Every fp32
+// instance runs the CUDA-core product.  int8 sums are exact either way; a bf16
 // product is exact in fp32, so the tensor cores change only the fp32
 // summation order.  The tensor-core instances take R a multiple of 32 and
 // Cc of 16, every instance R dividing NT and R, Cc multiples of 4; the
@@ -243,10 +244,13 @@ __host__ __device__ inline int row_ld_q(int R, bool tc) {
 }
 
 // Whether an instance keeps its u/v windows at the padded row stride
-// row_ld_h(Rin, true): the hoisted tensor-core instances, whose front conv
-// may read them through ldmatrix (Params::ftc).
-__host__ __device__ constexpr bool pad_windows(bool tc, int cond) {
-  return tc && cond == COND_HOIST;
+// row_ld_h(Rin, true): the direct hoisted tensor-core instances, whose
+// front conv may read them through ldmatrix (Params::ftc).  The hoisted
+// Winograd instances (P != 0) keep the unpadded stride: their R_in (1-4 at
+// lj22k blocks 0-2) is no multiple of 16, so their front and zero convs
+// stay on CUDA cores.
+__host__ __device__ constexpr bool pad_windows(bool tc, int cond, int P) {
+  return tc && cond == COND_HOIST && P == 0;
 }
 
 // Byte offsets of the Smem regions for a window of L rows whose first net
@@ -986,8 +990,16 @@ __device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t k) {
   return bf2_fma(a, k, BF2_MINUS_ZERO);
 }
 
-// wino_in<bf16> of the 6 taps on two channels at once: the same operations
-// in the same order, each rounded once.
+// wino_in<bf16> of the 4 or 6 taps on two channels at once: the same
+// operations in the same order, each rounded once.
+__device__ __forceinline__ void wino_in_bf2(const uint32_t (&d)[4],
+                                            uint32_t (&t)[4]) {
+  t[0] = bf2_sub(d[0], d[2]);
+  t[1] = bf2_add(d[1], d[2]);
+  t[2] = bf2_sub(d[2], d[1]);
+  t[3] = bf2_sub(d[1], d[3]);
+}
+
 __device__ __forceinline__ void wino_in_bf2(const uint32_t (&d)[6],
                                             uint32_t (&t)[6]) {
   t[0] = bf2_add(bf2_sub(bf2_mul(d[0], BF2_FOUR), bf2_mul(d[2], BF2_FIVE)),
@@ -1007,19 +1019,22 @@ __device__ __forceinline__ void wino_in_bf2(const uint32_t (&d)[6],
 // the m16n8k16 fragment is group row lo / hi (r & 1), channels 2(lane%4)
 // + {0, 1} + 8(r >> 1); h_lo / h_hi point at that lane's first tap (row
 // base - dil, channel 2(lane%4) of the k-step) and step is dil rows.
-// F(2,3) transforms in fp32 with each operation rounded (wino_in<bf16>);
-// F(4,3) in bf16x2 (wino_in_bf2, the same bits in a quarter of the
-// instructions, which its 6-tap transform needs).
-template <int P>
+// BF2: the transform in bf16x2 (wino_in_bf2: the same bits as wino_in<bf16>
+// in a fraction of the instructions and registers), as F(4,3)'s 6-tap
+// transform needs and the hoisted F(2,3) pair takes; otherwise (the dense
+// F(2,3) pair) in fp32 with each operation rounded (wino_in<bf16>).
+template <int P, bool BF2 = P == 12>
 __device__ __forceinline__ void wino_frags(uint32_t (&af)[P == 6 ? 4 : 6][4],
                                            const __nv_bfloat16* h_lo,
                                            const __nv_bfloat16* h_hi,
                                            size_t step) {
+  static_assert(P == 6 || BF2, "F(4,3) transforms in bf16x2");
   using bf = __nv_bfloat16;
+  constexpr int K = P == 6 ? 4 : 6;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const bf* h = (r & 1 ? h_hi : h_lo) + 8 * (r >> 1);
-    if constexpr (P == 6) {
+    if constexpr (!BF2) {
       float dx[4], dy[4], tx[4], ty[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -1033,39 +1048,48 @@ __device__ __forceinline__ void wino_frags(uint32_t (&af)[P == 6 ? 4 : 6][4],
 #pragma unroll
       for (int k = 0; k < 4; ++k) af[k][r] = pack_bf16x2(tx[k], ty[k]);
     } else {
-      uint32_t d[6], t[6];
+      uint32_t d[K], t[K];
 #pragma unroll
-      for (int k = 0; k < 6; ++k)
+      for (int k = 0; k < K; ++k)
         d[k] = *reinterpret_cast<const uint32_t*>(h + k * step);
       wino_in_bf2(d, t);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) af[k][r] = t[k];
+      for (int k = 0; k < K; ++k) af[k][r] = t[k];
     }
   }
 }
 
 // Winograd filter|gate layer on the tensor cores over window rows [rb, re)
-// at dilation dil -> G: the TC twin of wino_layer<bf16, COND_DENSE, P>,
-// F(2,3) (P = 6) or F(4,3) (P = 12).  The m dimension is the layer's
-// groups (F(2,3) d=1 rows 2j, 2j+1, d=3 6j+r, 6j+r+3; F(4,3) d=1 4j..4j+3,
-// d=3 12j+r, +3, +6, +9).  Each lane loads the K taps of its 8 A elements
-// (2 groups x 4 channels) from H and builds the K plane fragments
+// at dilation dil -> G: the TC twin of wino_layer<bf16, COND, P>, F(2,3)
+// (P = 6) or F(4,3) (P = 12).  The m dimension is the layer's groups
+// (F(2,3) d=1 rows 2j, 2j+1, d=3 6j+r, 6j+r+3; F(4,3) d=1 4j..4j+3, d=3
+// 12j+r, +3, +6, +9).  Each lane loads the K taps of its 8 A elements (2
+// groups x 4 channels) from H and builds the K plane fragments
 // (wino_frags), so a transform is computed once per warp fragment; K
 // accumulator sets take the products with the packed G-transformed
-// weights, wino_out runs in fp32 on the lane's own accumulators, and the
-// conditioning 1x1 runs as one bf16 product per output e of a group (c
-// rows base + e*dil), added after wino_out as add_cond does.  A warp item
-// spans TW n-tiles of the filter and the same of the gate: TJ = 2 for
-// F(2,3); 1 for F(4,3), whose 6 planes x f, g x 4 fp32 accumulators per
-// n-tile would not fit the 128 registers a thread of 512 has at TW = 2.
-template <int P>
+// weights, and wino_out runs in fp32 on the lane's own accumulators.  The
+// conditioning of output e of a group (c rows base + e*dil, clamped into
+// [0, T)) is added after wino_out and before the bias, as add_cond does:
+// COND_DENSE runs the conditioning 1x1 as one bf16 product per e;
+// COND_HOIST adds the precomputed pre-activations of the lane's elements,
+// the TW x 4 bf16x2 words of hoist_words, loaded per e once the plane
+// accumulators are dead (loaded before the taps' products instead, the
+// M x TW x 4 words spill at F(4,3)).  A warp item spans TW n-tiles of the
+// filter and the same of the gate: TJ = 2 for the dense F(2,3); 1 for
+// F(4,3), whose 6 planes x f, g x 4 fp32 accumulators per n-tile would not
+// fit the 128 registers a thread of 512 has at TW = 2, and for the hoisted
+// F(2,3), which spills at TW = 2 and, at TW = 1, takes its input transform
+// in bf16x2 (half the transforms per output at twice the A fragments).
+template <int P, int COND = COND_DENSE>
 __device__ void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
                               int layer, int rb, int re, int dil,
                               const void* cglob, int b, int win0) {
+  static_assert(COND == COND_DENSE || COND == COND_HOIST,
+                "bf16 tensor-core layers take dense or hoisted conditioning");
   using bf = __nv_bfloat16;
   constexpr int K = P == 6 ? 4 : 6;      // planes (transformed taps)
   constexpr int M = P == 6 ? 2 : 4;      // outputs per group
-  constexpr int TW = P == 6 ? TJ : 1;    // n-tiles per warp item
+  constexpr int TW = P == 6 && COND == COND_DENSE ? TJ : 1;  // n-tiles/item
   const int R = p.R, R2 = 2 * R, lane = threadIdx.x & 31;
   const int nks = R / 16, ntl = R2 / 8;
   const int ng = (re - rb) / M, n_mt = (ng + 15) >> 4;
@@ -1091,8 +1115,8 @@ __device__ void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
 #pragma unroll 1
     for (int ks = 0; ks < nks; ++ks) {
       uint32_t af[K][4];      // [plane][register]
-      wino_frags<P>(af, h_lo + 16 * ks, h_hi + 16 * ks,
-                    (size_t)dil * s.ldh);
+      wino_frags<P, P == 12 || COND == COND_HOIST>(
+          af, h_lo + 16 * ks, h_hi + 16 * ks, (size_t)dil * s.ldh);
 #pragma unroll
       for (int k = 0; k < K; ++k)
 #pragma unroll
@@ -1125,16 +1149,29 @@ __device__ void wino_layer_tc(const Params& p, const Flow& f, const Smem& s,
 #pragma unroll
     for (int e = 0; e < M; ++e) {
       float cf[TW][4] = {}, cg[TW][4] = {};
-      cond_tc<TW>(cf, cg, C, p.Cc,
-                  min(max(win0 + b_lo + e * dil, 0), p.T - 1),
-                  min(max(win0 + b_hi + e * dil, 0), p.T - 1), Wc, ntl, t0,
-                  R / 8);
+      uint32_t hc[TW][4];
+      if constexpr (COND == COND_DENSE) {
+        cond_tc<TW>(cf, cg, C, p.Cc,
+                    min(max(win0 + b_lo + e * dil, 0), p.T - 1),
+                    min(max(win0 + b_hi + e * dil, 0), p.T - 1), Wc, ntl, t0,
+                    R / 8);
+      } else {
+        const bf* Ch = C + layer * R2;
+        hoist_words<TW>(
+            hc, Ch + (size_t)min(max(win0 + b_lo + e * dil, 0), p.T - 1) * p.Cc,
+            Ch + (size_t)min(max(win0 + b_hi + e * dil, 0), p.T - 1) * p.Cc,
+            R, t0);
+      }
 #pragma unroll
       for (int j = 0; j < TW; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int g = g0 + frag_row(i), n = frag_col(t0 + j, i);
           if (g >= ng) continue;
+          if constexpr (COND == COND_HOIST) {
+            cf[j][i] = hoist_elem(hc[j], i, false);
+            cg[j][i] = hoist_elem(hc[j], i, true);
+          }
           const float fv = ff[e][j][i] + cf[j][i];
           const float gv = gg[e][j][i] + cg[j][i];
           G[(size_t)(base(g) + e * dil) * s.ldh + n] =
@@ -1187,9 +1224,9 @@ __device__ __forceinline__ void front_tc(const __nv_bfloat16* X, int ldx,
 // the zero-conv output (log_s || t) for rows [o0, o1) in s.net.  TC: the
 // filter|gate layers, res/skip and the final 1x1 run on the tensor cores
 // (T is bf16; I8 with COND_I8 and P = 0, with or without RS, COND_DENSE
-// with P = 0, 6 or 12, or COND_HOIST with P = 0, with or without I8); with
-// COND_HOIST and p.ftc the front and zero convs too (X's rows then at the
-// stride row_ld_h(Rin, true)).
+// or COND_HOIST with P = 0, 6 or 12, or COND_HOIST with I8 and P = 0);
+// with COND_HOIST, P = 0 and p.ftc the front and zero convs too (X's rows
+// then at the stride row_ld_h(Rin, true)).
 template <typename T, bool I8, int COND, bool RS, int P, bool TC,
           class Save = NoSave>
 __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
@@ -1199,13 +1236,14 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   constexpr int EH0 = Geo<P>::EH0, EG0 = Geo<P>::EG0;
   static_assert(!TC || (sizeof(T) == 2 &&
                         ((I8 && COND == COND_I8 && P == 0) ||
-                         (!I8 && !RS && COND == COND_DENSE) ||
+                         (!I8 && !RS && COND != COND_I8) ||
                          (!RS && COND == COND_HOIST && P == 0))),
                 "the tensor-core product covers the bf16 direct, i8, i8rs, "
-                "hoisted, hoisted i8, F(2,3) and F(4,3) pairs");
-  // the hoisted tensor-core instances: u/v windows at a padded row stride,
-  // front and zero convs on the tensor cores where p.ftc says so
-  constexpr bool HT = pad_windows(TC, COND);
+                "hoisted, hoisted i8, F(2,3) and F(4,3) pairs, the last two "
+                "with dense or hoisted conditioning");
+  // the direct hoisted tensor-core instances: u/v windows at a padded row
+  // stride, front and zero convs on the tensor cores where p.ftc says so
+  constexpr bool HT = pad_windows(TC, COND, P);
   const int R = p.R, Rin = p.Rin, ld = s.ldh, ldx = row_ld_h(Rin, HT);
   const int ngrp = NT / R, grp = threadIdx.x / R, n = threadIdx.x % R;
   T* H = static_cast<T*>(s.H);
@@ -1281,7 +1319,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
     direct_layer_tc<T, RS, COND>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, a_scale,
                                  cglob, b, win0, c_scale);
   else if constexpr (TC && P)
-    wino_layer_tc<P>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
+    wino_layer_tc<P, COND>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b, win0);
   else if constexpr (TC)
     direct_layer_tc_bf<COND>(p, f, s, 0, o0 - EG0, o1 + EG0, 1, cglob, b,
                              win0, save);
@@ -1356,7 +1394,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
     direct_layer_tc<T, RS, COND>(p, f, s, 1, o0, o1, 3, a_scale, cglob, b,
                                  win0, c_scale);
   else if constexpr (TC && P)
-    wino_layer_tc<P>(p, f, s, 1, o0, o1, 3, cglob, b, win0);
+    wino_layer_tc<P, COND>(p, f, s, 1, o0, o1, 3, cglob, b, win0);
   else if constexpr (TC)
     direct_layer_tc_bf<COND>(p, f, s, 1, o0, o1, 3, cglob, b, win0, save);
   else if constexpr (P)
@@ -1485,7 +1523,7 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
 template <typename T, bool I8, int COND, bool RS, int P, bool TC>
 __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
   using Gm = Geo<P>;
-  constexpr bool HT = pad_windows(TC, COND);
+  constexpr bool HT = pad_windows(TC, COND, P);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int TT = p.TT, L = TT + 2 * Gm::HALO, Rin = p.Rin;
   const int ldx = row_ld_h(Rin, HT);
@@ -1571,13 +1609,15 @@ __global__ void __launch_bounds__(NT) pair_reverse_kernel(Params p) {
   }
 }
 
-// One instance of the kernel: its launch, and its registers and local
-// (spill) bytes per thread as cudaFuncGetAttributes reports them.
+// One instance of the kernel: its launch, and its registers, local (spill)
+// bytes per thread and the dynamic shared memory it may use as
+// cudaFuncGetAttributes reports them (launch sets the last to the bytes it
+// launches with; 48 KB before any launch).
 template <typename T, bool I8, int COND, bool RS, int P, bool TC = false>
 struct Instance {
   static int launch(Params p, cudaStream_t stream) {
     const int smem = (int)smem_bytes<P>(sizeof(T), I8, TC, p.R, p.Rin, p.TT,
-                                        pad_windows(TC, COND));
+                                        pad_windows(TC, COND, P));
     cudaError_t e = cudaFuncSetAttribute(
         pair_reverse_kernel<T, I8, COND, RS, P, TC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1593,6 +1633,7 @@ struct Instance {
     if (e != cudaSuccess) return (int)e;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
+    out[2] = a.maxDynamicSharedSizeBytes;
     return 0;
   }
 };

@@ -680,16 +680,17 @@ def uses_tensor_cores(dtype: torch.dtype, *, int8: bool = False,
                       rs: bool = False, hoisted: bool = False,
                       phases: int = 0) -> bool:
     """Whether the pair kernel of these options runs its products on the
-    tensor cores (mma.sync): with bf16 storage, the direct pair
-    (``pair_flow``), the int8 pair (``pair_flow_i8``), the int8 pair with
-    int8 res/skip (``pair_flow_i8rs``: those two products on the int8 gate
-    codes, its final 1x1 in bf16), the direct hoisted pairs
-    (``pair_flow_hoisted``, ``pair_flow_hoisted_i8``: no conditioning
-    product, the precomputed pre-activations added per element) and the
-    F(2,3) and F(4,3) Winograd pairs with dense conditioning
-    (``pair_flow_wino``, ``pair_flow_wino4``).  fp32 and the hoisted
-    Winograd pairs run on CUDA cores."""
-    return dtype == torch.bfloat16 and not (hoisted and phases)
+    tensor cores (mma.sync): every pair with bf16 storage, i.e. the direct
+    pair (``pair_flow``), the int8 pair (``pair_flow_i8``), the int8 pair
+    with int8 res/skip (``pair_flow_i8rs``: those two products on the int8
+    gate codes, its final 1x1 in bf16), the direct hoisted pairs
+    (``pair_flow_hoisted``, ``pair_flow_hoisted_i8``) and the F(2,3) and
+    F(4,3) Winograd pairs with dense or hoisted conditioning
+    (``pair_flow_wino``, ``pair_flow_wino4``, ``pair_flow_wino_hoisted``,
+    ``pair_flow_wino4_hoisted``); the hoisted ones have no conditioning
+    product and add the precomputed pre-activations per element.  fp32
+    runs on CUDA cores."""
+    return dtype == torch.bfloat16
 
 
 def front_zero_tc(r_in: int) -> bool:
@@ -1018,7 +1019,7 @@ def kernel_attrs(dtype: torch.dtype, *, int8: bool = False, rs: bool = False,
     the register spills' stack)."""
     lib = _library("pair_flow_wino" if phases else "pair_flow")
     dcode = 0 if dtype == torch.float32 else 1
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 3)()          # the third: dynamic shared memory
     if phases:
         err = lib.pair_wino_attrs(dcode, phases, int(hoisted), out)
     else:

@@ -470,6 +470,31 @@ def test_wino_hoisted_kernel_matches_plain(cuda, phases, mode):
            None if mode == "fp32" else 0.999)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("phases", [6, 12])
+def test_wino_hoisted_launch_uses_the_reported_smem(cuda, phases):
+    """pair_wino_smem_bytes, which the wrapper checks against the card's
+    limit, is the dynamic shared memory that the tensor-core hoisted
+    Winograd launch sets (cudaFuncGetAttributes after it), and that of its
+    dense twin at the same widths and tile: no Winograd instance pads its
+    u/v windows."""
+    import ctypes
+    lib = pf._library("pair_flow_wino")
+    got = {}
+    for kind in ("wino", "wino_hoisted") if phases == 6 else (
+            "wino4", "wino4_hoisted"):
+        kern, _, _, name = _tc_case(kind, 1, cuda, T=300)
+        kern(slice(0, 2))
+        torch.cuda.synchronize()
+        out = (ctypes.c_int * 3)()
+        assert lib.pair_wino_attrs(1, phases, int("hoisted" in kind), out) == 0
+        got[kind] = (out[2], pf.LAST_LAUNCH[name]["t_tile"])
+    (dense, tt), (hoisted, tt_h) = got.values()
+    want = lib.pair_wino_smem_bytes(1, phases, 1, 256, 2, tt)
+    assert tt_h == tt == pf.wino_t_tile(torch.bfloat16, phases)
+    assert hoisted == dense == want > 0
+
+
 def _resblock_args(cuda, dt, v2: bool, cc: int, T: int = 700, B: int = 2,
                    R: int = 256):
     """Seeded ResBlock inputs at the lj22k width R: h, the conditioning
@@ -548,10 +573,12 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
     scales), ``i8rs`` (pair_flow_i8rs, the same with int8 res/skip),
     ``direct`` (pair_flow), ``hoisted`` / ``hoisted_i8`` (pair_flow_hoisted
     / pair_flow_hoisted_i8: c through the hoist matmul), ``wino``
-    (pair_flow_wino, F(2,3)) or ``wino4`` (pair_flow_wino4, F(4,3)), all
-    with bf16 storage; returns (kernel(rows), plain(rows), passthru(rows),
-    counter name).  The plain version runs at the tile of the kernel's
-    last launch (the int8 pairs' per-window scales follow it)."""
+    (pair_flow_wino, F(2,3)), ``wino4`` (pair_flow_wino4, F(4,3)) or
+    ``wino_hoisted`` / ``wino4_hoisted`` (their hoisted twins, c through
+    the hoist matmul), all with bf16 storage; returns (kernel(rows),
+    plain(rows), passthru(rows), counter name).  The plain version runs at
+    the tile of the kernel's last launch (the int8 pairs' per-window scales
+    follow it)."""
     r_in, cc = 1 << bi, 80 << bi
     dt = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(11 + bi)
@@ -607,18 +634,30 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
                          for i, o in enumerate(ops))
         return kern, plain, lambda rows: plain(rows, ops=ops_pass), name
     else:
-        P = 6 if kind == "wino" else 12
+        P = 12 if kind.startswith("wino4") else 6
+        hoisted = kind.endswith("hoisted")
         ops = (pf.pair_reverse_operands_wino(pair, dt) if P == 6
                else pf.pair_reverse_operands_wino4(pair, dt))
+        if hoisted:
+            ops, (we, wo) = pf.pop_cond_w(ops)
+            c = [pf.hoist_cond(c[0], we), pf.hoist_cond(c[1], wo)]
 
         def kern(rows, ops=ops):
             return pf.fused_pair_reverse_wino(u[rows], v[rows], c[0][rows],
-                                              c[1][rows], ops)
+                                              c[1][rows], ops,
+                                              hoisted=hoisted)
 
         def plain(rows, ops=ops):
             return pf.pair_reverse_wino_ref(u[rows], v[rows], c[0][rows],
-                                            c[1][rows], ops, t_tile=10 * P)
-        name = "pair_flow_wino" if P == 6 else "pair_flow_wino4"
+                                            c[1][rows], ops, t_tile=10 * P,
+                                            hoisted=hoisted)
+        name = "pair_flow_" + kind
+        if hoisted:
+            # zw = zb = 0 (operands 10, 11 without cond_w)
+            ops_pass = tuple(torch.zeros_like(o) if i in (10, 11) else o
+                             for i, o in enumerate(ops))
+            return (kern, plain, lambda rows: plain(rows, ops=ops_pass),
+                    name)
     ops_pass = tuple(torch.zeros_like(o) if i in (11, 12) else o
                      for i, o in enumerate(ops))          # zw = zb = 0
     return kern, plain, lambda rows: plain(rows, ops=ops_pass), name
@@ -626,11 +665,15 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
 
 TC_CASES = [("i8", 0), ("i8", 3), ("wino", 1), ("direct", 0), ("direct", 3),
             ("wino4", 1), ("i8rs", 0), ("i8rs", 3), ("hoisted", 4),
-            ("hoisted", 7), ("hoisted_i8", 5), ("hoisted_i8", 7)]
+            ("hoisted", 7), ("hoisted_i8", 5), ("hoisted_i8", 7),
+            ("wino_hoisted", 0), ("wino_hoisted", 2), ("wino4_hoisted", 0),
+            ("wino4_hoisted", 2)]
 TC_OPTIONS = {"i8": dict(int8=True), "i8rs": dict(int8=True, rs=True),
               "direct": {}, "wino": dict(phases=6), "wino4": dict(phases=12),
               "hoisted": dict(hoisted=True),
-              "hoisted_i8": dict(int8=True, hoisted=True)}
+              "hoisted_i8": dict(int8=True, hoisted=True),
+              "wino_hoisted": dict(phases=6, hoisted=True),
+              "wino4_hoisted": dict(phases=12, hoisted=True)}
 
 
 @pytest.mark.cuda
@@ -676,11 +719,12 @@ def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
     """The C launchers are the guard against a wrapper that forgets to pad:
     R = 16 or Cc = 88 on a tensor-core instance (i8rs and the hoisted pairs
     included), R = 48 (not dividing the 512 threads) and Cc = 79 anywhere,
-    hoisted c not 4R wide, and a tc flag that does not name the instance
-    (the bf16 i8rs and hoisted pairs off the tensor cores among them; tc =
-    2, the front and zero convs on the tensor cores, anywhere but a hoisted
-    pair with R_in a multiple of 16), return a cudaError
-    (cudaErrorInvalidValue) before anything is launched."""
+    hoisted c not 4R wide (the hoisted Winograd pairs too), and a tc flag
+    that does not name the instance (the bf16 i8rs, hoisted and hoisted
+    Winograd pairs off the tensor cores among them; tc = 2, the front and
+    zero convs on the tensor cores, anywhere but a direct hoisted pair with
+    R_in a multiple of 16), return a cudaError (cudaErrorInvalidValue)
+    before anything is launched."""
     import ctypes
     ptrs = (ctypes.c_void_p * 26)()            # never dereferenced
 
@@ -712,14 +756,21 @@ def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
            wino(1, 12, 0, 1, ptrs, dims(16, 160, 60), None),
            wino(1, 12, 0, 1, ptrs, dims(64, 79, 60), None),
            wino(1, 12, 0, 0, ptrs, dims(256, 160, 60), None),  # flag off
-           wino(1, 12, 1, 1, ptrs, dims(256, 1024, 60), None)]  # hoisted tc
+           wino(1, 6, 1, 0, ptrs, dims(256, 1024, 72), None),  # hoisted off
+           wino(1, 12, 1, 0, ptrs, dims(256, 1024, 60), None),
+           wino(1, 6, 1, 2, ptrs, dims(256, 1024, 72, 16), None),  # tc=2
+           wino(1, 12, 0, 2, ptrs, dims(256, 160, 60, 16), None),
+           wino(1, 6, 1, 1, ptrs, dims(256, 1040, 72), None),  # Cc != 4R
+           wino(1, 12, 1, 1, ptrs, dims(256, 512, 60), None),
+           wino(0, 6, 1, 0, ptrs, dims(256, 1040, 48), None)]
     torch.cuda.synchronize()
     assert all(err != 0 for err in bad), bad
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["i8", "direct", "wino", "wino4", "i8rs",
-                                  "hoisted", "hoisted_i8"])
+                                  "hoisted", "hoisted_i8", "wino_hoisted",
+                                  "wino4_hoisted"])
 def test_tc_padded_narrow_pair_matches_plain(cuda, kind):
     """A filter_size 16 pair (R = 16 divides the threads but is no multiple
     of 32) runs on its tensor-core instance padded to R = 32, and matches

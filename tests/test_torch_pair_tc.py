@@ -150,21 +150,25 @@ def test_tc_geometry_check_rejects_other_widths():
 
 
 def test_uses_tensor_cores_only_on_the_seven_redesigned_instances():
-    """pair_flow, pair_flow_i8, pair_flow_i8rs, pair_flow_hoisted,
-    pair_flow_hoisted_i8, pair_flow_wino and pair_flow_wino4 in bf16 only;
-    fp32 and the hoisted Winograd pairs stay on CUDA cores."""
+    """Nine instances, every pair in bf16: pair_flow, pair_flow_i8,
+    pair_flow_i8rs, pair_flow_hoisted, pair_flow_hoisted_i8,
+    pair_flow_wino, pair_flow_wino4 and the hoisted Winograd pairs
+    pair_flow_wino_hoisted and pair_flow_wino4_hoisted; fp32 stays on CUDA
+    cores."""
     bf, f32 = torch.bfloat16, torch.float32
     on = [dict(dtype=bf), dict(dtype=bf, int8=True),
           dict(dtype=bf, int8=True, rs=True), dict(dtype=bf, phases=6),
           dict(dtype=bf, phases=12), dict(dtype=bf, hoisted=True),
-          dict(dtype=bf, int8=True, hoisted=True)]
+          dict(dtype=bf, int8=True, hoisted=True),
+          dict(dtype=bf, phases=6, hoisted=True),
+          dict(dtype=bf, phases=12, hoisted=True)]
     off = [dict(dtype=f32), dict(dtype=f32, int8=True),
            dict(dtype=f32, int8=True, rs=True),
            dict(dtype=f32, phases=6), dict(dtype=f32, phases=12),
            dict(dtype=f32, hoisted=True),
            dict(dtype=f32, int8=True, hoisted=True),
-           dict(dtype=bf, phases=6, hoisted=True),
-           dict(dtype=bf, phases=12, hoisted=True)]
+           dict(dtype=f32, phases=6, hoisted=True),
+           dict(dtype=f32, phases=12, hoisted=True)]
     assert all(pf.uses_tensor_cores(**kw) for kw in on)
     assert not any(pf.uses_tensor_cores(**kw) for kw in off)
 
