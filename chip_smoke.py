@@ -6,8 +6,9 @@
 1. Builds the four CUDA sources of ``flowavenet_tpu_torch/ops/csrc`` at
    once (one nvcc each) and prints the build times, ptxas' register and
    spill lines, the card's name and power limit, the versions, and the
-   registers and local (spill) bytes per thread of each bf16 reverse pair
-   instance (cudaFuncGetAttributes; all nine run on the tensor cores).
+   registers and local (spill) bytes per thread of each bf16 reverse pair,
+   training pair and ResBlock instance (cudaFuncGetAttributes; all run on
+   the tensor cores).
 2. Holds the direct reverse pair kernel against its plain PyTorch version
    (``pair_reverse_ref``, TF32 off) at the lj22k geometry of every block
    the kernel routes (R_in = 2^bi, Cc = 80*2^bi, R = 256), at the batch
@@ -30,19 +31,26 @@
    twin's.
    Phase 2d (``hoisted_sweep``) runs the hoisted tensor-core pairs over
    several tiles and with their front and zero convs on CUDA cores, each
-   point against its plain version.  Phase 2c (``resblock_checks``) runs
+   point against its plain version, and (``hoisted_i8_batch_tiles``) the
+   int8 hoisted pair at B = 1, 4 and 8 on its fixed tile and on the
+   batch's wave-balanced one.  Phase 2c (``resblock_checks``) runs
    one coupling net per lj22k block through the fused ResBlock route
    (``coupling_reverse(use_pallas=True)``, launches checked exactly), a
-   causal net and an lj8k_gin net with g, holds ``resblock`` and
-   ``resblock_v2`` against their plain versions, and the route's fp32
-   gradients at the training geometry against use_pallas=False.
+   causal net, an lj8k_gin net with g and a filter_size 48 net (R padded),
+   holds ``resblock`` and ``resblock_v2`` against their plain versions
+   (each row with its design, registers and local bytes, tile and CTAs,
+   CUDA-event and profiler kernel ms, plain and bound ms), and the route's
+   fp32 gradients at the training geometry against use_pallas=False.
 3. Drives ``synthesize_mels`` at the full lj22k width on 4 mels of unequal
    length, in bf16: seeded random weights written to a JAX-layout npz and
    read back with ``load_params``; every route of ``ROUTES`` (launches per
    reverse checked exactly) and the plain route, which each route must
    match to the JAX package's int8 test bar (corr > 0.998, rel < 0.08).
    Each route runs one warm-up call and ``REPS`` timed calls; the median
-   and the range are printed.  Phase 3b (``odd_width_phase``) reverses
+   and the range are printed.  ``batch_composition`` then synthesizes one
+   mel alone and beside 1 and 3 companions on the int8 and FWN_HOISTED=1
+   routes (the int8 hoisted pair's tile must not follow the batch) and
+   prints each route's gap.  Phase 3b (``odd_width_phase``) reverses
    lj22k models with num_mels 79 and filter_size 48, whose widths the
    kernels take only zero-padded, on the int8, FWN_INT8=0, FWN_WINO4=1
    and FWN_INT8_RS=1 routes (filter_size 48 also on FWN_INT8=0
@@ -167,18 +175,23 @@ def _kernel_ms(fn, reps: int, name: str = "pair_reverse_kernel") -> float:
     """Device time per call of the kernels whose name contains ``name``,
     summed from a torch.profiler trace of ``reps`` calls: the kernel's own
     time, without the wrapper's host work that CUDA events around short
-    launches also see (0 if the trace holds no device time)."""
+    launches also see.  A trace that holds none of it (seen once in a
+    whole run) is taken again, up to three in all; 0 if none holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0)
-             or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if name in e.key)
+    us = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0)
+                 or getattr(e, "cuda_time_total", 0)
+                 for e in prof.key_averages() if name in e.key)
+        if us:
+            break
     return us / 1e3 / reps
 
 
@@ -466,6 +479,95 @@ HOISTED = {"pair_flow_hoisted": (range(4, 8), "bf16"),
 SWEEP_TILES = (8, 11, 12, 16, 22, 32, 44, 56, 64, 72, 80)
 
 
+def _hoisted_case(params, bi: int, B: int, T: int, dev, int8: bool):
+    """The first pair of lj22k block ``bi`` (0.05-scale zero convs, as in
+    phase 2b) on seeded bf16 inputs of B rows of T_k = T >> (bi + 1), as a
+    hoisted pair: (kernel(), plain(tile)), the launch and its plain
+    version at a given tile."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
+    pair = fwn._index(fwn._pair_params(params["blocks"][bi]), 0)
+    zero = pair["coupling"]["zero"]
+    zero["w"] = 0.05 * torch.randn(
+        zero["w"].shape, generator=torch.Generator().manual_seed(SEED + bi))
+    pair = tree_map(lambda l: l.to(dev), pair)
+    g = torch.Generator(device=dev).manual_seed(SEED + bi)
+    u, v = (torch.randn(B, tk, r_in, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    ca, cb = (torch.rand(B, tk, cc, generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    make = (pf.pair_reverse_operands_hoisted_int8 if int8
+            else pf.pair_reverse_operands_hoisted)
+    ops, (we, wo) = make(pair, torch.bfloat16)
+    c = (pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo))
+
+    def kern():
+        return pf.fused_pair_reverse(u, v, *c, ops, int8=int8, hoisted=True)
+
+    def plain(tt):
+        return pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt, int8=int8,
+                                   hoisted=True)
+    return kern, plain
+
+
+def hoisted_i8_batch_tiles(params, T: int, dev):
+    """Phase 2d, the int8 hoisted pair's tile at B = 1, 4 and 8 rows
+    (blocks 5-7, T_k = T >> (b + 1)): the tile the launch takes, fixed by
+    T and the widths (``pair_flow.hoisted_launch_tile``), against the
+    wave-balanced tile of the batch that the pair took before
+    (``hoisted_t_tile(B, ...)``), each held to its plain version at its
+    tile (rel <= 1e-2, corr >= 0.9999) and timed by profiler kernel ms per
+    launch.  Returns one row per (B, block)."""
+    import torch
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib, pick = pf._library(), pf._hoisted_tile
+    rows = []
+    for B in (1, 4, 8):
+        for bi in range(5, 8):
+            r_in, tk = 1 << bi, T >> (bi + 1)
+            kern, plain = _hoisted_case(params, bi, B, T, dev, True)
+            kern()
+            fixed = pf.LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"]
+            batch = pf.hoisted_t_tile(
+                B, tk, n_sm, lambda tt, r_in=r_in: lib.pair_reverse_smem_bytes(
+                    1, 4, 1, 256, r_in, tt))
+            row = {"B": B, "block": bi, "fixed_tile": fixed,
+                   "batch_tile": batch}
+            for key, tt in (("fixed", fixed), ("batch", batch)):
+                try:
+                    pf._hoisted_tile = lambda *a, tt=tt: tt
+                    uk, vk = kern()
+                    ur, vr = plain(tt)
+                    row[f"{key}_kernel_ms"] = _kernel_ms(kern, 5)
+                finally:
+                    pf._hoisted_tile = pick
+                e_u, e_v = _errors(uk, ur), _errors(vk, vr)
+                rel, corr = max(e_u[1], e_v[1]), min(e_u[2], e_v[2])
+                check(rel <= 1e-2 and corr >= 0.9999,
+                      ("hoisted_i8 batch tile", B, bi, key, rel, corr))
+            print(f"pair_flow_hoisted_i8 B={B} block {bi}: fixed tile "
+                  f"{fixed} ({B * -(-tk // fixed)} CTAs) "
+                  f"{row['fixed_kernel_ms']:.4f} ms kernel, the batch's "
+                  f"tile {batch} ({B * -(-tk // batch)} CTAs) "
+                  f"{row['batch_kernel_ms']:.4f} ms", flush=True)
+            rows.append(row)
+    for B in (1, 4, 8):
+        sel = [r for r in rows if r["B"] == B]
+        print(f"pair_flow_hoisted_i8 B={B}, per reverse (3 pairs x blocks "
+              f"5-7): fixed tiles "
+              f"{3 * sum(r['fixed_kernel_ms'] for r in sel):.4f} ms kernel, "
+              f"the batch's tiles "
+              f"{3 * sum(r['batch_kernel_ms'] for r in sel):.4f} ms",
+              flush=True)
+    return rows
+
+
 def hoisted_sweep(params, cfg, B: int, T: int, dev):
     """Phase 2d: the hoisted tensor-core pairs at phase 3's batch on every
     block their routes run, once per tile of ``SWEEP_TILES`` that fits
@@ -473,39 +575,20 @@ def hoisted_sweep(params, cfg, B: int, T: int, dev):
     at the rule's tile with the front and zero convs on CUDA cores
     (``pair_flow.front_zero_tc`` forced off; ``front_zero_tc`` False in
     the row): CUDA-event ms per call and profiler kernel ms per launch.
-    Every point is held to its plain version at that tile with phase 2b's
-    bars, so the sweep also checks the tiles and the CUDA-core front and
-    zero convs that the main path does not run."""
-    import torch
-    from flowavenet_tpu_torch.models import flowavenet as fwn
+    The rule's tile is ``pair_flow.hoisted_launch_tile``'s: the int8
+    pair's is fixed by T and the widths (``hoisted_i8_batch_tiles`` times
+    it at other batches).  Every point is held to its plain version at
+    that tile with phase 2b's bars, so the sweep also checks the tiles and
+    the CUDA-core front and zero convs that the main path does not run."""
     from flowavenet_tpu_torch.ops import pair_flow as pf
-    from flowavenet_tpu_torch.utils.tree import tree_map
 
     rows = []
     pick, front = pf._hoisted_tile, pf.front_zero_tc
     for name, (blocks, mode) in HOISTED.items():
         int8 = mode == "int8"
         for bi in blocks:
-            r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
-            pair = fwn._index(fwn._pair_params(params["blocks"][bi]), 0)
-            zero = pair["coupling"]["zero"]      # as in phase 2b
-            zero["w"] = 0.05 * torch.randn(
-                zero["w"].shape,
-                generator=torch.Generator().manual_seed(SEED + bi))
-            pair = tree_map(lambda l: l.to(dev), pair)
-            g = torch.Generator(device=dev).manual_seed(SEED + bi)
-            u, v = (torch.randn(B, tk, r_in, generator=g, device=dev)
-                    .bfloat16() for _ in range(2))
-            ca, cb = (torch.rand(B, tk, cc, generator=g, device=dev)
-                      .bfloat16() for _ in range(2))
-            make = (pf.pair_reverse_operands_hoisted_int8 if int8
-                    else pf.pair_reverse_operands_hoisted)
-            ops, (we, wo) = make(pair, torch.bfloat16)
-            c = (pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo))
-
-            def kern():
-                return pf.fused_pair_reverse(u, v, *c, ops, int8=int8,
-                                             hoisted=True)
+            r_in, tk = 1 << bi, T >> (bi + 1)
+            kern, plain = _hoisted_case(params, bi, B, T, dev, int8)
             kern()
             rule = pf.LAST_LAUNCH[name]["t_tile"]
             smem = pf._library().pair_reverse_smem_bytes
@@ -519,8 +602,7 @@ def hoisted_sweep(params, cfg, B: int, T: int, dev):
                     pf._hoisted_tile = lambda *a, tt=tt: tt
                     pf.front_zero_tc = lambda r, fz=fz: fz and front(r)
                     uk, vk = kern()
-                    ur, vr = pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt,
-                                                 int8=int8, hoisted=True)
+                    ur, vr = plain(tt)
                     ms = _time_ms(kern, 5)
                     kms = _kernel_ms(kern, 5)
                 finally:
@@ -713,11 +795,14 @@ def resblock_checks(params, cfg, B: int, T: int, dev):
     at most 1.5x the plain route's (or 1e-2), as the two round at other
     points.  The kernel on the inputs the route gave it vs its plain
     version: fp32 rel <= 1e-4, bf16 rel <= 1e-2 and corr >= 0.999, with
-    kernel, plain and bound ms.  Then a causal net (block 0, v2), an
-    lj8k_gin net with g (block 0, v1) and, at the training geometry (8 x
+    kernel, plain and bound ms.  Then, in fp32 and bf16, a causal net
+    (block 0, v2), an lj8k_gin net with g (block 0, v1) and a filter_size
+    48 net (block 0, v2, R run padded), and, at the training geometry (8 x
     6400), coupling_forward(use_pallas=True) plus backward against
     use_pallas=False on blocks 0 (v2) and 6 (v1), fp32: cosine >= 0.999
-    for every parameter's gradient and for x and c."""
+    for every parameter's gradient and for x and c.  Each row also carries
+    its design, registers and local bytes, the launch's tile and CTAs and
+    the profiler's kernel ms."""
     import torch
     from flowavenet_tpu_torch.config import lj8k_gin
     from flowavenet_tpu_torch.models import flowavenet as fwn
@@ -781,28 +866,41 @@ def resblock_checks(params, cfg, B: int, T: int, dev):
                 errs = [_errors(g_, r_) for g_, r_ in zip(got, ref)]
                 ms = _time_ms(lambda: real[name](*a, **akw), 5)
                 plain_ms = _time_ms(lambda: plain_of[name](*a, **akw), 2)
+            with torch.no_grad():
+                kms = _kernel_ms(lambda: real[name](*a, **akw), 5,
+                                 "resblock")
+            launch = dict(rb.LAST_LAUNCH[name])
             err = max(e[0] for e in errs)
             rel = max(e[1] for e in errs)
             corr = min(e[2] for e in errs)
             Bk, tk = a[0].shape[:2]
             bound = rb.resblock_bound_ms(
-                Bk, tk, cc=a[1].shape[-1] if name == "resblock_v2" else 0,
+                Bk, tk, R=a[0].shape[-1], S=a[0].shape[-1],
+                cc=a[1].shape[-1] if name == "resblock_v2" else 0,
                 dtype=a[0].dtype)
+            regs, local = rb.kernel_attrs(a[0].dtype, name == "resblock_v2")
+            design = ("tensor cores (mma.sync)"
+                      if rb.uses_tensor_cores(a[0].dtype) else "CUDA cores")
             print(f"{tag} {mode}: {name} route vs plain route update_err "
                   f"{upd:.3e}" + (f" (plain route {upd_p:.3e})" if upd_p
                                   is not None else "")
                   + f"; kernel vs plain version max_abs={err:.3e} "
                   f"rel={rel:.3e} corr={corr:.7f} kernel={ms:.3f} ms "
-                  f"plain={plain_ms:.3f} ms bound={bound[0]:.4f} ms",
-                  flush=True)
+                  f"(profiler kernel {kms:.4f} ms) plain={plain_ms:.3f} ms "
+                  f"bound={bound[0]:.4f} ms; {design}, {regs} registers, "
+                  f"{local} local bytes, tile {launch['t_tile']} rows, "
+                  f"{launch['ctas']} CTAs", flush=True)
             check(ok, (tag, mode, "route agreement", upd, upd_p))
             bars = (1e-4, -1.0) if mode == "fp32" else (1e-2, 0.999)
             check(rel <= bars[0] and corr >= bars[1],
                   (tag, mode, name, "kernel vs plain", rel, corr))
             return yk, {"tag": tag, "name": name, "mode": mode,
                         "max_abs_err": err, "rel": rel, "corr": corr,
-                        "update_err": upd, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound[0], "bound_by": bound[1]}
+                        "update_err": upd, "ms": ms, "kernel_ms": kms,
+                        "plain_ms": plain_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1], "design": design,
+                        "registers": regs, "local_bytes": local,
+                        "t_tile": launch["t_tile"], "ctas": launch["ctas"]}
 
         for bi in range(cfg.model.n_block):
             r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
@@ -822,8 +920,13 @@ def resblock_checks(params, cfg, B: int, T: int, dev):
         g = torch.Generator(device=dev).manual_seed(SEED + 40)
         x0 = torch.randn(B, T >> 1, 2, generator=g, device=dev)
         c0 = torch.rand(B, T >> 1, 160, generator=g, device=dev)
-        rows.append(one("resblock causal block 0", net(params, 0), x0, c0,
-                        causal=True, cc=80)[1])
+        cnet = net(params, 0)
+        y32, row = one("resblock causal block 0", cnet, x0, c0, causal=True,
+                       cc=80)
+        rows.append(row)
+        rows.append(one("resblock causal block 0", cnet, x0.bfloat16(),
+                        c0.bfloat16(), causal=True, mode="bf16", y32=y32,
+                        x32=x0, cc=80)[1])
         # lj8k_gin block 0 with g (v1): g is the speaker embedding, constant
         # in time, at the block's level (2 * gin channels)
         gcfg = lj8k_gin()
@@ -835,8 +938,24 @@ def resblock_checks(params, cfg, B: int, T: int, dev):
         cg = torch.rand(B, tg, 160, generator=g, device=dev)
         emb = torch.randn(B, 1, 2 * gcfg.model.gin_channels, generator=g,
                           device=dev)
-        rows.append(one("resblock lj8k_gin block 0 with g", gnet, xg, cg,
-                        g=emb.expand(B, tg, emb.shape[-1]), cc=80)[1])
+        ge = emb.expand(B, tg, emb.shape[-1])
+        y32, row = one("resblock lj8k_gin block 0 with g", gnet, xg, cg,
+                       g=ge, cc=80)
+        rows.append(row)
+        rows.append(one("resblock lj8k_gin block 0 with g", gnet,
+                        xg.bfloat16(), cg.bfloat16(), g=ge.bfloat16(),
+                        mode="bf16", y32=y32, x32=xg, cc=80)[1])
+        # filter_size 48: R = 48, which both instances take only padded
+        # (bf16 R 64, fp32 R 64), block 0's net (v2, Cc 80)
+        fcfg = dataclasses.replace(cfg.model, filter_size=48)
+        fnet = net({"blocks": [fwn.init_block(
+            torch.Generator().manual_seed(SEED + 42), 1, 80, fcfg)]}, 0)
+        y32, row = one("resblock filter_size 48 block 0", fnet, x0, c0,
+                       cc=80)
+        rows.append(row)
+        rows.append(one("resblock filter_size 48 block 0", fnet,
+                        x0.bfloat16(), c0.bfloat16(), mode="bf16", y32=y32,
+                        x32=x0, cc=80)[1])
     finally:
         rb.fused_gated_resblock = real["resblock"]
         rb.fused_gated_resblock_v2 = real["resblock_v2"]
@@ -1166,6 +1285,74 @@ def main_path(params, cfg, dev, frames):
         check(rel < 0.08 and corr > 0.998, (name, rel, corr))
     out["khz_per_s_i8"] = samples / out["routes"]["int8"]["ms"]
     out["loaded"] = loaded
+    return out
+
+
+def batch_composition(loaded, cfg, dev):
+    """Phase 3, a row beside its companions: a 345-frame mel synthesized
+    alone and beside 1 and 3 shorter companions (one reverse, the same
+    padded length and the same noise for row 0) on the int8 and
+    FWN_HOISTED=1 routes, launches checked as in ``ROUTES``.  Every batch
+    size launches ``pair_flow_hoisted_i8`` on the same tiles (block 5's,
+    the last launch, is checked: the tile is fixed by T and the widths);
+    the row stays within the int8 bar of itself alone (rel < 0.08, corr >
+    0.998), and each route's gap (max |difference| over max |audio|) is
+    printed and returned.  For comparison FWN_HOISTED=1 runs once more
+    with that pair on the wave-balanced tile of each batch
+    (``pair_flow.hoisted_t_tile(B, ...)``, the rule before the tile was
+    fixed), whose tiles and gap are recorded, not held to a bar."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
+
+    rng = np.random.RandomState(SEED + 3)
+    mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
+            for f in (345, 301, 262, 180)]
+    lib, pick = pf._library(), pf._hoisted_tile
+
+    def batch_rule(B, T, r, r_in, variant, n_sm):
+        return pf.hoisted_t_tile(B, T, n_sm, lambda tt: (
+            lib.pair_reverse_smem_bytes(1, variant, 1, r, r_in, tt)))
+    routes = {r[0]: r[1:] for r in ROUTES}
+    out = {}
+    for route, rule in (("int8", None), ("FWN_HOISTED=1", None),
+                        ("FWN_HOISTED=1", batch_rule)):
+        switches, expect = routes[route]
+        name = route + (", the batch's tile" if rule else "")
+        saved = {k: getattr(fwn, k) for k in switches}
+        rows, tiles = {}, set()
+        try:
+            for k, val in switches.items():
+                setattr(fwn, k, val)
+            if rule:
+                pf._hoisted_tile = rule
+            for n in (1, 2, 4):
+                torch.cuda.synchronize()
+                _reset_counts()
+                rows[n] = synthesize_mels(loaded, cfg, mels[:n], seed=SEED,
+                                          compute_dtype=torch.bfloat16,
+                                          device=dev)[0]
+                check(_counts() == expect, (name, n, _counts()))
+                if "pair_flow_hoisted_i8" in expect:
+                    tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"][
+                        "t_tile"])
+        finally:
+            pf._hoisted_tile = pick
+            for k, val in saved.items():
+                setattr(fwn, k, val)
+        check(len(tiles) <= 1 or rule,
+              (name, "hoisted_i8 tile follows the batch", tiles))
+        gaps = {}
+        for n in (2, 4):
+            _, rel, corr = _errors(rows[n], rows[1])
+            check(rule or (rel < 0.08 and corr > 0.998), (name, n, rel, corr))
+            gaps[f"beside {n - 1}"] = rel
+        print(f"{name} route, a 345-frame row beside 1 / 3 companions vs "
+              f"alone: gap {gaps['beside 1']:.3e} / {gaps['beside 3']:.3e}"
+              + (f", pair_flow_hoisted_i8 tiles {sorted(tiles)} at B = 1, "
+                 f"2, 4" if tiles else ""), flush=True)
+        out[name] = {**gaps, "hoisted_i8_tiles": sorted(tiles)}
     return out
 
 
@@ -1747,8 +1934,8 @@ def gin_phase(dev, tmpdir: str):
 # The reverse pair kernels' options (ops/pair_flow.py:uses_tensor_cores),
 # which say whether the kernel line reports a kernel as running on the
 # tensor cores; the training pairs say it through
-# ops/pair_flow_train.py:train_uses_tensor_cores, and the ResBlocks run on
-# CUDA cores.
+# ops/pair_flow_train.py:train_uses_tensor_cores, and the ResBlocks through
+# ops/resblock.py:uses_tensor_cores.
 PAIR_OPTIONS = {"pair_flow": {}, "pair_flow_i8": {"int8": True},
                 "pair_flow_i8rs": {"int8": True, "rs": True},
                 "pair_flow_hoisted": {"hoisted": True},
@@ -1801,11 +1988,17 @@ def main() -> int:
         attrs[name] = {"registers": regs, "local_bytes": local}
         print(f"{name} bf16 ({'tensor cores' if tc else 'CUDA cores'}): "
               f"numRegs {regs}, localSizeBytes {local}", flush=True)
-    # the same for the training kernels' bf16 instances
+    # the same for the training kernels' and the ResBlocks' bf16 instances
     from flowavenet_tpu_torch.ops import pair_flow_train as pft
-    for name in pft.TRAIN_KERNELS:
-        regs, local = pft.train_kernel_attrs(torch.bfloat16, name)
-        tc = pft.train_uses_tensor_cores(torch.bfloat16, name)
+    from flowavenet_tpu_torch.ops import resblock as rb
+    for name in pft.TRAIN_KERNELS + tuple(rb.LAUNCHES):
+        if name in rb.LAUNCHES:
+            regs, local = rb.kernel_attrs(torch.bfloat16,
+                                          name == "resblock_v2")
+            tc = rb.uses_tensor_cores(torch.bfloat16)
+        else:
+            regs, local = pft.train_kernel_attrs(torch.bfloat16, name)
+            tc = pft.train_uses_tensor_cores(torch.bfloat16, name)
         attrs[name] = {"registers": regs, "local_bytes": local}
         print(f"{name} bf16 ({'tensor cores' if tc else 'CUDA cores'}): "
               f"numRegs {regs}, localSizeBytes {local}", flush=True)
@@ -1818,12 +2011,15 @@ def main() -> int:
     # phase 2b: the Winograd, hoisted and int8 res/skip pairs
     vrows = variant_checks(params, cfg, B, T, dev)
     # phase 2d: the hoisted tensor-core pairs over tiles, and with the front
-    # and zero convs on CUDA cores
+    # and zero convs on CUDA cores; the int8 pair's fixed tile at B = 1, 4, 8
     srows = hoisted_sweep(params, cfg, B, T, dev)
+    brows = hoisted_i8_batch_tiles(params, T, dev)
     # phase 2c: the fused ResBlock route, one coupling net per block
     rrows, r_launches, r_grads = resblock_checks(params, cfg, B, T, dev)
-    # phase 3: synthesis on every route, the first slice's main path
+    # phase 3: synthesis on every route, the first slice's main path, and a
+    # row beside its companions
     main_out = main_path(params, cfg, dev, FRAMES)
+    comp = batch_composition(main_out["loaded"], cfg, dev)
     # phase 3b: widths the kernels take only padded, on the kernel routes
     odd_out = odd_width_phase(dev)
     # phase 6 (run here, on the loaded bf16 params): serving, this slice's
@@ -1931,11 +2127,16 @@ def main() -> int:
                                   "=True); no model route runs it"),
                 "max_abs_err": max(r["max_abs_err"] for r in sel),
                 "ms": sum(r["ms"] for r in sel),
+                "kernel_ms": sum(r["kernel_ms"] for r in sel),
                 "plain_ms": sum(r["plain_ms"] for r in sel),
                 "bound_ms": sum(r["bound_ms"] for r in sel),
                 "bound_by": "operations" if all(
                     r["bound_by"] == "operations" for r in sel) else "bytes",
-                "library_ms": None}
+                "library_ms": None,
+                "per_block": [{k: r[k] for k in ("block", "t_tile", "ctas",
+                                                 "ms", "kernel_ms",
+                                                 "bound_ms")}
+                              for r in sel]}
 
     kernels = [
         entry("pair_flow", "bf16", 410, launches["pair_flow"], range(3, 4)),
@@ -1988,6 +2189,8 @@ def main() -> int:
         opts = PAIR_OPTIONS.get(k["name"])
         if k["name"] in pft.TRAIN_KERNELS:
             tc = pft.train_uses_tensor_cores(torch.bfloat16, k["name"])
+        elif k["name"] in rb.LAUNCHES:
+            tc = rb.uses_tensor_cores(torch.bfloat16)
         else:
             tc = (opts is not None
                   and pf.uses_tensor_cores(torch.bfloat16, **opts))
@@ -2027,6 +2230,8 @@ def main() -> int:
         "eval_ms_fwd_kernel_route": tr["eval"]["fwd_kernel"]["ms"],
         "eval_ms_plain_route": tr["eval"]["plain"]["ms"],
         "resblock_route_grad_cos_min": r_grads,
+        "batch_composition_gap": comp,
+        "hoisted_i8_batch_tiles": brows,
         "gin": gin,
         "seconds": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": kernels}))

@@ -56,7 +56,7 @@ def kernel_t_tile(dtype: torch.dtype, r_in: int = 1) -> int:
     """Output rows per CTA of the direct pair: 64 in bf16, 32 in fp32
     (twice as wide shared-memory buffers); halved for R_in > 32 (the deep
     blocks' u/v windows).  The hoisted tensor-core pairs take
-    :func:`hoisted_t_tile` on the card instead; on the CPU every pair's
+    :func:`hoisted_launch_tile` on the card instead; on the CPU every pair's
     plain version runs at this tile."""
     tt = 32 if dtype == torch.float32 else 64
     return tt if r_in <= 32 else tt // 2
@@ -713,19 +713,44 @@ def hoisted_t_tile(B: int, T: int, n_sm: int, smem) -> int:
     rows only where they fill a wave that 16 rows leave part-empty (lj22k
     block 7 at 4 x 360 frames: 11-12 rows, 120-132 CTAs, 4-9 % less kernel
     time than 16 rows, 92 CTAs; H100 80GB HBM3, 700 W, chip_smoke.py
-    phase 2d), and they would make the int8 pair's per-window scales, so
-    its output, follow the batch size more often; the floor stays at 16."""
+    phase 2d); the floor stays at 16.  The int8 pair takes this rule at a
+    fixed batch instead (:func:`hoisted_launch_tile`)."""
     from .pair_flow_train import SMEM_MAX, balanced_t_tile
     return balanced_t_tile(B, T, n_sm, lambda tt: 0 < smem(tt) <= SMEM_MAX,
                            shortest=True)
+
+
+# The int8 hoisted pair's per-window activation scales follow its tile, so
+# its tile is a function of (T, R, R_in) alone: hoisted_t_tile's rule at
+# this batch on this many SMs (chip_smoke.py's 4-mel synthesis batch on an
+# H100 SXM) whatever batch and card it runs on, as the JAX package fits
+# its hoisted tile to T alone (pallas_flow.py's PAIR_KERNEL_HOISTED_T_TILE
+# through _fit_tile).  A row's int8 codes, so its audio, then do not
+# depend on the rows beside it, which serving's batch-composition
+# invariance needs.
+HOISTED_I8_REF_BATCH = 4
+HOISTED_I8_REF_SMS = 132
+
+
+def hoisted_launch_tile(B: int, T: int, n_sm: int, smem, *,
+                        int8: bool) -> int:
+    """The tile a hoisted tensor-core launch of B rows of T runs at on
+    ``n_sm`` SMs: :func:`hoisted_t_tile` for the bf16 pair (no per-window
+    scales); for the int8 pair the same rule at ``HOISTED_I8_REF_BATCH``
+    rows on ``HOISTED_I8_REF_SMS`` SMs, whatever B and n_sm are."""
+    if int8:
+        B, n_sm = HOISTED_I8_REF_BATCH, HOISTED_I8_REF_SMS
+    return hoisted_t_tile(B, T, n_sm, smem)
 
 
 @functools.lru_cache(maxsize=None)
 def _hoisted_tile(B: int, T: int, r: int, r_in: int, variant: int,
                   n_sm: int) -> int:
     lib = _library("pair_flow")
-    return hoisted_t_tile(B, T, n_sm, lambda tt: lib.pair_reverse_smem_bytes(
-        1, variant, 1, r, r_in, tt))
+    # variant 4 is the int8 pair (pair_flow_hoisted_i8)
+    return hoisted_launch_tile(
+        B, T, n_sm, lambda tt: lib.pair_reverse_smem_bytes(
+            1, variant, 1, r, r_in, tt), int8=variant == 4)
 
 
 def check_tc_geometry(r: int, cc: int) -> None:
@@ -1043,8 +1068,9 @@ def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,
 
     A CPU tensor runs the plain version at the tile of
     :func:`kernel_t_tile`; a CUDA tensor launches the kernel (or raises),
-    the hoisted bf16 pairs on the tile of :func:`hoisted_t_tile` (recorded
-    in :data:`LAST_LAUNCH`; the int8 pair's output depends on it)."""
+    the hoisted bf16 pairs on the tile of :func:`hoisted_launch_tile`
+    (recorded in :data:`LAST_LAUNCH`; the int8 pair's output depends on it,
+    and that tile on T and the widths alone)."""
     if int8 and not hoisted and c_row_scales is None:
         raise ValueError("the int8 pair takes per-row c scales [B, 2]")
     if u.device.type == "cpu":

@@ -21,6 +21,13 @@ Functions run the plain version for CPU tensors and launch the kernel for
 CUDA tensors (or raise); their backward is the JAX package's ``_fgr_bwd`` /
 ``_fgr2_bwd`` line by line, plain PyTorch (the JAX package has no backward
 kernel for these: its backward is XLA math).
+
+In bf16 the kernels run on the tensor cores, with w_conv, w_cond, w_res
+and w_skip packed in fragment order per launch (:func:`pack_resblock_weights`)
+on the hoisted pairs' wave-balanced tile; fp32 runs on CUDA cores.  Widths
+an instance does not take are zero-padded in the wrapper
+(:func:`resblock_widths`, :func:`pad_resblock_widths`) and the outputs cut
+back, so every R the JAX kernels take runs.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .pair_flow import _pad_dim, _pad_halves, hoisted_t_tile, pack_tc_weights
+from .pair_flow_train import SMEM_MAX
+
 SQRT_HALF = math.sqrt(0.5)
 # Dilations up to HALO // 2 (the Pallas kernel's window pad; the CUDA
 # kernel's window is the tile plus 2d rows).
@@ -39,11 +49,15 @@ HALO = 32
 # v2 takes Cc up to this width (lj22k blocks 0-5); wider conditioning or a
 # global condition takes v1 (models/modules.py:_res_layer).
 V2_MAX_CC = 2560
-# Output rows per CTA of the CUDA kernels (before _plan_tiles).
+# Output rows per CTA of the CUDA-core (fp32) kernels (before _plan_tiles);
+# the tensor-core ones take the wave-balanced tile of _tc_tile.
 KERNEL_T_TILE = 64
 
 # Launches of the CUDA kernels, by name; each wrapper adds one per launch.
 LAUNCHES = {"resblock": 0, "resblock_v2": 0}
+# per kernel, what its last launch ran with: rows per tile ("t_tile") and
+# CTAs ("ctas")
+LAST_LAUNCH: dict = {}
 
 
 def _plan_tiles(T: int, t_tile: int) -> tuple[int, int]:
@@ -250,6 +264,80 @@ def fused_gated_resblock_v2(h, c, w_conv, w_cond, b_all, w_res, b_res,
 # The kernel wrapper
 # ---------------------------------------------------------------------------
 
+def uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """Whether the ResBlock kernels of this storage type run their products
+    on the tensor cores (mma.sync): bf16 yes, fp32 on CUDA cores."""
+    return dtype == torch.bfloat16
+
+
+def resblock_widths(r: int, cc: int, dtype: torch.dtype,
+                    threads: int = 512) -> tuple[int, int]:
+    """The (R, Cc) a ResBlock of widths (r, cc) runs at on the kernel (cc:
+    v2's conditioning width, 0 for v1): on the tensor cores (bf16) R up to
+    a multiple of 32 and Cc up to a multiple of 16; on CUDA cores (fp32) R
+    up to a divisor of ``threads`` that is a multiple of 4, Cc unchanged.
+    Equal to (r, cc) on the lj22k geometry (R = 256, Cc = 80 * 2^b)."""
+    if uses_tensor_cores(dtype):
+        return -(-r // 32) * 32, -(-cc // 16) * 16
+    fits = [w for w in range(4, threads + 1, 4)
+            if threads % w == 0 and w >= r]
+    if not fits:
+        raise ValueError(f"the fp32 ResBlock kernels take R up to {threads}, "
+                         f"got {r}")
+    return fits[0], cc
+
+
+def pad_resblock_widths(h, ops: dict, r: int, cc: int):
+    """h and the operands of one launch (``ops``: cond, w_conv, w_cond,
+    b_all, w_res, b_res, w_skip, b_skip; w_cond and b_all None for v1)
+    padded to R = ``r`` channels and (v2) Cc = ``cc`` conditioning columns
+    (:func:`resblock_widths`): zero h channels, c columns and cond-weight
+    rows, and zero channels through every weight and bias (the filter and
+    gate halves each), so a padded channel's fg is 0, its gate tanh(0) *
+    sigmoid(0) = 0, and the real channels' sums are unchanged; a padded
+    channel's h_new and skip are 0.  Returns (h, ops)."""
+    v2 = ops["w_cond"] is not None
+    pad = {"cond": (lambda x: _pad_dim(x, -1, cc)) if v2
+           else (lambda x: _pad_halves(x, r)),
+           "w_conv": lambda x: _pad_halves(_pad_dim(x, -2, r), r),
+           "w_cond": lambda x: _pad_halves(_pad_dim(x, -2, cc), r),
+           "b_all": lambda x: _pad_halves(x, r),
+           "w_res": lambda x: _pad_dim(_pad_dim(x, -2, r), -1, r),
+           "w_skip": lambda x: _pad_dim(_pad_dim(x, -2, r), -1, r),
+           "b_res": lambda x: _pad_dim(x, -1, r),
+           "b_skip": lambda x: _pad_dim(x, -1, r)}
+    return (_pad_dim(h, -1, r).contiguous(),
+            {k: None if x is None else pad[k](x).contiguous()
+             for k, x in ops.items()})
+
+
+# the operands the tensor-core instances take packed by pack_tc_weights
+_TC_WEIGHTS = ("w_conv", "w_cond", "w_res", "w_skip")
+
+
+def pack_resblock_weights(ops: dict) -> dict:
+    """``ops`` with w_conv [3, R, 2R] (tap k's fragments k * R/16 * 2R/8 *
+    32 on, as direct_layer_tc_bf reads layer 0), w_cond [Cc, 2R], w_res and
+    w_skip [R, R] in the tensor cores' fragment order
+    (``pair_flow.pack_tc_weights``)."""
+    return {k: pack_tc_weights(x) if k in _TC_WEIGHTS and x is not None
+            else x for k, x in ops.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_tile(B: int, T: int, r: int, dilation: int, n_sm: int) -> int:
+    """Rows per CTA of the tensor-core ResBlocks (one CTA per (batch row,
+    tile)): the hoisted pairs' rule, ``pair_flow.hoisted_t_tile``, over
+    the tiles whose h window and gate rows fit in shared memory (the
+    launcher's ``resblock_smem_bytes``): the fewest waves of B * ceil(T /
+    tile) CTAs over ``n_sm`` SMs, then the shortest tile.  lj22k blocks
+    6-7 at 4 x 360 frames (T 720 and 360) take 22 and 16 rows: 132 and 92
+    CTAs, where the CUDA-core kernel's 64 rows gave 48 and 24."""
+    lib = _library()
+    return hoisted_t_tile(B, T, n_sm, lambda tt: lib.resblock_smem_bytes(
+        1, 0, r, 0, tt, dilation))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     """The built kernel library ``resblock`` with its C signatures."""
@@ -261,17 +349,46 @@ def _library():
     lib.resblock_threads.restype = c_int
     lib.resblock_smem_bytes.argtypes = [c_int] * 6
     lib.resblock_smem_bytes.restype = c_int
-    lib.resblock_launch.argtypes = [c_int, c_int, c_ptr, c_ptr, c_ptr]
+    # (dtype, v2, tc, ptrs, dims, stream)
+    lib.resblock_launch.argtypes = [c_int, c_int, c_int, c_ptr, c_ptr, c_ptr]
     lib.resblock_launch.restype = c_int
+    # (dtype, v2, out[3])
+    lib.resblock_attrs.argtypes = [c_int, c_int, c_ptr]
+    lib.resblock_attrs.restype = c_int
     return lib
+
+
+def kernel_attrs(dtype: torch.dtype, v2: bool) -> tuple[int, int]:
+    """(registers, local bytes) per thread of the ResBlock kernel instance
+    of this storage type, as cudaFuncGetAttributes reports them (local
+    bytes are the register spills' stack)."""
+    out = (ctypes.c_int * 3)()          # the third: dynamic shared memory
+    err = _library().resblock_attrs(0 if dtype == torch.float32 else 1,
+                                    int(v2), out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
+    return out[0], out[1]
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, copied if its data does not start on 16 bytes (the tensor-core
+    instances read h in 16-byte and c in 4-byte words)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+# the launcher's operand slots after h, in order
+_SLOTS = ("cond", "w_conv", "w_cond", "b_all", "w_res", "b_res", "w_skip",
+          "b_skip")
 
 
 def _launch(h, cond, w_conv, w_cond, b_all, w_res, b_res, w_skip, b_skip,
             *, dilation: int, causal: bool):
     """Check the inputs and launch ``resblock`` (``w_cond`` None: ``cond``
-    is cond_fg) or ``resblock_v2`` (``cond`` is c) on the current stream.
-    Weights are cast to h.dtype and biases to fp32 first, as the JAX
-    wrappers do; every input is made contiguous."""
+    is cond_fg) or ``resblock_v2`` (``cond`` is c) on the current stream:
+    bf16 on the tensor cores, fp32 on CUDA cores.  Weights are cast to
+    h.dtype and biases to fp32 first, as the JAX wrappers do; widths the
+    instance does not take are zero-padded (:func:`resblock_widths`) and
+    the outputs cut back to R."""
     v2 = w_cond is not None
     name = "resblock_v2" if v2 else "resblock"
     dt = h.dtype
@@ -282,9 +399,6 @@ def _launch(h, cond, w_conv, w_cond, b_all, w_res, b_res, w_skip, b_skip,
     B, T, R = h.shape
     _check_dilation(dilation)
     lib = _library()
-    threads = lib.resblock_threads()
-    if threads % R:
-        raise ValueError(f"{name} takes R dividing {threads}, got {R}")
     Cc = cond.shape[-1]
     want = {"cond": (B, T, Cc if v2 else 2 * R), "w_conv": (3, R, 2 * R),
             "w_res": (R, R), "b_res": (R,), "w_skip": (R, R), "b_skip": (R,)}
@@ -302,32 +416,49 @@ def _launch(h, cond, w_conv, w_cond, b_all, w_res, b_res, w_skip, b_skip,
             raise ValueError(f"{name}: {key} must be on {h.device}")
     if not h.is_cuda:
         raise ValueError(f"{name}: h must be a CUDA tensor")
+    tc = uses_tensor_cores(dt)
     h = h.contiguous()
-    ops = [given[k].to(dt if k in ("cond", "w_conv", "w_cond", "w_res",
-                                   "w_skip") else torch.float32
-                       ).contiguous() if given[k] is not None else None
-           for k in ("cond", "w_conv", "w_cond", "b_all", "w_res", "b_res",
-                     "w_skip", "b_skip")]
-    tt = _plan_tiles(T, KERNEL_T_TILE)[0]
+    ops = {k: None if x is None else x.to(
+        dt if k in ("cond", "w_conv", "w_cond", "w_res", "w_skip")
+        else torch.float32).contiguous() for k, x in given.items()}
+    # widths the instance does not take run zero-padded (exact); the
+    # launcher refuses them unpadded
+    Rk, Cck = resblock_widths(R, Cc if v2 else 0, dt, lib.resblock_threads())
+    if (Rk, Cck) != (R, Cc if v2 else 0):
+        h, ops = pad_resblock_widths(h, ops, Rk, Cck)
+    if tc:
+        ops = pack_resblock_weights(ops)
+        if not v2:          # cond_fg holds the biases
+            ops["b_all"] = torch.zeros(2 * Rk, device=h.device)
+        n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
+        tt = _tc_tile(B, T, Rk, dilation, n_sm)
+    else:
+        tt = _plan_tiles(T, KERNEL_T_TILE)[0]
+    h, ops["cond"] = _aligned(h), _aligned(ops["cond"])
     dcode = 0 if dt == torch.float32 else 1
-    smem = lib.resblock_smem_bytes(dcode, int(v2), R, Cc, tt, dilation)
-    if not 0 < smem <= 232448:
+    smem = lib.resblock_smem_bytes(dcode, int(v2), Rk, Cck, tt, dilation)
+    if not 0 < smem <= SMEM_MAX:
         raise ValueError(f"{name}: t_tile={tt} needs {smem} bytes of shared "
-                         "memory per CTA (at most 232448)")
+                         f"memory per CTA (at most {SMEM_MAX})")
     h_new, skip = torch.empty_like(h), torch.empty_like(h)
-    ptrs = [h, *ops, h_new, skip]
+    # the kernel runs on the current stream, so the caching allocator may
+    # reuse the padded and packed temporaries only for work queued after it
+    ptrs = [h, *[ops[k] for k in _SLOTS], h_new, skip]
     ptr_arr = (ctypes.c_void_p * len(ptrs))(
         *[0 if x is None else x.data_ptr() for x in ptrs])
     lead = 2 * dilation if causal else dilation
-    dims = (ctypes.c_int * 7)(B, T, R, Cc if v2 else 0, tt, dilation, lead)
+    dims = (ctypes.c_int * 7)(B, T, Rk, Cck, tt, dilation, lead)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.resblock_launch(dcode, int(v2),
+        err = lib.resblock_launch(dcode, int(v2), int(tc),
                                   ctypes.cast(ptr_arr, ctypes.c_void_p),
                                   ctypes.cast(dims, ctypes.c_void_p), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    LAST_LAUNCH[name] = {"t_tile": tt, "ctas": B * -(-T // tt)}
+    if Rk != R:
+        h_new, skip = h_new[..., :R].contiguous(), skip[..., :R].contiguous()
     return h_new, skip
 
 

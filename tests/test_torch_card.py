@@ -567,6 +567,155 @@ def test_resblock_rejects_bad_inputs(cuda):
                                 dilation=1, causal=False)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("causal,dilation", [(False, 1), (True, 3),
+                                             (False, 16), (True, 16)])
+@pytest.mark.parametrize("v2,cc", [(True, 80), (True, 2560), (False, 512)],
+                         ids=["v2_cc80", "v2_cc2560", "v1"])
+def test_resblock_tc_kernels_match_plain(cuda, v2, cc, causal, dilation, B):
+    """The bf16 tensor-core instances (direct_layer_tc_bf with dense or
+    hoisted conditioning, res/skip through tc_rows) vs the plain versions
+    at R = 256, Cc 80 and 2560 (v2) or cond_fg 2R wide (v1), T = 997 (odd,
+    a ragged last tile): rel-to-max <= 1e-2 and corr >= 0.999; one launch
+    on the tile _tc_tile gives; two launches give the same bits."""
+    args = _resblock_args(cuda, torch.bfloat16, v2, cc, T=997, B=B)
+    name = "resblock_v2" if v2 else "resblock"
+    fn = rb.fused_gated_resblock_v2 if v2 else rb.fused_gated_resblock
+    ref = rb.resblock_v2_ref if v2 else rb.resblock_ref
+    n0 = rb.LAUNCHES[name]
+    got = fn(*args, dilation=dilation, causal=causal)
+    again = fn(*args, dilation=dilation, causal=causal)
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES[name] == n0 + 2
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tt = rb._tc_tile(B, 997, 256, dilation, n_sm)
+    assert rb.LAST_LAUNCH[name] == {"t_tile": tt, "ctas": B * -(-997 // tt)}
+    want = ref(*args, dilation=dilation, causal=causal)
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-2
+        assert _cos(a - a.mean(), b - b.mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("gin", [0, 6], ids=["v2", "v1_g"])
+def test_resblock_route_takes_filter_size_48(cuda, mode, gin):
+    """R = 48 (filter_size 48), which neither instance takes unpadded,
+    through apply_wavenet(use_pallas=True) (no g: v2 at Cc 80; a global
+    condition: v1) against use_pallas=False, at the ResBlock route bars
+    (chip_smoke.py phase 2c): fp32 update_err <= 1e-4; bf16 each route
+    against the fp32 plain result, the kernel route's update_err at most
+    1.5x the plain route's or 1e-2.  update_err: RMS of the difference over
+    the RMS of the net's output."""
+    from flowavenet_tpu_torch.models import modules as tmod
+    gen = torch.Generator().manual_seed(48)
+    p = tmod.init_wavenet(gen, in_channels=2, out_channels=4, num_layers=2,
+                          residual_channels=48, cin_channels=80,
+                          gin_channels=gin)
+    p["zero"]["w"].normal_(0, 0.05, generator=gen)
+    p = tree_map(lambda l: l.to(cuda), p)
+    g = torch.Generator(device=cuda).manual_seed(49)
+    x = torch.randn(2, 700, 2, generator=g, device=cuda)
+    c = torch.rand(2, 700, 80, generator=g, device=cuda)
+    gc = (torch.randn(2, 1, gin, generator=g, device=cuda).expand(2, 700, gin)
+          if gin else None)
+
+    def run(dt, on):
+        with torch.no_grad():
+            return tmod.apply_wavenet(
+                p, x.to(dt), c.to(dt), None if gc is None else gc.to(dt),
+                causal=False, use_pallas=on).float()
+    name = "resblock" if gin else "resblock_v2"
+    n0 = rb.LAUNCHES[name]
+    ref32 = run(torch.float32, False)
+
+    def err(a):
+        return float((a - ref32).pow(2).mean().sqrt()
+                     / ref32.pow(2).mean().sqrt())
+    if mode == "fp32":
+        assert err(run(torch.float32, True)) <= 1e-4
+    else:
+        k, pl = err(run(torch.bfloat16, True)), err(run(torch.bfloat16,
+                                                        False))
+        assert k <= max(1.5 * pl, 1e-2), (k, pl)
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES[name] == n0 + 1
+
+
+@pytest.mark.cuda
+def test_resblock_launcher_refuses_bf16_off_tc_and_unpadded_widths(cuda):
+    """The C launcher is the guard against a wrapper that forgets to pad or
+    picks the wrong instance: bf16 with tc = 0 and fp32 with tc = 1, R =
+    48 and 16 on the tensor cores, v2's Cc = 79 there, R = 48 (not
+    dividing the 512 threads) on CUDA cores, and a bf16 launch without the
+    bias vector return cudaErrorInvalidValue before anything runs."""
+    import ctypes
+    lib = rb._library()
+    buf = torch.zeros(16, device=cuda)
+    ptrs = (ctypes.c_void_p * 11)(*[buf.data_ptr()] * 11)   # never read
+    nob = (ctypes.c_void_p * 11)(*[buf.data_ptr()] * 11)
+    nob[4] = None
+
+    def go(dtype, v2, tc, R, Cc, p=ptrs):
+        dims = (ctypes.c_int * 7)(1, 100, R, Cc, 16, 1, 1)
+        return lib.resblock_launch(dtype, v2, tc, p, dims, None)
+    bad = [go(1, 0, 0, 256, 0), go(1, 1, 0, 256, 80),       # bf16 off tc
+           go(0, 0, 1, 256, 0), go(0, 1, 1, 256, 80),       # fp32 on tc
+           go(1, 0, 1, 48, 0), go(1, 1, 1, 48, 80),         # tc, R = 48
+           go(1, 1, 1, 16, 80), go(1, 1, 1, 256, 79),       # R 16, Cc 79
+           go(0, 0, 0, 48, 0), go(0, 1, 0, 48, 79),         # fp32, R = 48
+           go(1, 1, 1, 256, 80, nob)]                       # no bias
+    torch.cuda.synchronize()
+    assert all(e == 1 for e in bad), bad                    # InvalidValue
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "FWN_HOISTED=1"])
+def test_synthesis_row_does_not_follow_its_companions(cuda, monkeypatch,
+                                                      route):
+    """lj22k, bf16: one 360-frame mel synthesized alone and beside 1 and 3
+    companions of the same length (same noise, seed + i per row).  On
+    FWN_HOISTED=1 every batch size launches pair_flow_hoisted_i8 on the
+    same tile (block 5's, the last launch, at T_k = 1440: the rule's tile
+    at the reference batch, 44 rows on an H100 SXM), where the
+    wave-balanced tile of the batch gave 16 rows alone; each route's row
+    stays within the int8 bar of itself alone (rel-to-max < 0.08, corr >
+    0.998), and the gaps (max |difference| over max |audio|) are
+    printed."""
+    from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
+    if route == "FWN_HOISTED=1":
+        monkeypatch.setattr(fwn, "PAIR_KERNEL_HOISTED", True)
+    cfg = lj22k()
+    gen = torch.Generator().manual_seed(360)
+    params = fwn.init_flowavenet(gen, cfg.model)
+    for bp in params["blocks"]:
+        bp["flows"]["coupling"]["zero"]["w"].normal_(0, 0.05, generator=gen)
+    params = tree_map(lambda l: l.to(cuda), params)
+    rng = np.random.RandomState(360)
+    mels = [rng.rand(360, cfg.audio.num_mels).astype(np.float32)
+            for _ in range(4)]
+    rows, tiles = {}, set()
+    for n in (1, 2, 4):
+        rows[n] = synthesize_mels(params, cfg, mels[:n], seed=0,
+                                  compute_dtype=torch.bfloat16,
+                                  device=cuda)[0]
+        if route == "FWN_HOISTED=1":
+            tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"])
+    if route == "FWN_HOISTED=1":
+        assert len(tiles) == 1, tiles
+    top = float(np.abs(rows[1]).max())
+    for n in (2, 4):
+        gap = float(np.abs(rows[n] - rows[1]).max()) / top
+        print(f"{route}: row 0 beside {n - 1} companions vs alone: gap "
+              f"{gap:.3e}" + (f", pair_flow_hoisted_i8 tile {tiles}"
+                              if tiles else ""))
+        assert gap < 0.08 and np.corrcoef(rows[n], rows[1])[0, 1] > 0.998
+
+
 def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
     """Inputs and a launcher of a tensor-core pair at lj22k block bi's widths
     (or ``pair``'s R): ``i8`` (pair_flow_i8, int8 codes of c with per-row

@@ -11,7 +11,10 @@ package's own architecture and optimisation flags (one ``nvcc`` each, all
 at once); ``cuobjdump -sass`` lists every kernel instance, and the text of
 each is hashed.  The tag nvcc gives a file's anonymous namespace (it
 follows the file's path) is replaced by the file's name in kernel names
-and in the SASS, so the same code under two paths compares equal.
+and in the SASS, so the same code under two paths compares equal; runs of
+blanks are collapsed to one, since cuobjdump pads every line to the
+widest instruction of the whole file, which an added or removed kernel
+changes.
 Prints, per source, the instances whose SASS is identical in both trees,
 those that differ and those found in one tree only, then one JSON line
 with the same.
@@ -65,7 +68,7 @@ def sass_by_function(tree: str, source: str, out_dir: str) -> dict:
                 funcs[name] = "\n".join(body)
             name, body = m.group(1), []
         elif name is not None:
-            body.append(line.rstrip())
+            body.append(" ".join(line.split()))
     if name is not None:
         funcs[name] = "\n".join(body)
     return {k: hashlib.sha256(v.encode()).hexdigest()
