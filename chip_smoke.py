@@ -49,8 +49,18 @@
    Each route runs one warm-up call and ``REPS`` timed calls; the median
    and the range are printed.  ``batch_composition`` then synthesizes one
    mel alone and beside 1 and 3 companions on the int8 and FWN_HOISTED=1
-   routes (the int8 hoisted pair's tile must not follow the batch) and
-   prints each route's gap.  Phase 3b (``odd_width_phase``) reverses
+   routes: the row must be bit-identical on both, and row 0's difference
+   after the upsampler and after each block is printed;
+   ``route_invariance`` holds every row of 2, 4 and 8 to itself alone on
+   every route at 60, 120 and 360 padded frames, and ``repair_cost``
+   times that synthesis path against the one before it, in turns.  Phase 3c
+   (``profile_phase``) traces one warm int8-route call with
+   ``utils/profiling.py:trace`` and prints ``trace_split``'s reading (the
+   window's wall time, the device's busy and idle share, the top device
+   ops, the time per op class, the longest idle gaps), then CUDA-event
+   times of the upsampler and each block.  ``bench_phase`` runs the
+   port's bench (``flowavenet_tpu_torch/bench.py``) at its default batch
+   and prints its JSON line.  Phase 3b (``odd_width_phase``) reverses
    lj22k models with num_mels 79 and filter_size 48, whose widths the
    kernels take only zero-padded, on the int8, FWN_INT8=0, FWN_WINO4=1
    and FWN_INT8_RS=1 routes (filter_size 48 also on FWN_INT8=0
@@ -69,11 +79,18 @@
    bf16 launches at lj22k block 0 used (``pair_flow_train.LAST_LAUNCH``;
    for ``pair_fwd``, which runs on blocks 0-3, those of every block) are
    printed and put in the kernel line.
-5. Trains lj22k at full width (batch 8 x 6400 samples, bf16 compute, fp32
-   params) through the port's entry points on a seeded fwrec corpus: DDI,
-   then ``TRAIN_STEPS`` steps on the FWN_TRAIN_KERNEL=1 route and on the
-   plain route from the same params (checks in ``training_phase``), and
-   one FWN_FWD_KERNEL=1 eval step.
+5. The audio frontend (``frontend_phase``): 12 speech-like utterances of
+   2-4 s written as WAVs in the LJSpeech layout and preprocessed by the
+   port's ``preprocess``; ``mel_spectrogram_torch`` on the card against
+   the numpy mel (atol 2e-4).  Then trains lj22k at full width (batch 8 x
+   6400 samples, bf16 compute, fp32 params) through the port's entry
+   points on that corpus: DDI, then ``TRAIN_STEPS`` steps on the
+   FWN_TRAIN_KERNEL=1 route and on the plain route from the same params
+   (checks in ``training_phase``), one traced kernel-route step split by
+   ``trace_split``, and one FWN_FWD_KERNEL=1 eval step; then
+   (``trainer_phase``) ``train()`` itself for 4 steps with
+   ``tensorboard=True`` and ``profile_steps=2``, whose trace must hold
+   the training pair kernels.
 6. Serves lj22k over HTTP on the card (run after step 3, on its loaded
    params; checks in ``serving_phase``): ``SERVE_ROUNDS`` rounds of 8
    concurrent requests (lengths; requests/s, p50/p90 latency over all of
@@ -1012,12 +1029,15 @@ def _write_corpus(d: str, cfg, n: int = 16, speakers: int = 1) -> None:
                         rng.rand(f, mels).astype(np.float32), i % speakers)
 
 
-def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
+def training_phase(cfg, dev, data_dir: str, steps: int = TRAIN_STEPS):
     """Phase 5: lj22k training at full width, batch 8 x 6400 samples,
     bf16 compute with fp32 params, through the port's entry points
-    (FwRecordWriter, CropDataset, create_state, ddi_initialize,
-    make_train_step, make_eval_step).  DDI, then ``steps`` steps on each
-    route from identical params: FWN_TRAIN_KERNEL=1 and the plain route.
+    (CropDataset, create_state, ddi_initialize, make_train_step,
+    make_eval_step), on the corpus that the frontend phase preprocessed
+    into ``data_dir``.  DDI, then ``steps`` steps on each
+    route from identical params: FWN_TRAIN_KERNEL=1 and the plain route;
+    then one more FWN_TRAIN_KERNEL=1 step under ``utils/profiling.py:
+    trace``, split by ``trace_split``.
     Checks finite losses; the first-step loss of the two routes within rel
     1e-3, or the kernel route's no farther from the fp32 loss than the
     plain route's; at the params the plain route reached, the cosine of
@@ -1033,10 +1053,10 @@ def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
     from flowavenet_tpu_torch.training.train import to_device
     from flowavenet_tpu_torch.training.train_state import (
         create_state, ddi_initialize, make_eval_step, make_train_step)
+    from flowavenet_tpu_torch.utils.profiling import trace
     from flowavenet_tpu_torch.utils.tree import leaves, tree_map
 
-    _write_corpus(tmpdir, cfg)
-    ds = CropDataset(os.path.join(tmpdir, "train.fwrec"),
+    ds = CropDataset(os.path.join(data_dir, "train.fwrec"),
                      hop_size=cfg.audio.hop_size,
                      max_time_steps=cfg.data.max_time_steps,
                      batch_size=cfg.data.batch_size, seed=cfg.train.seed)
@@ -1103,6 +1123,15 @@ def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
                   f"per step {out[route]['launches']}, max memory "
                   f"{out[route]['max_mem_gb']:.2f} GB, losses "
                   f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+        # where the kernel route's step time goes: one traced step
+        fwn.TRAIN_KERNEL = True
+        step_fn = make_train_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with trace(os.path.join(data_dir, "profile_train")) as prof:
+            float(step_fn(state0, batches[1])[1]["loss"])
+        split = trace_split(prof, (time.perf_counter() - t0) * 1e3,
+                            "FWN_TRAIN_KERNEL=1, one lj22k training step")
         # the gradients of both routes at the params the plain route
         # reached: at the DDI'd start the true gradient of the ActNorms and
         # biases is ~0 and bf16 rounding noise dominates it
@@ -1179,7 +1208,7 @@ def training_phase(cfg, dev, tmpdir: str, steps: int = TRAIN_STEPS):
     return {"routes": out, "ddi_s": ddi_s, "loss_rel": loss_rel,
             "loss_rel_fp32": (k32, p32), "grad_cos": cos,
             "grad_cos_bf16": (cos_k, cos_p), "eval": evals, "eval_rel": e_rel,
-            "n_route": n_route}
+            "n_route": n_route, "profile_split": split}
 
 
 # Routes of phase 3: (name, model switches, launches per reverse)
@@ -1288,19 +1317,91 @@ def main_path(params, cfg, dev, frames):
     return out
 
 
+def _op_split(run, n: int) -> dict:
+    """Every library product (cuDNN ``conv1d``, cuBLAS ``matmul``,
+    ``_int_mm``) of one call of ``run()`` on an ``n``-row batch, run again
+    on row 0 alone with the same inputs: per stage (upsampler, each block)
+    and product, how many calls give row 0 other bits and the largest
+    difference."""
+    import torch
+    import torch.nn.functional as F
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+
+    real = {"conv1d": F.conv1d, "matmul": torch.matmul,
+            "_int_mm": torch._int_mm}
+    seen, stage, done = [], ["-"], []
+
+    def spy(name):
+        def call(*a, **k):
+            out = real[name](*a, **k)
+            seen.append((name, stage[0], a, k, out))
+            return out
+        return call
+
+    block, up = fwn.block_reverse, fwn.apply_upsample
+
+    def block_stage(*a, **k):
+        done.append(1)
+        stage[0] = f"block {a[1].n_block - len(done)}"
+        return block(*a, **k)
+
+    def up_stage(*a, **k):
+        done.clear()
+        stage[0] = "upsampler"
+        return up(*a, **k)
+    patches = [(F, "conv1d", spy("conv1d")), (torch, "matmul", spy("matmul")),
+               (torch, "_int_mm", spy("_int_mm")),
+               (fwn, "block_reverse", block_stage),
+               (fwn, "apply_upsample", up_stage)]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    try:
+        for o, a, v in patches:
+            setattr(o, a, v)
+        run()
+    finally:
+        for o, a, v in saved:
+            setattr(o, a, v)
+    out = {}
+    for name, where, a, k, got in seen:
+        if name == "_int_mm":            # [n * T, K] rows, row 0's first
+            rows = a[0].shape[0] // n
+            alone = real[name](a[0][:rows].contiguous(), a[1])
+            got = got[:rows]
+        elif a[0].dim() == 3 and a[0].shape[0] == n:
+            alone = real[name](a[0][:1], *a[1:], **k)
+            got = got[:1]
+        else:
+            continue
+        d = float((alone.float() - got.float()).abs().max())
+        e = out.setdefault(f"{where} {name}", {"calls": 0, "differ": 0,
+                                               "max_abs": 0.0})
+        e["calls"] += 1
+        e["differ"] += d > 0
+        e["max_abs"] = max(e["max_abs"], d)
+    return out
+
+
 def batch_composition(loaded, cfg, dev):
     """Phase 3, a row beside its companions: a 345-frame mel synthesized
     alone and beside 1 and 3 shorter companions (one reverse, the same
     padded length and the same noise for row 0) on the int8 and
-    FWN_HOISTED=1 routes, launches checked as in ``ROUTES``.  Every batch
-    size launches ``pair_flow_hoisted_i8`` on the same tiles (block 5's,
-    the last launch, is checked: the tile is fixed by T and the widths);
-    the row stays within the int8 bar of itself alone (rel < 0.08, corr >
-    0.998), and each route's gap (max |difference| over max |audio|) is
-    printed and returned.  For comparison FWN_HOISTED=1 runs once more
-    with that pair on the wave-balanced tile of each batch
-    (``pair_flow.hoisted_t_tile(B, ...)``, the rule before the tile was
-    fixed), whose tiles and gap are recorded, not held to a bar."""
+    FWN_HOISTED=1 routes, launches checked as in ``ROUTES``.  On both the
+    row must be bit-identical at B = 1, 2 and 4: an item's audio depends
+    only on its mel, seed, temperature and padded length, the contract of
+    the JAX package's ``synthesize_mels``.  Row 0 of the upsampler's and of
+    every ``block_reverse``'s output is compared stage by stage
+    (``_Stages``) and the largest difference per stage is printed beside
+    the audio's gap (max |difference| over max |audio|); at B = 4 every
+    library product is run again on row 0 alone (``_op_split``) and none
+    may differ.  Every batch size launches
+    ``pair_flow_hoisted_i8`` on the same tile (block 5's, the last launch,
+    is checked: the tile is fixed by T and the widths).  For comparison,
+    recorded and not held to a bar: FWN_HOISTED=1 with that pair on the
+    wave-balanced tile of each batch (``pair_flow.hoisted_t_tile(B,
+    ...)``, the rule before the tile was fixed), and the int8 route with
+    the coupling nets' products as the likelihood side runs them (cuDNN
+    convs, batched conditioning: the synthesis path before it was made
+    batch-invariant)."""
     import torch
     from flowavenet_tpu_torch.models import flowavenet as fwn
     from flowavenet_tpu_torch.ops import pair_flow as pf
@@ -1309,50 +1410,190 @@ def batch_composition(loaded, cfg, dev):
     rng = np.random.RandomState(SEED + 3)
     mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
             for f in (345, 301, 262, 180)]
-    lib, pick = pf._library(), pf._hoisted_tile
+    lib = pf._library()
 
     def batch_rule(B, T, r, r_in, variant, n_sm):
         return pf.hoisted_t_tile(B, T, n_sm, lambda tt: (
             lib.pair_reverse_smem_bytes(1, variant, 1, r, r_in, tt)))
+    net = fwn.apply_wavenet
+
+    def batched_net(*a, **k):
+        return net(*a, **{**k, "batch_invariant": False})
     routes = {r[0]: r[1:] for r in ROUTES}
     out = {}
-    for route, rule in (("int8", None), ("FWN_HOISTED=1", None),
-                        ("FWN_HOISTED=1", batch_rule)):
+    for route, label, patch in (
+            ("int8", "", None), ("FWN_HOISTED=1", "", None),
+            ("FWN_HOISTED=1", ", the batch's tile",
+             (pf, "_hoisted_tile", batch_rule)),
+            ("int8", ", cuDNN convs and batched conditioning",
+             (fwn, "apply_wavenet", batched_net))):
         switches, expect = routes[route]
-        name = route + (", the batch's tile" if rule else "")
+        name = route + label
         saved = {k: getattr(fwn, k) for k in switches}
-        rows, tiles = {}, set()
+        old = getattr(patch[0], patch[1]) if patch else None
+        rows, stages, tiles = {}, {}, set()
+
+        def synth(n, **kw):
+            return synthesize_mels(loaded, cfg, mels[:n], seed=SEED,
+                                   compute_dtype=torch.bfloat16, device=dev,
+                                   **kw)
         try:
             for k, val in switches.items():
                 setattr(fwn, k, val)
-            if rule:
-                pf._hoisted_tile = rule
+            if patch:
+                setattr(*patch)
             for n in (1, 2, 4):
                 torch.cuda.synchronize()
                 _reset_counts()
-                rows[n] = synthesize_mels(loaded, cfg, mels[:n], seed=SEED,
-                                          compute_dtype=torch.bfloat16,
-                                          device=dev)[0]
+                with _Stages(rows=True) as st:
+                    rows[n] = synth(n)[0]
+                stages[n] = st.rows
                 check(_counts() == expect, (name, n, _counts()))
                 if "pair_flow_hoisted_i8" in expect:
                     tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"][
                         "t_tile"])
+            ops = _op_split(lambda: synth(4), 4)
         finally:
-            pf._hoisted_tile = pick
+            if patch:
+                setattr(patch[0], patch[1], old)
             for k, val in saved.items():
                 setattr(fwn, k, val)
-        check(len(tiles) <= 1 or rule,
+        check(len(tiles) <= 1 or patch,
               (name, "hoisted_i8 tile follows the batch", tiles))
-        gaps = {}
+        res = {"hoisted_i8_tiles": sorted(tiles),
+               "row 0 by product at B = 4": ops}
         for n in (2, 4):
-            _, rel, corr = _errors(rows[n], rows[1])
-            check(rule or (rel < 0.08 and corr > 0.998), (name, n, rel, corr))
-            gaps[f"beside {n - 1}"] = rel
-        print(f"{name} route, a 345-frame row beside 1 / 3 companions vs "
-              f"alone: gap {gaps['beside 1']:.3e} / {gaps['beside 3']:.3e}"
-              + (f", pair_flow_hoisted_i8 tiles {sorted(tiles)} at B = 1, "
-                 f"2, 4" if tiles else ""), flush=True)
-        out[name] = {**gaps, "hoisted_i8_tiles": sorted(tiles)}
+            _, rel, _ = _errors(rows[n], rows[1])
+            by_stage = _stage_gaps(stages[1], stages[n])
+            same = bool(np.array_equal(rows[n], rows[1]))
+            res[f"beside {n - 1}"] = rel
+            res[f"beside {n - 1}, bit-identical"] = same
+            res[f"beside {n - 1}, by stage"] = by_stage
+            print(f"{name} route, a 345-frame row beside {n - 1} "
+                  f"companion(s) vs alone: gap {rel:.3e}, bit-identical "
+                  f"{same}; row 0's max |difference| by stage: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in by_stage.items())
+                  + (f"; pair_flow_hoisted_i8 tiles {sorted(tiles)} at B ="
+                     f" 1, 2, 4" if tiles else ""), flush=True)
+            check(patch or same, (name, n, "row follows its companions",
+                                  rel, by_stage))
+        print(f"{name} route, row 0's library products at B = 4 (calls "
+              "that differ from row 0 alone / calls, max |d|): "
+              + ", ".join(f"{k} {v['differ']}/{v['calls']} "
+                          f"{v['max_abs']:.3e}" for k, v in ops.items()),
+              flush=True)
+        check(patch or not any(v["differ"] for v in ops.values()),
+              (name, "a product follows the batch", ops))
+        out[name] = res
+    return out
+
+
+def repair_cost(loaded, cfg, dev) -> dict:
+    """Phase 3, the time of batch-invariant synthesis: ``reverse`` on the
+    int8 route of the phase-3 batch (4 x 360 frames) and of 32 7 s clips
+    (600 frames), with the coupling nets' products as synthesis runs them
+    (GEMM convs, per-row conditioning) and as the likelihood side runs
+    them (cuDNN convs, batched conditioning: synthesis before it was made
+    batch-invariant), in turns (new, old, old, new), 3 timed calls each
+    after a warm-up; host clock around synchronized calls."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+
+    net = fwn.apply_wavenet
+
+    def batched_net(*a, **k):
+        return net(*a, **{**k, "batch_invariant": False})
+    g = torch.Generator(dev).manual_seed(SEED)
+    out = {}
+    for B, frames in ((4, 360), (32, 600)):
+        z = torch.randn(B, frames * cfg.audio.hop_size, 1, generator=g,
+                        device=dev) * cfg.train.temp
+        c = torch.rand(B, frames, cfg.audio.num_mels, generator=g,
+                       device=dev)
+        times = {"batch-invariant": [], "before": []}
+        for which in ("batch-invariant", "before", "before",
+                      "batch-invariant"):
+            if which == "before":
+                fwn.apply_wavenet = batched_net
+            try:
+                for i in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fwn.reverse(loaded, cfg.model, z, c,
+                                compute_dtype=torch.bfloat16)
+                    torch.cuda.synchronize()
+                    if i:
+                        times[which].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                fwn.apply_wavenet = net
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        out[f"{B} x {frames} frames"] = {"median_ms": med, "ms": times}
+        print(f"int8 route reverse, {B} x {frames} frames: batch-invariant "
+              f"median {med['batch-invariant']:.1f} ms (min "
+              f"{min(times['batch-invariant']):.1f}, max "
+              f"{max(times['batch-invariant']):.1f}), before (cuDNN convs, "
+              f"batched conditioning) {med['before']:.1f} ms (min "
+              f"{min(times['before']):.1f}, max {max(times['before']):.1f})",
+              flush=True)
+    return out
+
+
+INVARIANCE_FRAMES = (60, 120, 360)  # padded lengths of route_invariance
+
+
+def route_invariance(loaded, cfg, dev) -> dict:
+    """Phase 3, every route at short and long padded lengths: at 60, 120
+    and 360 frames, 8 mels (T, T - 7, ... frames) are each synthesized
+    alone at that padded length (seed SEED + i), then the first 2, 4 and
+    8 together; on every route of ``ROUTES`` every row must be
+    bit-identical to itself alone.  The plain route (use_pallas=False)
+    is recorded, not held.  Prints per route the (length, batch) cells in
+    which a row differs and the largest gap (max |difference| over max
+    |audio|)."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
+
+    rng = np.random.RandomState(SEED + 4)
+    plain = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  use_pallas=False))
+    out = {}
+    for name, switches, _ in ROUTES + (("plain", None, None),):
+        saved = {k: getattr(fwn, k) for k in switches or {}}
+        c = plain if switches is None else cfg
+        cells, worst = [], 0.0
+        try:
+            for k, val in (switches or {}).items():
+                setattr(fwn, k, val)
+            for T in INVARIANCE_FRAMES:
+                mels = [rng.rand(T - 7 * i, cfg.audio.num_mels).astype(
+                    np.float32) for i in range(8)]
+                alone = [synthesize_mels(loaded, c, [m], seed=SEED + i,
+                                         bucket_frames=T,
+                                         compute_dtype=torch.bfloat16,
+                                         device=dev)[0]
+                         for i, m in enumerate(mels)]
+                for B in (2, 4, 8):
+                    rows = synthesize_mels(loaded, c, mels[:B], seed=SEED,
+                                           bucket_frames=T,
+                                           compute_dtype=torch.bfloat16,
+                                           device=dev)
+                    for i in range(B):
+                        if not np.array_equal(rows[i], alone[i]):
+                            cells.append((T, B, i))
+                            worst = max(worst, _errors(rows[i],
+                                                       alone[i])[1])
+        finally:
+            for k, val in saved.items():
+                setattr(fwn, k, val)
+        out[name] = {"rows_that_differ": cells, "max_gap": worst}
+        print(f"{name} route, rows beside 1 / 3 / 7 companions vs alone at "
+              f"{INVARIANCE_FRAMES} padded frames: "
+              + (f"{len(cells)} rows differ, max gap {worst:.3e}, (frames, "
+                 f"batch, row) {cells[:6]}" if cells else "all bit-identical"),
+              flush=True)
+        check(switches is None or not cells,
+              (name, "rows follow their companions", cells[:6], worst))
     return out
 
 
@@ -1936,6 +2177,359 @@ def gin_phase(dev, tmpdir: str):
 # tensor cores; the training pairs say it through
 # ops/pair_flow_train.py:train_uses_tensor_cores, and the ResBlocks through
 # ops/resblock.py:uses_tensor_cores.
+class _Stages:
+    """For the calls inside the ``with`` block: the port's upsampler and
+    each ``block_reverse`` (in call order, blocks n_block - 1 down to 0)
+    wrapped with CUDA events around them, and row 0 of each output kept
+    when ``rows``.  ``ms()`` gives each stage's event time (after a
+    synchronize), ``rows`` the (stage, row 0) pairs."""
+
+    def __init__(self, rows: bool = False):
+        self.keep = rows
+
+    def __enter__(self):
+        import torch
+        from flowavenet_tpu_torch.models import flowavenet as fwn
+        self.fwn, self.saved = fwn, (fwn.block_reverse, fwn.apply_upsample)
+        self.rows, self.events = [], []
+        block, up = self.saved
+        done = []                    # blocks run since the upsampler
+
+        def timed(fn, label):
+            def run(*a, **k):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                name = label(a)
+                self.events.append((name, e0, e1))
+                if self.keep:
+                    self.rows.append((name, out[:1].float().clone()))
+                return out
+            return run
+
+        def block_label(a):
+            done.append(1)
+            return f"block {a[1].n_block - len(done)}"
+
+        def up_label(a):
+            done.clear()
+            return "upsampler"
+        fwn.block_reverse = timed(block, block_label)
+        fwn.apply_upsample = timed(up, up_label)
+        return self
+
+    def __exit__(self, *exc):
+        self.fwn.block_reverse, self.fwn.apply_upsample = self.saved
+
+    def ms(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for name, e0, e1 in self.events:
+            out[name] = out.get(name, 0.0) + e0.elapsed_time(e1)
+        return out
+
+
+def _stage_gaps(rows_a, rows_b) -> dict:
+    """Max |difference| of row 0 between two runs, per stage."""
+    return {sa: float((a - b).abs().max())
+            for (sa, a), (sb, b) in zip(rows_a, rows_b)}
+
+
+# op classes of a trace, by kernel name (first match wins)
+OP_CLASSES = (
+    ("pair kernels", ("pair_reverse_kernel", "pair_fwd_kernel",
+                      "pair_bwd_kernel", "reduce_slabs", "resblock")),
+    ("_int_mm (int8 GEMM)", ("i8i8", "s8", "imma", "int8", "i8_i32")),
+    ("cuDNN convs", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                     "implicit", "winograd", "fft")),
+    ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "xmma", "splitk",
+                      "splitKreduce", "dot_kernel", "gemv")),
+    ("copies", ("memcpy", "memset", "copy", "cat", "pad", "index",
+                "gather", "scatter", "transpose", "permute")),
+    ("elementwise and reductions", ("elementwise", "reduce", "vectorized",
+                                    "unrolled", "at::native", "norm",
+                                    "softmax")),
+)
+
+
+def _op_class(name: str) -> str:
+    low = name.lower()
+    for cls, keys in OP_CLASSES:
+        if any(k.lower() in low for k in keys):
+            return cls
+    return "other"
+
+
+def trace_split(prof, wall_ms: float, what: str, top: int = 12,
+                gaps: int = 5) -> dict:
+    """The device's share of a ``torch.profiler`` window: the window's span
+    (first to last event), busy time (the union of device intervals) and
+    idle share, the top device ops by total time with calls, the time per
+    op class, and the longest idle gaps (with the kernels around them).
+    Returns None when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    evs = list(prof.events())
+    dev_evs = [e for e in evs if e.device_type == DeviceType.CUDA]
+    if not dev_evs:
+        print(f"profile split, {what}: the trace holds no device time; see "
+              f"the CUDA-event times", flush=True)
+        return None
+    t0 = min(e.time_range.start for e in evs)
+    t1 = max(e.time_range.end for e in evs)
+    iv = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in dev_evs)
+    busy, holes = 0.0, []
+    cur_s, cur_e, cur_n = iv[0]
+    if cur_s > t0:
+        holes.append((cur_s - t0, t0, "(window start)", cur_n))
+    for s, e, n in iv[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            holes.append((s - cur_e, cur_e, cur_n, n))
+            cur_s, cur_e, cur_n = s, e, n
+        elif e > cur_e:
+            cur_e, cur_n = e, n
+    busy += cur_e - cur_s
+    if t1 > cur_e:
+        holes.append((t1 - cur_e, cur_e, cur_n, "(window end)"))
+    span = t1 - t0
+    by_name, by_cls = {}, {}
+    for e in dev_evs:
+        d = e.time_range.end - e.time_range.start
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + d, n + 1)
+        c = _op_class(e.name)
+        ct, cn = by_cls.get(c, (0.0, 0))
+        by_cls[c] = (ct + d, cn + 1)
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    holes = sorted(holes, reverse=True)[:gaps]
+    out = {"wall_ms": wall_ms, "span_ms": span / 1e3,
+           "busy_ms": busy / 1e3, "busy_share": busy / span,
+           "idle_share": 1.0 - busy / span,
+           "device_ms_by_class": {c: {"ms": t / 1e3, "calls": n}
+                                  for c, (t, n) in sorted(
+                                      by_cls.items(), key=lambda kv:
+                                      -kv[1][0])},
+           "top_ops": [{"name": k[:120], "ms": t / 1e3, "calls": n}
+                       for k, (t, n) in ops],
+           "idle_gaps": [{"ms": g / 1e3, "at_ms": (at - t0) / 1e3,
+                          "after": a[:80], "before": b[:80]}
+                         for g, at, a, b in holes]}
+    print(f"profile split, {what}: wall {wall_ms:.1f} ms (host clock); "
+          f"traced span {span / 1e3:.1f} ms, device busy {busy / 1e3:.1f} "
+          f"ms ({100 * busy / span:.1f} %), idle {100 - 100 * busy / span:.1f}"
+          f" %", flush=True)
+    for c, r in out["device_ms_by_class"].items():
+        print(f"  class {c}: {r['ms']:.2f} ms over {r['calls']} kernels",
+              flush=True)
+    for r in out["top_ops"]:
+        print(f"  op {r['ms']:.3f} ms x{r['calls']}: {r['name']}", flush=True)
+    for r in out["idle_gaps"]:
+        print(f"  idle gap {r['ms']:.3f} ms at {r['at_ms']:.1f} ms, after "
+              f"{r['after']} before {r['before']}", flush=True)
+    return out
+
+
+FRONTEND_UTTS = 12                  # speech-like utterances of 2-4 s
+
+
+def _speech_wav(rng, seconds: float, sr: int, b: int) -> np.ndarray:
+    """A speech-like waveform: a harmonic series on a gliding f0 under a
+    syllable envelope, plus noise (the bench's ``BENCH_MELS=speech``
+    recipe)."""
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = 110.0 + 70.0 * np.sin(2 * np.pi * (0.6 + 0.1 * (b % 7)) * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voiced = sum((0.5 ** k) * np.sin((k + 1) * phase) for k in range(8))
+    envelope = np.clip(np.sin(2 * np.pi * 1.7 * t + b) + 0.7, 0, None)
+    return (0.3 * voiced * envelope + 0.05 * rng.randn(n)).astype(np.float32)
+
+
+def frontend_phase(cfg, dev, tmpdir: str) -> dict:
+    """The audio frontend: FRONTEND_UTTS speech-like utterances of 2-4 s
+    written with ``write_wav`` in the LJSpeech layout, run through the
+    port's ``preprocess`` (4 worker processes) into ``<tmpdir>/corpus_out``
+    (audios, mels, train.txt, train/test fwrec; the lj22k training phase
+    trains on it); ``mel_spectrogram_torch`` on the card held against the
+    numpy ``mel_spectrogram`` (normalized) of the same waveforms to atol
+    2e-4, the JAX package's bar for its own device mel."""
+    import torch
+    from flowavenet_tpu_torch.audio.mel import (mel_spectrogram,
+                                                mel_spectrogram_torch,
+                                                normalize_mel)
+    from flowavenet_tpu_torch.audio.preprocessing import preprocess
+    from flowavenet_tpu_torch.audio.wavio import write_wav
+    from flowavenet_tpu_torch.data.records import FwRecordReader
+
+    sr = cfg.audio.sample_rate
+    rng = np.random.RandomState(SEED + 5)
+    book = os.path.join(tmpdir, "corpus", "LJSpeech-1.1")
+    os.makedirs(os.path.join(book, "wavs"))
+    wavs, lines = [], []
+    for i in range(FRONTEND_UTTS):
+        w = _speech_wav(rng, 2.0 + 2.0 * rng.rand(), sr, i)
+        wavs.append(w)
+        write_wav(os.path.join(book, "wavs", f"LJ001-{i:04d}.wav"), w, sr)
+        lines.append(f"LJ001-{i:04d}|utterance {i}|utterance {i}")
+    with open(os.path.join(book, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines))
+    out_dir = os.path.join(tmpdir, "corpus_out")
+    t0 = time.perf_counter()
+    meta = preprocess(os.path.dirname(book), out_dir, cfg, num_workers=4)
+    pre_s = time.perf_counter() - t0
+    n_train = len(FwRecordReader(os.path.join(out_dir, "train.fwrec")))
+    n_test = len(FwRecordReader(os.path.join(out_dir, "test.fwrec")))
+    check(len(meta) == FRONTEND_UTTS and n_train + n_test == FRONTEND_UTTS,
+          ("preprocess", len(meta), n_train, n_test))
+    # the device mel of 4 of the waveforms (cut to one length) vs numpy
+    n = min(len(w) for w in wavs[:4])
+    batch = np.stack([w[:n] for w in wavs[:4]])
+    t0 = time.perf_counter()
+    got = mel_spectrogram_torch(torch.from_numpy(batch).to(dev), cfg.audio)
+    torch.cuda.synchronize()
+    mel_ms = (time.perf_counter() - t0) * 1e3
+    want = np.stack([normalize_mel(mel_spectrogram(w, cfg.audio), cfg.audio)
+                     for w in batch])
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    print(f"frontend: preprocess of {FRONTEND_UTTS} utterances "
+          f"({sum(len(w) for w in wavs) / sr:.1f} s of audio) {pre_s:.1f} s,"
+          f" {n_train} train / {n_test} test records; mel_spectrogram_torch "
+          f"on the card {tuple(got.shape)} vs numpy max |err| {err:.2e} "
+          f"({mel_ms:.1f} ms with its first call)", flush=True)
+    check(tuple(got.shape) == want.shape and err <= 2e-4,
+          ("mel_spectrogram_torch vs numpy", err))
+    return {"data_dir": out_dir, "utterances": FRONTEND_UTTS,
+            "preprocess_s": pre_s, "mel_err": err, "train_records": n_train,
+            "test_records": n_test}
+
+
+def profile_phase(loaded, cfg, dev, tmpdir: str) -> dict:
+    """Phase 3c, where the int8 route's synthesis time goes: one warm
+    ``synthesize_mels`` of the phase-3 batch (FRAMES, mels of seed SEED)
+    under ``utils/profiling.py:trace`` (launches checked: 15
+    ``pair_flow_i8``), split by ``trace_split``; then the same call with
+    CUDA events around the upsampler and each ``block_reverse``
+    (``_Stages``), printed per stage beside the call's wall time."""
+    import torch
+    from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
+    from flowavenet_tpu_torch.utils.profiling import trace
+
+    rng = np.random.RandomState(SEED)
+    mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
+            for f in FRAMES]
+
+    def run():
+        return synthesize_mels(loaded, cfg, mels, seed=SEED,
+                               compute_dtype=torch.bfloat16, device=dev)
+    run()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with trace(os.path.join(tmpdir, "profile_reverse")) as prof:
+        run()
+    wall = (time.perf_counter() - t0) * 1e3
+    check(_counts() == {"pair_flow_i8": 15}, ("traced reverse", _counts()))
+    split = trace_split(prof, wall, "int8 route, one synthesize_mels of "
+                        f"the {len(FRAMES)}-mel batch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Stages() as st:
+        run()
+    ms = st.ms()
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"int8 route by stage (CUDA events), call wall {wall:.1f} ms, "
+          f"stages {sum(ms.values()):.1f} ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()), flush=True)
+    return {"trace": split, "stage_ms": ms, "stage_wall_ms": wall}
+
+
+def bench_phase(dev) -> dict:
+    """The port's bench (``python -m flowavenet_tpu_torch.bench``) in this
+    process at its defaults (lj22k, BENCH_BATCH x 7 s, synthetic mels on
+    the card) with BENCH_ITERS=3: its JSON line is printed on its own
+    line; every reverse launches 15 ``pair_flow_i8`` (4 reverses)."""
+    from flowavenet_tpu_torch import bench
+    env = {"BENCH_ITERS": "3", "BENCH_CONFIG": "lj22k",
+           "BENCH_MELS": "synthetic", "BENCH_BATCH": None,
+           "BENCH_SECONDS": None}
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        _reset_counts()
+        t0 = time.perf_counter()
+        result = bench.main(["--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(counts == {"pair_flow_i8": 15 * 4}, ("bench launches", counts))
+    check(result["value"] > 0, ("bench", result))
+    print(f"bench: batch {bench.DEFAULT_BATCH} x 7 s, {seconds:.1f} s in "
+          f"all, launches {counts}", flush=True)
+    return {**result, "batch": bench.DEFAULT_BATCH, "seconds": seconds,
+            "launches": counts}
+
+
+def trainer_phase(cfg, dev, data_dir: str, tmpdir: str) -> dict:
+    """The trainer's entry point, ``training/train.py:train``, on the
+    frontend's corpus on the FWN_TRAIN_KERNEL=1 route: DDI and 4 steps
+    with ``tensorboard=True`` and ``profile_steps=2`` (a summary at steps
+    2 and 4, the synthesis probe at 4).  The profile window must hold the
+    training pair kernels (``pair_fwd_kernel``, ``pair_bwd_kernel``) in
+    its Chrome trace and the launch counts must show them; the TensorBoard
+    event files are listed (the card's machine may lack the tensorboard
+    package, and then the trainer says so and goes on)."""
+    import glob
+
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.training.train import train
+
+    logdir = os.path.join(tmpdir, "trainer_logs")
+    saved = fwn.TRAIN_KERNEL
+    fwn.TRAIN_KERNEL = True
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        train(cfg, data_dir, logdir, train_steps=4, summary_interval=2,
+              checkpoint_interval=4, eval_interval=4, log_every=1,
+              tensorboard=True, profile_steps=2, device=dev)
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        fwn.TRAIN_KERNEL = saved
+    traces = glob.glob(os.path.join(logdir, "profile", "*.pt.trace.json"))
+    check(len(traces) == 1, ("profile window traces", traces))
+    with open(traces[0]) as f:
+        kernels = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    found = {k: any(k in n for n in kernels)
+             for k in ("pair_fwd_kernel", "pair_bwd_kernel")}
+    events = glob.glob(os.path.join(logdir, "train", "events.out.*"))
+    print(f"trainer: 4 steps with tensorboard and profile_steps=2 in "
+          f"{seconds:.1f} s; launches {counts}; the profile window's trace "
+          f"holds {found} among {len(kernels)} kernel names; TensorBoard "
+          f"event files {len(events)}", flush=True)
+    check(all(found.values()), ("profile window kernels", found))
+    check(counts.get("pair_train_fwd", 0) > 0
+          and counts.get("pair_train_bwd", 0) > 0, ("trainer", counts))
+    return {"seconds": seconds, "launches": counts, "trace_kernels": found,
+            "tensorboard_event_files": len(events)}
+
+
 PAIR_OPTIONS = {"pair_flow": {}, "pair_flow_i8": {"int8": True},
                 "pair_flow_i8rs": {"int8": True, "rs": True},
                 "pair_flow_hoisted": {"hoisted": True},
@@ -2016,24 +2610,34 @@ def main() -> int:
     brows = hoisted_i8_batch_tiles(params, T, dev)
     # phase 2c: the fused ResBlock route, one coupling net per block
     rrows, r_launches, r_grads = resblock_checks(params, cfg, B, T, dev)
-    # phase 3: synthesis on every route, the first slice's main path, and a
-    # row beside its companions
-    main_out = main_path(params, cfg, dev, FRAMES)
-    comp = batch_composition(main_out["loaded"], cfg, dev)
-    # phase 3b: widths the kernels take only padded, on the kernel routes
-    odd_out = odd_width_phase(dev)
-    # phase 6 (run here, on the loaded bf16 params): serving, this slice's
-    # main path
-    serve_out = serving_phase(main_out.pop("loaded"), cfg, dev)
-    # phase 4: the training kernels at the training geometry of blocks 0-3
-    tB, tT = cfg.data.batch_size, cfg.data.max_time_steps
-    trows = train_kernel_checks(params, cfg, tB, tT, range(4), dev)
-    # phase 5: training, this slice's main path
     import tempfile
     with tempfile.TemporaryDirectory(
             dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build")) as tmp:
-        tr = training_phase(cfg, dev, tmp)
+        # phase 3: synthesis on every route, the first slice's main path,
+        # a row beside its companions, and where the int8 route's time goes
+        main_out = main_path(params, cfg, dev, FRAMES)
+        comp = batch_composition(main_out["loaded"], cfg, dev)
+        invariance = route_invariance(main_out["loaded"], cfg, dev)
+        cost = repair_cost(main_out["loaded"], cfg, dev)
+        prof_out = profile_phase(main_out["loaded"], cfg, dev, tmp)
+        # the port's bench at its default batch
+        bench_out = bench_phase(dev)
+        # phase 3b: widths the kernels take only padded, on the kernel
+        # routes
+        odd_out = odd_width_phase(dev)
+        # phase 6 (run here, on the loaded bf16 params): serving
+        serve_out = serving_phase(main_out.pop("loaded"), cfg, dev)
+        # phase 4: the training kernels at the training geometry of
+        # blocks 0-3
+        tB, tT = cfg.data.batch_size, cfg.data.max_time_steps
+        trows = train_kernel_checks(params, cfg, tB, tT, range(4), dev)
+        # the audio frontend: a speech-like corpus through preprocess
+        front = frontend_phase(cfg, dev, tmp)
+        # phase 5: training on that corpus, then the trainer's entry point
+        # with TensorBoard and a profile window
+        tr = training_phase(cfg, dev, front["data_dir"])
+        trainer = trainer_phase(cfg, dev, front["data_dir"], tmp)
         # phase 7: lj8k_gin, global conditioning end to end
         gin = gin_phase(dev, tmp)
 
@@ -2231,6 +2835,13 @@ def main() -> int:
         "eval_ms_plain_route": tr["eval"]["plain"]["ms"],
         "resblock_route_grad_cos_min": r_grads,
         "batch_composition_gap": comp,
+        "route_invariance": invariance,
+        "batch_invariance_cost": cost,
+        "profile_split_reverse_int8_route": prof_out,
+        "profile_split_train_step_kernel_route": tr["profile_split"],
+        "bench": bench_out,
+        "frontend": {k: v for k, v in front.items() if k != "data_dir"},
+        "trainer": trainer,
         "hoisted_i8_batch_tiles": brows,
         "gin": gin,
         "seconds": time.perf_counter() - t_start}}))

@@ -65,11 +65,15 @@ def _fused_fg_kernel(pf: dict, pg: dict):
 
 
 def _cond_fg(c, g: Optional[torch.Tensor], layer: dict,
-             conv_bias: torch.Tensor, out_dtype=None) -> torch.Tensor:
+             conv_bias: torch.Tensor, out_dtype=None,
+             batch_invariant: bool = False) -> torch.Tensor:
     """Conditioning pre-activations plus ``conv_bias``, one [B, T, 2R]
     tensor, with the global-conditioning term when ``g`` is given.  ``c``
     may be a pre-quantized ``(q_int8, fp32_scale)`` pair: the 1x1 then runs
-    on int8 operands (the deep-block int8 route, which has no g)."""
+    on int8 operands (the deep-block int8 route, which has no g; exact
+    int32 sums, so no row follows its companions).  ``batch_invariant``:
+    the compute-dtype products (K = Cc up to 10240) run one row at a
+    time."""
     kc, bc = _fused_fg_kernel(layer["filter_c"], layer["gate_c"])
     if isinstance(c, tuple):
         if g is not None:
@@ -78,16 +82,16 @@ def _cond_fg(c, g: Optional[torch.Tensor], layer: dict,
         c_q, c_scale = c
         return conv1x1_int8(c_q, c_scale, kc,
                             bc + conv_bias.to(bc.dtype), out_dtype)
-    fg = conv1x1(c, kc, bc + conv_bias.to(bc.dtype))
+    fg = conv1x1(c, kc, bc + conv_bias.to(bc.dtype), batch_invariant)
     if g is not None and "filter_g" in layer:
         kg, bg = _fused_fg_kernel(layer["filter_g"], layer["gate_g"])
-        fg = fg + conv1x1(g, kg, bg)
+        fg = fg + conv1x1(g, kg, bg, batch_invariant)
     return fg
 
 
 def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
                dilation: int, causal: bool = False, use_pallas: bool = False,
-               need_residual: bool = True):
+               need_residual: bool = True, batch_invariant: bool = False):
     """One gated residual unit: returns (residual_out or None, skip)."""
     r = layer["res"]["b"].shape[0]
     k, b = _fused_fg_kernel(layer["filter"], layer["gate"])
@@ -106,8 +110,10 @@ def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
         return rb.fused_gated_resblock(
             h, _cond_fg(c, g, layer, b), k, res_w, layer["res"]["b"],
             skip_w, layer["skip"]["b"], dilation=dilation, causal=causal)
-    fg = dilated_conv1d(h, k, b, dilation=dilation, causal=causal)
-    fg = fg + _cond_fg(c, g, layer, torch.zeros_like(b), out_dtype=h.dtype)
+    fg = dilated_conv1d(h, k, b, dilation=dilation, causal=causal,
+                        batch_invariant=batch_invariant)
+    fg = fg + _cond_fg(c, g, layer, torch.zeros_like(b), out_dtype=h.dtype,
+                       batch_invariant=batch_invariant)
     out = torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
     skip = conv1x1(out, wn_kernel(layer["skip"]), layer["skip"]["b"])
     if not need_residual:
@@ -119,18 +125,24 @@ def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
 
 def apply_wavenet(params: dict, x: torch.Tensor, c,
                   g: Optional[torch.Tensor] = None, *, causal: bool = False,
-                  kernel_size: int = 3, use_pallas: bool = False
-                  ) -> torch.Tensor:
+                  kernel_size: int = 3, use_pallas: bool = False,
+                  batch_invariant: bool = False) -> torch.Tensor:
     """Coupling net: x [B, T, in] half-tensor, c [B, T, Cc] half-condition
     (or its int8 ``(q, scale)`` pair), g [B, T, Cg] half global condition
-    or None.  Returns [B, T, out] (log_s || t for affine couplings)."""
-    h = torch.relu(wn_conv1d(x, params["front"], dilation=1, causal=causal))
+    or None.  Returns [B, T, out] (log_s || t for affine couplings).
+    ``batch_invariant`` runs the dilated convs as GEMMs over their taps
+    and the conditioning products one row at a time, so that a row's
+    output never depends on its batch companions (synthesis;
+    ``ops/conv.py:_conv_as_gemm``, ``conv1x1(per_row=True)``)."""
+    h = torch.relu(wn_conv1d(x, params["front"], dilation=1, causal=causal,
+                             batch_invariant=batch_invariant))
     skip_sum = None
     n_layers = len(params["layers"])
     for n, layer in enumerate(params["layers"]):
         h, s = _res_layer(h, c, g, layer, dilation=kernel_size ** n,
                           causal=causal, use_pallas=use_pallas,
-                          need_residual=n + 1 < n_layers)
+                          need_residual=n + 1 < n_layers,
+                          batch_invariant=batch_invariant)
         skip_sum = s if skip_sum is None else skip_sum + s
     out = torch.relu(skip_sum)
     out = torch.relu(conv1x1(out, wn_kernel(params["final"]),

@@ -206,10 +206,14 @@ def hoist_cond(c: torch.Tensor, w_flow: torch.Tensor) -> torch.Tensor:
     sums, rounded once to ``c``'s dtype, as the JAX package computes them
     (``preferred_element_type=float32``, then the cast).  On the card a
     16-bit product runs on the tensor cores into an fp32 result; the CPU
-    has no such matmul, so it multiplies the fp32 copies."""
+    has no such matmul, so it multiplies the fp32 copies.  One product per
+    batch row: cuBLAS picks this long-K product's kernel, and with it the
+    order of its sums, by the number of rows, so a row's bits would follow
+    its batch companions (PERF.md §6)."""
     if c.is_cuda and c.dtype in (torch.bfloat16, torch.float16):
-        out = torch.mm(c.reshape(-1, c.shape[-1]), w_flow.to(c.dtype),
-                       out_dtype=torch.float32)
+        w = w_flow.to(c.dtype)
+        out = torch.cat([torch.mm(r, w, out_dtype=torch.float32)
+                         for r in c.reshape(c.shape[0], -1, c.shape[-1])])
         return out.reshape(*c.shape[:-1], -1).to(c.dtype)
     return torch.matmul(c.float(), w_flow.float()).to(c.dtype)
 

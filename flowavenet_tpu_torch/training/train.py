@@ -12,16 +12,22 @@
   points (heartbeat, summary, checkpoint, synthesis probe), in one batched
   copy each.
 * SIGTERM finishes the step in flight, checkpoints and exits.
+* ``--tensorboard`` mirrors the summaries and the probe's audio into
+  TensorBoard event files under ``<logdir>/train`` (needs the
+  ``tensorboard`` package; without it the trainer says so and goes on).
+* ``--profile_steps N`` traces N steps after the first with
+  ``torch.profiler`` (``utils/profiling.py:trace``) into
+  ``<logdir>/profile``.
 
 Routes follow the model's flags: ``FWN_TRAIN_KERNEL=1`` trains the blocks
 with cc_half <= ``FWN_TRAIN_MAX_CC`` through the training pair kernels.
-Not ported yet: the native loader, the mesh and tensor parallelism,
-TensorBoard and profiling.
+Not ported yet: the native loader, the mesh and tensor parallelism.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import threading
@@ -36,6 +42,7 @@ from ..config import Config, get_config
 from ..data.dataset import CropDataset
 from ..data.records import FwRecordReader
 from ..synthesis.synthesize import resolve_device
+from ..utils.profiling import trace
 from ..utils.tree import leaves
 from .metrics import MetricsWriter, format_step
 from .train_state import (TrainState, create_state, ddi_initialize,
@@ -60,8 +67,12 @@ def train(cfg: Config, data_dir: str, logdir: str, *, restore: bool = True,
           train_steps: int | None = None, summary_interval: int | None = None,
           checkpoint_interval: int | None = None,
           eval_interval: int | None = None, probe_synthesis: bool = True,
-          log_every: int = 50, device: str | torch.device = "cuda") -> str:
-    """Train to ``train_steps``; returns the checkpoint directory."""
+          log_every: int = 50, tensorboard: bool = False,
+          profile_steps: int = 0,
+          device: str | torch.device = "cuda") -> str:
+    """Train to ``train_steps``; returns the checkpoint directory.
+    ``tensorboard`` mirrors metrics and audio into TensorBoard event files;
+    ``profile_steps`` traces that many steps after the first."""
     dev = resolve_device(device)
     t_cfg = cfg.train
     train_steps = train_steps or t_cfg.train_steps
@@ -73,6 +84,13 @@ def train(cfg: Config, data_dir: str, logdir: str, *, restore: bool = True,
     save_dir = os.path.join(logdir, "pretrained")
     writer = MetricsWriter(os.path.join(logdir, "train"))
     test_writer = MetricsWriter(os.path.join(logdir, "test"))
+    tb = None
+    if tensorboard:
+        from .tb_writer import maybe_tb_writer
+        tb = maybe_tb_writer(os.path.join(logdir, "train"))
+        if tb is None:
+            print("tensorboard writer unavailable (no tensorboard package); "
+                  "JSONL metrics only")
     batch_size = cfg.data.batch_size
     # a global-conditioning model trains on the records' speaker ids
     with_speaker = cfg.model.gin_channels > 0
@@ -121,14 +139,22 @@ def train(cfg: Config, data_dir: str, logdir: str, *, restore: bool = True,
         prev_handler = signal.signal(signal.SIGTERM,
                                      lambda signum, frame: preempt.set())
     data_iter = dataset.iterate(start_step=start_step)
+    # the profile window: closed when its steps are done or on any exit
+    profile = contextlib.ExitStack()
     try:
         step = start_step
         win_t0, win_steps = time.time(), 0
         while step < train_steps:
+            if profile_steps and step == start_step + 1:
+                # skip the first step (kernel builds, allocator warm-up)
+                profile.enter_context(trace(os.path.join(logdir, "profile")))
             state, metrics = train_step(state, to_device(next(data_iter),
                                                          dev))
             step += 1
             win_steps += 1
+            if profile_steps and step == start_step + 1 + profile_steps:
+                profile.close()
+                print(f"\nprofile trace written to {logdir}/profile")
             preempted = preempt.is_set()
             summarize = step % summary_interval == 0 or step == 1
             ckpt_due = (step % checkpoint_interval == 0
@@ -147,6 +173,8 @@ def train(cfg: Config, data_dir: str, logdir: str, *, restore: bool = True,
                 metrics["samples_per_sec"] = (batch_size * dataset.time_crop
                                               / dt)
                 writer.scalars(step, metrics)
+                if tb is not None:
+                    tb.scalars(step, metrics)
                 if test_dataset is not None:
                     eval_metrics = eval_step(
                         state.params,
@@ -161,25 +189,30 @@ def train(cfg: Config, data_dir: str, logdir: str, *, restore: bool = True,
                       "(resume restores this run bit-exactly)")
                 break
             if probe_due:
-                _synthesis_probe(state, cfg, data_dir, writer, step, dev)
+                _synthesis_probe(state, cfg, data_dir, writer, step, dev,
+                                 tb=tb)
             # the next window starts after the sync-point work, so it
             # measures training steps only
             win_t0, win_steps = time.time(), 0
     finally:
+        profile.close()
         data_iter.close()            # stops the prefetch thread
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
         writer.close()
         test_writer.close()
+        if tb is not None:
+            tb.close()
     print()
     return save_dir
 
 
 def _synthesis_probe(state: TrainState, cfg: Config, data_dir: str,
                      writer: MetricsWriter, step: int,
-                     dev: torch.device) -> None:
+                     dev: torch.device, tb=None) -> None:
     """Synthesize a random test utterance through the port's
-    ``synthesize_mels`` and write it beside its target."""
+    ``synthesize_mels`` and write it beside its target (also as
+    TensorBoard audio when ``tb`` is given)."""
     from ..synthesis.synthesize import synthesize_mels
 
     path = os.path.join(data_dir, "test.fwrec")
@@ -198,6 +231,10 @@ def _synthesis_probe(state: TrainState, cfg: Config, data_dir: str,
                                         else None), device=dev)
     writer.wav(step, "prediction", wavs[0], cfg.audio.sample_rate)
     writer.wav(step, "target", audio[: len(wavs[0])], cfg.audio.sample_rate)
+    if tb is not None:
+        tb.wav(step, "eval/prediction", wavs[0], cfg.audio.sample_rate)
+        tb.wav(step, "eval/target", audio[: len(wavs[0])],
+               cfg.audio.sample_rate)
 
 
 def main(argv=None):
@@ -216,6 +253,12 @@ def main(argv=None):
     parser.add_argument("--train_steps", type=int, default=None)
     parser.add_argument("--log_every", type=int, default=50,
                         help="heartbeat and host-sync interval in steps")
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="also mirror metrics into TensorBoard event "
+                             "files (needs the tensorboard package)")
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="trace N steps after the first with "
+                             "torch.profiler into <logdir>/profile")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -228,6 +271,7 @@ def main(argv=None):
           summary_interval=args.summary_interval,
           checkpoint_interval=args.checkpoint_interval,
           eval_interval=args.eval_interval, log_every=args.log_every,
+          tensorboard=args.tensorboard, profile_steps=args.profile_steps,
           device=args.device)
 
 

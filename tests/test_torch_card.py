@@ -8,6 +8,7 @@ nor the JAX package, so it also runs where JAX is absent:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -678,14 +679,17 @@ def test_resblock_launcher_refuses_bf16_off_tc_and_unpadded_widths(cuda):
 def test_synthesis_row_does_not_follow_its_companions(cuda, monkeypatch,
                                                       route):
     """lj22k, bf16: one 360-frame mel synthesized alone and beside 1 and 3
-    companions of the same length (same noise, seed + i per row).  On
-    FWN_HOISTED=1 every batch size launches pair_flow_hoisted_i8 on the
-    same tile (block 5's, the last launch, at T_k = 1440: the rule's tile
-    at the reference batch, 44 rows on an H100 SXM), where the
-    wave-balanced tile of the batch gave 16 rows alone; each route's row
-    stays within the int8 bar of itself alone (rel-to-max < 0.08, corr >
-    0.998), and the gaps (max |difference| over max |audio|) are
-    printed."""
+    companions of the same length (same noise, seed + i per row) gives the
+    same bits on both routes: an item's audio depends only on its mel,
+    seed, temperature and padded length, the contract of the JAX
+    package's ``synthesize_mels``.  The default route's deep blocks run
+    the plain pair-scan, whose library products run one row at a time in
+    reverse (``ops/conv.py:_row_by_row``); on FWN_HOISTED=1 every batch
+    size launches pair_flow_hoisted_i8 on the same tile (block 5's, the
+    last launch, at T_k = 1440: the rule's tile at the reference batch, 44
+    rows on an H100 SXM).  Row 0's largest difference after the upsampler
+    and after each block is printed with the audio's gap; rows 1-3 of
+    the 4-row batch equal each of them synthesized alone."""
     from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
     if route == "FWN_HOISTED=1":
         monkeypatch.setattr(fwn, "PAIR_KERNEL_HOISTED", True)
@@ -698,11 +702,24 @@ def test_synthesis_row_does_not_follow_its_companions(cuda, monkeypatch,
     rng = np.random.RandomState(360)
     mels = [rng.rand(360, cfg.audio.num_mels).astype(np.float32)
             for _ in range(4)]
-    rows, tiles = {}, set()
+    stages = []
+    block, up = fwn.block_reverse, fwn.apply_upsample
+
+    def keep(fn, name):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            stages.append((name, out[:1].float().clone()))
+            return out
+        return run
+    monkeypatch.setattr(fwn, "block_reverse", keep(block, "block"))
+    monkeypatch.setattr(fwn, "apply_upsample", keep(up, "upsampler"))
+    rows, by_stage, tiles = {}, {}, set()
     for n in (1, 2, 4):
-        rows[n] = synthesize_mels(params, cfg, mels[:n], seed=0,
-                                  compute_dtype=torch.bfloat16,
-                                  device=cuda)[0]
+        stages.clear()
+        batch = synthesize_mels(params, cfg, mels[:n], seed=0,
+                                compute_dtype=torch.bfloat16, device=cuda)
+        rows[n] = batch[0]
+        by_stage[n] = list(stages)
         if route == "FWN_HOISTED=1":
             tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"])
     if route == "FWN_HOISTED=1":
@@ -710,10 +727,41 @@ def test_synthesis_row_does_not_follow_its_companions(cuda, monkeypatch,
     top = float(np.abs(rows[1]).max())
     for n in (2, 4):
         gap = float(np.abs(rows[n] - rows[1]).max()) / top
+        split = [f"{name} {float((a - b).abs().max()):.3e}"
+                 for (name, a), (_, b) in zip(by_stage[1], by_stage[n])]
         print(f"{route}: row 0 beside {n - 1} companions vs alone: gap "
-              f"{gap:.3e}" + (f", pair_flow_hoisted_i8 tile {tiles}"
-                              if tiles else ""))
-        assert gap < 0.08 and np.corrcoef(rows[n], rows[1])[0, 1] > 0.998
+              f"{gap:.3e}; by stage (upsampler, blocks 7..0): "
+              f"{', '.join(split)}"
+              + (f", pair_flow_hoisted_i8 tile {tiles}" if tiles else ""))
+        assert np.array_equal(rows[n], rows[1]), (n, gap, split)
+    # the other rows of the 4-row batch, each alone (seed 0 + i)
+    for i in (1, 2, 3):
+        alone = synthesize_mels(params, cfg, [mels[i]], seed=i,
+                                compute_dtype=torch.bfloat16, device=cuda)
+        assert np.array_equal(batch[i], alone[0]), i
+
+
+@pytest.mark.cuda
+def test_bench_runs_the_default_route(cuda, monkeypatch, capsys):
+    """``python -m flowavenet_tpu_torch.bench`` at lj22k, batch 4 x 7 s,
+    one timed call: one JSON line with the top-level bench's keys on
+    stdout, a positive rate, and 15 pair_flow_i8 launches per reverse
+    (the first call and the timed one)."""
+    from flowavenet_tpu_torch import bench
+    for k, v in {"BENCH_BATCH": "4", "BENCH_ITERS": "1",
+                 "BENCH_CONFIG": "lj22k", "BENCH_MELS": "synthetic"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("BENCH_SECONDS", raising=False)
+    n0 = dict(pf.LAUNCHES)
+    result = bench.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and json.loads(out[0]) == result
+    assert set(result) == {"metric", "value", "unit", "vs_baseline"}
+    assert result["metric"] == "synthesis_khz_per_sec_per_chip"
+    assert result["value"] > 0
+    launched = {k: v - n0[k] for k, v in pf.LAUNCHES.items() if v != n0[k]}
+    assert launched == {"pair_flow_i8": 30}, launched
 
 
 def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):

@@ -52,12 +52,24 @@ def test_sources_found():
             "flowavenet_tpu_torch/synthesis/streaming.py",
             "flowavenet_tpu_torch/serving/server.py",
             "flowavenet_tpu_torch/ops/resblock.py",
-            "flowavenet_tpu_torch/utils/device.py"} <= names
+            "flowavenet_tpu_torch/utils/device.py",
+            "flowavenet_tpu_torch/utils/profiling.py",
+            "flowavenet_tpu_torch/bench.py",
+            "flowavenet_tpu_torch/audio/mel.py",
+            "flowavenet_tpu_torch/audio/preprocessing.py",
+            "flowavenet_tpu_torch/audio/tacotron.py",
+            "flowavenet_tpu_torch/training/tb_writer.py",
+            "flowavenet_tpu_torch/checkpoint/tf_import.py",
+            "flowavenet_tpu_torch/checkpoint/import_cli.py"} <= names
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
-    """Without CUDA, synthesize_mels, load_params and the CLI raise rather
-    than fall back to the CPU; device='cpu' is the explicit way there."""
+    """Without CUDA, synthesize_mels, load_params and the CLI, the trainer
+    (also with ``--tensorboard`` and ``--profile_steps``), the bench and
+    the TF import CLI raise rather than fall back to the CPU; device='cpu'
+    (``--device cpu``) is the explicit way there.  The preprocessing and
+    Tacotron CLIs run no device work (host numpy, the JAX package's files
+    byte for byte: tests/test_torch_audio.py)."""
     from flowavenet_tpu_torch.config import tiny
     from flowavenet_tpu_torch.synthesis import synthesize as tsyn
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -75,6 +87,21 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--config", "tiny", "--data_dir", str(tmp_path),
                      "--logdir", str(tmp_path / "logs")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--config", "tiny", "--data_dir", str(tmp_path),
+                     "--logdir", str(tmp_path / "logs"), "--tensorboard",
+                     "--profile_steps", "2"])
+    from flowavenet_tpu_torch import bench
+    monkeypatch.delenv("BENCH_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([])
+    monkeypatch.setenv("BENCH_DEVICE", "cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([])
+    from flowavenet_tpu_torch.checkpoint import import_cli
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        import_cli.main(["--npz", str(tmp_path / "tf.npz"), "--out_dir",
+                         str(tmp_path / "out"), "--config", "tiny"])
 
 
 def test_serving_entry_points_need_cuda_unless_cpu(monkeypatch):
@@ -128,3 +155,23 @@ def test_port_sources_state_no_tpu_measurement():
             (ROOT / "flowavenet_tpu_torch/ops/csrc").iterdir()):
         for i, line in enumerate(path.read_text().splitlines(), 1):
             assert not tpu.search(line), f"{path.name}:{i}: {line.strip()}"
+
+
+@pytest.mark.parametrize("script", ["flowavenet-torch-synthesize",
+                                    "flowavenet-torch-preprocess",
+                                    "flowavenet-torch-adapt-tacotron",
+                                    "flowavenet-torch-import-tf"])
+def test_port_console_scripts_resolve(script):
+    """Each of the port's console scripts in pyproject.toml names a main
+    function of the port that takes an argv list, as its JAX twin does
+    (flowavenet-synthesize, -preprocess, -adapt-tacotron, -import-tf)."""
+    import importlib
+    import inspect
+    import tomllib
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    module, func = scripts[script].split(":")
+    assert module.startswith("flowavenet_tpu_torch.")
+    assert script.replace("-torch", "") in scripts
+    fn = getattr(importlib.import_module(module), func)
+    assert "argv" in inspect.signature(fn).parameters
