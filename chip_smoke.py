@@ -48,12 +48,15 @@
    match to the JAX package's int8 test bar (corr > 0.998, rel < 0.08).
    Each route runs one warm-up call and ``REPS`` timed calls; the median
    and the range are printed.  ``batch_composition`` then synthesizes one
-   mel alone and beside 1 and 3 companions on the int8 and FWN_HOISTED=1
-   routes: the row must be bit-identical on both, and row 0's difference
-   after the upsampler and after each block is printed;
-   ``route_invariance`` holds every row of 2, 4 and 8 to itself alone on
-   every route at 60, 120 and 360 padded frames, and ``repair_cost``
-   times that synthesis path against the one before it, in turns.  Phase 3c
+   mel alone and beside 1 and 3 companions on the int8, FWN_HOISTED=1
+   and plain routes: the row must be bit-identical on each, and row 0's
+   difference after the upsampler and after each block is printed, with
+   each library product's on row 0 (also, recorded, with the products
+   run as before synthesis was made batch-invariant);
+   ``route_invariance`` holds rows of batches of 2 to 32 to themselves
+   alone on every route at 60, 120 and 360 padded frames, and
+   ``repair_cost`` times that synthesis path against the one before it
+   and against every product one row at a time, in turns.  Phase 3c
    (``profile_phase``) traces one warm int8-route call with
    ``utils/profiling.py:trace`` and prints ``trace_split``'s reading (the
    window's wall time, the device's busy and idle share, the top device
@@ -86,8 +89,11 @@
    6400 samples, bf16 compute, fp32 params) through the port's entry
    points on that corpus: DDI, then ``TRAIN_STEPS`` steps on the
    FWN_TRAIN_KERNEL=1 route and on the plain route from the same params
-   (checks in ``training_phase``), one traced kernel-route step split by
-   ``trace_split``, and one FWN_FWD_KERNEL=1 eval step; then
+   (checks in ``training_phase``), each route's steps beside the same
+   steps with synthesis's per-row products and with the library's (cuDNN
+   convs; time and peak memory, in turns), one traced kernel-route step
+   split by ``trace_split`` (and one with synthesis's products), and one
+   FWN_FWD_KERNEL=1 eval step; then
    (``trainer_phase``) ``train()`` itself for 4 steps with
    ``tensorboard=True`` and ``profile_steps=2``, whose trace must hold
    the training pair kernels.
@@ -114,6 +120,7 @@ It exits non-zero too when CUDA is unavailable.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1036,6 +1043,9 @@ def training_phase(cfg, dev, data_dir: str, steps: int = TRAIN_STEPS):
     make_eval_step), on the corpus that the frontend phase preprocessed
     into ``data_dir``.  DDI, then ``steps`` steps on each
     route from identical params: FWN_TRAIN_KERNEL=1 and the plain route;
+    each route's steps beside the same steps on the ``synthesis`` and
+    ``library`` paths of ``_path_patches`` (``_timed_steps``: time and
+    peak memory, in turns);
     then one more FWN_TRAIN_KERNEL=1 step under ``utils/profiling.py:
     trace``, split by ``trace_split``.
     Checks finite losses; the first-step loss of the two routes within rel
@@ -1123,6 +1133,20 @@ def training_phase(cfg, dev, data_dir: str, steps: int = TRAIN_STEPS):
                   f"per step {out[route]['launches']}, max memory "
                   f"{out[route]['max_mem_gb']:.2f} GB, losses "
                   f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+        # training's products against synthesis's schedule (the front conv
+        # and conditioning per row) and the library's (cuDNN convs)
+        for route, on in (("kernel", True), ("plain", False)):
+            fwn.TRAIN_KERNEL = on
+            out[route]["paths"] = r = _timed_steps(
+                make_train_step(cfg), state0, batches,
+                {"as trained": [], "synthesis": _path_patches("synthesis"),
+                 "library": _path_patches("library")}, dev)
+            print(f"training {route} route by product path: " + "; ".join(
+                f"{k} median {v['median_ms']:.1f} ms/step, min "
+                f"{min(v['ms']):.1f} (steps "
+                f"{', '.join(f'{t:.1f}' for t in v['ms'])}; peak "
+                f"{v['step_peak_gb']:.2f} GB above the state)"
+                for k, v in r.items()), flush=True)
         # where the kernel route's step time goes: one traced step
         fwn.TRAIN_KERNEL = True
         step_fn = make_train_step(cfg)
@@ -1132,6 +1156,13 @@ def training_phase(cfg, dev, data_dir: str, steps: int = TRAIN_STEPS):
             float(step_fn(state0, batches[1])[1]["loss"])
         split = trace_split(prof, (time.perf_counter() - t0) * 1e3,
                             "FWN_TRAIN_KERNEL=1, one lj22k training step")
+        with _patched(_path_patches("synthesis")):
+            t0 = time.perf_counter()
+            with trace(os.path.join(data_dir, "profile_train_rows")) as prof:
+                float(step_fn(state0, batches[1])[1]["loss"])
+            split_rows = trace_split(
+                prof, (time.perf_counter() - t0) * 1e3, "FWN_TRAIN_KERNEL=1,"
+                " one lj22k training step with synthesis's per-row products")
         # the gradients of both routes at the params the plain route
         # reached: at the DDI'd start the true gradient of the ActNorms and
         # biases is ~0 and bf16 rounding noise dominates it
@@ -1208,7 +1239,40 @@ def training_phase(cfg, dev, data_dir: str, steps: int = TRAIN_STEPS):
     return {"routes": out, "ddi_s": ddi_s, "loss_rel": loss_rel,
             "loss_rel_fp32": (k32, p32), "grad_cos": cos,
             "grad_cos_bf16": (cos_k, cos_p), "eval": evals, "eval_rel": e_rel,
-            "n_route": n_route, "profile_split": split}
+            "n_route": n_route, "profile_split": split,
+            "profile_split_synthesis_products": split_rows}
+
+
+def _timed_steps(step_fn, state0, batches, patches: dict,
+                 dev, steps: int = 3) -> dict:
+    """Training steps from ``state0`` under each set of ``patches`` (name
+    -> list), in turns: each in order, then in reverse order, each turn
+    one warm-up and ``steps`` timed steps on batches 0, 1, ...; host clock
+    around synchronized steps.  Returns per name the timed steps (ms),
+    their median and the steps' peak memory above what was allocated
+    before the turn (GB)."""
+    import torch
+    names = list(patches)
+    times = {k: [] for k in names}
+    peak = {k: 0.0 for k in names}
+    for which in names + names[::-1]:
+        with _patched(patches[which]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            state = state0
+            for i in range(steps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batches[i % len(batches)])
+                float(m["loss"])
+                if i:
+                    times[which].append((time.perf_counter() - t0) * 1e3)
+            del state, m
+            peak[which] = max(peak[which], (torch.cuda.max_memory_allocated(
+                dev) - base) / 1e9)
+    return {k: {"ms": times[k], "median_ms": float(np.median(times[k])),
+                "step_peak_gb": peak[k]} for k in names}
 
 
 # Routes of phase 3: (name, model switches, launches per reverse)
@@ -1317,95 +1381,165 @@ def main_path(params, cfg, dev, frames):
     return out
 
 
-def _op_split(run, n: int) -> dict:
-    """Every library product (cuDNN ``conv1d``, cuBLAS ``matmul``,
-    ``_int_mm``) of one call of ``run()`` on an ``n``-row batch, run again
-    on row 0 alone with the same inputs: per stage (upsampler, each block)
-    and product, how many calls give row 0 other bits and the largest
-    difference."""
-    import torch
-    import torch.nn.functional as F
-    from flowavenet_tpu_torch.models import flowavenet as fwn
-
-    real = {"conv1d": F.conv1d, "matmul": torch.matmul,
-            "_int_mm": torch._int_mm}
-    seen, stage, done = [], ["-"], []
-
-    def spy(name):
-        def call(*a, **k):
-            out = real[name](*a, **k)
-            seen.append((name, stage[0], a, k, out))
-            return out
-        return call
-
-    block, up = fwn.block_reverse, fwn.apply_upsample
-
-    def block_stage(*a, **k):
-        done.append(1)
-        stage[0] = f"block {a[1].n_block - len(done)}"
-        return block(*a, **k)
-
-    def up_stage(*a, **k):
-        done.clear()
-        stage[0] = "upsampler"
-        return up(*a, **k)
-    patches = [(F, "conv1d", spy("conv1d")), (torch, "matmul", spy("matmul")),
-               (torch, "_int_mm", spy("_int_mm")),
-               (fwn, "block_reverse", block_stage),
-               (fwn, "apply_upsample", up_stage)]
+@contextlib.contextmanager
+def _patched(patches):
+    """Each (object, attribute, value) of ``patches`` set for the body, the
+    old values put back after it."""
     saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
     try:
         for o, a, v in patches:
             setattr(o, a, v)
-        run()
+        yield
     finally:
-        for o, a, v in saved:
+        for o, a, v in reversed(saved):
             setattr(o, a, v)
+
+
+def _path_patches(path: str) -> list:
+    """Patches that run the coupling nets' products another way than the
+    port does, to measure what its batch-invariant products change and
+    cost.  ``library``: as the port ran them before (cuDNN ``F.conv1d``
+    convs; the front convs' products, the compute-dtype conditioning 1x1s
+    and the hoist matmul each one product over the whole batch).
+    ``per-row``: every product of the nets one row at a time (each conv's
+    tap GEMM and every 1x1).  ``batched``: the port's tap GEMMs with every
+    product over the whole batch (none per row).  ``synthesis``: the
+    nets' products scheduled as in reverse (``apply_wavenet(per_row=
+    True)``) in either direction, to time that schedule in training."""
+    import torch
+    import torch.nn.functional as F
+    from flowavenet_tpu_torch.models import modules
+    from flowavenet_tpu_torch.ops import conv
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+
+    gemm, one = conv.dilated_conv1d, conv.conv1x1
+    if path == "per-row":
+        def conv_(x, kernel, bias, dilation=1, causal=False, per_row=False):
+            return gemm(x, kernel, bias, dilation, causal, per_row=True)
+
+        def one_(x, kernel, bias, per_row=False):
+            return one(x, kernel, bias, per_row=True)
+        return [(conv, "dilated_conv1d", conv_),
+                (modules, "dilated_conv1d", conv_),
+                (modules, "conv1x1", one_)]
+    if path == "batched":
+        def one_(x, kernel, bias, per_row=False):
+            return one(x, kernel, bias)
+        return [(conv, "conv1x1", one_), (modules, "conv1x1", one_)]
+    if path == "synthesis":
+        from flowavenet_tpu_torch.models import flowavenet as fwn
+        net = fwn.apply_wavenet
+
+        def net_(*a, **k):
+            return net(*a, **{**k, "per_row": True})
+        return [(fwn, "apply_wavenet", net_)]
+
+    def conv_(x, kernel, bias, dilation=1, causal=False, per_row=False):
+        k = kernel.shape[0]
+        left = dilation * (k - 1) if causal else dilation * (k - 1) // 2
+        xt = F.pad(x.transpose(1, 2), (left, dilation * (k - 1) - left))
+        out = F.conv1d(xt, kernel.to(x.dtype).permute(2, 1, 0),
+                       dilation=dilation).transpose(1, 2)
+        return out if bias is None else out + bias.to(x.dtype)
+
+    def one_(x, kernel, bias, per_row=False):
+        return one(x, kernel, bias)
+
+    def hoist_(c, w_flow):
+        out = torch.mm(c.reshape(-1, c.shape[-1]), w_flow.to(c.dtype),
+                       out_dtype=torch.float32)
+        return out.reshape(*c.shape[:-1], -1).to(c.dtype)
+    return [(conv, "dilated_conv1d", conv_), (modules, "dilated_conv1d", conv_),
+            (modules, "conv1x1", one_), (pf, "hoist_cond", hoist_)]
+
+
+def _route_patches(route: str) -> list:
+    """The model switches of a route of ``ROUTES`` as patches; ``plain`` has
+    none (its config sets use_pallas=False)."""
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    switches = dict((r[0], r[1]) for r in ROUTES).get(route, {})
+    return [(fwn, k, v) for k, v in switches.items()]
+
+
+def _op_split(run, n: int) -> dict:
+    """Every library product (cuDNN ``conv1d``, cuBLAS ``matmul``,
+    ``_int_mm``, the hoist matmul ``hoist_cond``) of one call of ``run()``
+    on an ``n``-row batch, run again on row 0 alone with the same inputs:
+    per stage (``utils/profiling.py:BlockStages``), product and shape of
+    its second operand (the weight), how many calls give row 0 other bits
+    and the largest difference.  Products already run one row at a time
+    are not counted."""
+    import torch
+    import torch.nn.functional as F
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.utils.profiling import BlockStages
+
+    real = {"conv1d": (F, F.conv1d), "matmul": (torch, torch.matmul),
+            "_int_mm": (torch, torch._int_mm),
+            "hoist_cond": (pf, pf.hoist_cond)}
+    seen, st = [], BlockStages()
+
+    def spy(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            seen.append((name, st.stage, a, k, out))
+            return out
+        return call
+    with st, _patched([(o, name, spy(name, fn))
+                       for name, (o, fn) in real.items()]):
+        run()
     out = {}
     for name, where, a, k, got in seen:
+        fn = real[name][1]
         if name == "_int_mm":            # [n * T, K] rows, row 0's first
             rows = a[0].shape[0] // n
-            alone = real[name](a[0][:rows].contiguous(), a[1])
+            alone = fn(a[0][:rows].contiguous(), a[1])
             got = got[:rows]
         elif a[0].dim() == 3 and a[0].shape[0] == n:
-            alone = real[name](a[0][:1], *a[1:], **k)
+            alone = fn(a[0][:1], *a[1:], **k)
             got = got[:1]
         else:
             continue
         d = float((alone.float() - got.float()).abs().max())
-        e = out.setdefault(f"{where} {name}", {"calls": 0, "differ": 0,
-                                               "max_abs": 0.0})
+        w = "x".join(str(x) for x in a[1].shape)
+        e = out.setdefault(f"{where} {name} {w}", {"calls": 0, "differ": 0,
+                                                    "max_abs": 0.0})
         e["calls"] += 1
         e["differ"] += d > 0
         e["max_abs"] = max(e["max_abs"], d)
     return out
 
 
+def _op_line(ops: dict) -> str:
+    return ", ".join(f"{k} {v['differ']}/{v['calls']} {v['max_abs']:.3e}"
+                     for k, v in ops.items())
+
+
 def batch_composition(loaded, cfg, dev):
     """Phase 3, a row beside its companions: a 345-frame mel synthesized
     alone and beside 1 and 3 shorter companions (one reverse, the same
-    padded length and the same noise for row 0) on the int8 and
-    FWN_HOISTED=1 routes, launches checked as in ``ROUTES``.  On both the
-    row must be bit-identical at B = 1, 2 and 4: an item's audio depends
-    only on its mel, seed, temperature and padded length, the contract of
-    the JAX package's ``synthesize_mels``.  Row 0 of the upsampler's and of
-    every ``block_reverse``'s output is compared stage by stage
-    (``_Stages``) and the largest difference per stage is printed beside
-    the audio's gap (max |difference| over max |audio|); at B = 4 every
-    library product is run again on row 0 alone (``_op_split``) and none
-    may differ.  Every batch size launches
+    padded length and the same noise for row 0), launches checked as in
+    ``ROUTES``.  On the int8, FWN_HOISTED=1 and plain routes the row must
+    be bit-identical at B = 1, 2 and 4: an item's audio depends only on
+    its mel, seed, temperature and padded length, the contract of the JAX
+    package's ``synthesize_mels``.  Row 0 of the upsampler's and of every
+    ``block_reverse``'s output is compared stage by stage
+    (``BlockStages``) and the largest difference per stage is printed
+    beside the audio's gap (max |difference| over max |audio|); at B = 4
+    every library product is run again on row 0 alone (``_op_split``)
+    and none may differ.  Every batch size launches
     ``pair_flow_hoisted_i8`` on the same tile (block 5's, the last launch,
-    is checked: the tile is fixed by T and the widths).  For comparison,
-    recorded and not held to a bar: FWN_HOISTED=1 with that pair on the
-    wave-balanced tile of each batch (``pair_flow.hoisted_t_tile(B,
-    ...)``, the rule before the tile was fixed), and the int8 route with
-    the coupling nets' products as the likelihood side runs them (cuDNN
-    convs, batched conditioning: the synthesis path before it was made
-    batch-invariant)."""
+    is checked: the tile is fixed by T and the widths).  Recorded, not
+    held, to show what each batch-invariant product repairs: FWN_HOISTED=1
+    with that pair on the wave-balanced tile of each batch
+    (``pair_flow.hoisted_t_tile(B, ...)``, the rule before the tile was
+    fixed), and the int8, FWN_INT8=0 and FWN_HOISTED=1 routes with the
+    nets' products on the ``library`` path of ``_path_patches`` (cuDNN
+    convs, batched conditioning and hoist products)."""
     import torch
-    from flowavenet_tpu_torch.models import flowavenet as fwn
     from flowavenet_tpu_torch.ops import pair_flow as pf
     from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
+    from flowavenet_tpu_torch.utils.profiling import BlockStages
 
     rng = np.random.RandomState(SEED + 3)
     mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
@@ -1415,37 +1549,34 @@ def batch_composition(loaded, cfg, dev):
     def batch_rule(B, T, r, r_in, variant, n_sm):
         return pf.hoisted_t_tile(B, T, n_sm, lambda tt: (
             lib.pair_reverse_smem_bytes(1, variant, 1, r, r_in, tt)))
-    net = fwn.apply_wavenet
-
-    def batched_net(*a, **k):
-        return net(*a, **{**k, "batch_invariant": False})
-    routes = {r[0]: r[1:] for r in ROUTES}
+    plain = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  use_pallas=False))
+    expects = {r[0]: r[2] for r in ROUTES}
+    expects["plain"] = {}
     out = {}
-    for route, label, patch in (
-            ("int8", "", None), ("FWN_HOISTED=1", "", None),
+    for route, label, extra, held in (
+            ("int8", "", [], True), ("FWN_HOISTED=1", "", [], True),
+            ("plain", "", [], True),
             ("FWN_HOISTED=1", ", the batch's tile",
-             (pf, "_hoisted_tile", batch_rule)),
-            ("int8", ", cuDNN convs and batched conditioning",
-             (fwn, "apply_wavenet", batched_net))):
-        switches, expect = routes[route]
-        name = route + label
-        saved = {k: getattr(fwn, k) for k in switches}
-        old = getattr(patch[0], patch[1]) if patch else None
+             [(pf, "_hoisted_tile", batch_rule)], False),
+            ("int8", ", library products", _path_patches("library"), False),
+            ("FWN_INT8=0", ", library products", _path_patches("library"),
+             False),
+            ("FWN_HOISTED=1", ", library products",
+             _path_patches("library"), False)):
+        expect, name = expects[route], route + label
         rows, stages, tiles = {}, {}, set()
 
         def synth(n, **kw):
-            return synthesize_mels(loaded, cfg, mels[:n], seed=SEED,
+            return synthesize_mels(loaded, plain if route == "plain" else cfg,
+                                   mels[:n], seed=SEED,
                                    compute_dtype=torch.bfloat16, device=dev,
                                    **kw)
-        try:
-            for k, val in switches.items():
-                setattr(fwn, k, val)
-            if patch:
-                setattr(*patch)
+        with _patched(_route_patches(route) + extra):
             for n in (1, 2, 4):
                 torch.cuda.synchronize()
                 _reset_counts()
-                with _Stages(rows=True) as st:
+                with BlockStages(rows=True) as st:
                     rows[n] = synth(n)[0]
                 stages[n] = st.rows
                 check(_counts() == expect, (name, n, _counts()))
@@ -1453,12 +1584,7 @@ def batch_composition(loaded, cfg, dev):
                     tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"][
                         "t_tile"])
             ops = _op_split(lambda: synth(4), 4)
-        finally:
-            if patch:
-                setattr(patch[0], patch[1], old)
-            for k, val in saved.items():
-                setattr(fwn, k, val)
-        check(len(tiles) <= 1 or patch,
+        check(len(tiles) <= 1 or not held,
               (name, "hoisted_i8 tile follows the batch", tiles))
         res = {"hoisted_i8_tiles": sorted(tiles),
                "row 0 by product at B = 4": ops}
@@ -1475,125 +1601,160 @@ def batch_composition(loaded, cfg, dev):
                   + ", ".join(f"{k} {v:.3e}" for k, v in by_stage.items())
                   + (f"; pair_flow_hoisted_i8 tiles {sorted(tiles)} at B ="
                      f" 1, 2, 4" if tiles else ""), flush=True)
-            check(patch or same, (name, n, "row follows its companions",
-                                  rel, by_stage))
+            check(not held or same, (name, n, "row follows its companions",
+                                     rel, by_stage))
         print(f"{name} route, row 0's library products at B = 4 (calls "
-              "that differ from row 0 alone / calls, max |d|): "
-              + ", ".join(f"{k} {v['differ']}/{v['calls']} "
-                          f"{v['max_abs']:.3e}" for k, v in ops.items()),
-              flush=True)
-        check(patch or not any(v["differ"] for v in ops.values()),
+              f"that differ from row 0 alone / calls, max |d|): "
+              f"{_op_line(ops)}", flush=True)
+        check(not held or not any(v["differ"] for v in ops.values()),
               (name, "a product follows the batch", ops))
         out[name] = res
     return out
 
 
-def repair_cost(loaded, cfg, dev) -> dict:
-    """Phase 3, the time of batch-invariant synthesis: ``reverse`` on the
-    int8 route of the phase-3 batch (4 x 360 frames) and of 32 7 s clips
-    (600 frames), with the coupling nets' products as synthesis runs them
-    (GEMM convs, per-row conditioning) and as the likelihood side runs
-    them (cuDNN convs, batched conditioning: synthesis before it was made
-    batch-invariant), in turns (new, old, old, new), 3 timed calls each
-    after a warm-up; host clock around synchronized calls."""
+def _timed_reverse(loaded, cfg, dev, B: int, frames: int, patches: dict,
+                   calls: int = 2) -> dict:
+    """``reverse`` of a B x frames batch (noise and mels of seed SEED on the
+    card) under each set of ``patches`` (name -> list), in turns: each in
+    order, then in reverse order, each turn one warm-up and ``calls``
+    timed calls; host clock around synchronized calls.  Returns per name
+    the timed calls (ms), their median and the peak memory (GB)."""
     import torch
     from flowavenet_tpu_torch.models import flowavenet as fwn
 
-    net = fwn.apply_wavenet
-
-    def batched_net(*a, **k):
-        return net(*a, **{**k, "batch_invariant": False})
     g = torch.Generator(dev).manual_seed(SEED)
+    z = torch.randn(B, frames * cfg.audio.hop_size, 1, generator=g,
+                    device=dev) * cfg.train.temp
+    c = torch.rand(B, frames, cfg.audio.num_mels, generator=g, device=dev)
+    names = list(patches)
+    times = {k: [] for k in names}
+    peak = {k: 0.0 for k in names}
+    for which in names + names[::-1]:
+        with _patched(patches[which]):
+            torch.cuda.reset_peak_memory_stats(dev)
+            for i in range(calls + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fwn.reverse(loaded, cfg.model, z, c,
+                            compute_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                if i:
+                    times[which].append((time.perf_counter() - t0) * 1e3)
+            peak[which] = max(peak[which],
+                              torch.cuda.max_memory_allocated(dev) / 1e9)
+    return {k: {"ms": times[k], "median_ms": float(np.median(times[k])),
+                "max_mem_gb": peak[k]} for k in names}
+
+
+def repair_cost(loaded, cfg, dev) -> dict:
+    """Phase 3, the time of batch-invariant synthesis: ``reverse`` on the
+    int8, FWN_INT8=0 and FWN_HOISTED=1 routes at the phase-3 batch (4 x
+    360 frames) and at the bench's default batch of 7 s clips (600
+    frames), the nets' products as the port runs them beside the
+    ``library`` path of ``_path_patches`` (synthesis before it was made
+    batch-invariant) and, on the int8 route, the ``per-row`` path (every
+    product one row at a time), in turns (``_timed_reverse``; one timed
+    call a turn at the bench's batch)."""
+    from flowavenet_tpu_torch import bench
+
     out = {}
-    for B, frames in ((4, 360), (32, 600)):
-        z = torch.randn(B, frames * cfg.audio.hop_size, 1, generator=g,
-                        device=dev) * cfg.train.temp
-        c = torch.rand(B, frames, cfg.audio.num_mels, generator=g,
-                       device=dev)
-        times = {"batch-invariant": [], "before": []}
-        for which in ("batch-invariant", "before", "before",
-                      "batch-invariant"):
-            if which == "before":
-                fwn.apply_wavenet = batched_net
-            try:
-                for i in range(4):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    fwn.reverse(loaded, cfg.model, z, c,
-                                compute_dtype=torch.bfloat16)
-                    torch.cuda.synchronize()
-                    if i:
-                        times[which].append((time.perf_counter() - t0) * 1e3)
-            finally:
-                fwn.apply_wavenet = net
-        med = {k: float(np.median(v)) for k, v in times.items()}
-        out[f"{B} x {frames} frames"] = {"median_ms": med, "ms": times}
-        print(f"int8 route reverse, {B} x {frames} frames: batch-invariant "
-              f"median {med['batch-invariant']:.1f} ms (min "
-              f"{min(times['batch-invariant']):.1f}, max "
-              f"{max(times['batch-invariant']):.1f}), before (cuDNN convs, "
-              f"batched conditioning) {med['before']:.1f} ms (min "
-              f"{min(times['before']):.1f}, max {max(times['before']):.1f})",
-              flush=True)
+    for route in ("int8", "FWN_INT8=0", "FWN_HOISTED=1"):
+        for B, frames in ((4, 360), (bench.DEFAULT_BATCH, 600)):
+            paths = {"batch-invariant": [],
+                     "library": _path_patches("library")}
+            if route == "int8":
+                paths["per-row"] = _path_patches("per-row")
+            with _patched(_route_patches(route)):
+                r = _timed_reverse(loaded, cfg, dev, B, frames, paths,
+                                   calls=2 if B < 32 else 1)
+            key = f"{route}, {B} x {frames} frames"
+            out[key] = r
+            print(f"{route} route reverse, {B} x {frames} frames: " + "; ".join(
+                f"{k} median {v['median_ms']:.1f} ms (calls "
+                f"{', '.join(f'{t:.1f}' for t in v['ms'])}; peak "
+                f"{v['max_mem_gb']:.2f} GB)" for k, v in r.items()),
+                flush=True)
     return out
 
 
 INVARIANCE_FRAMES = (60, 120, 360)  # padded lengths of route_invariance
+INVARIANCE_BATCHES = (2, 4, 8, 16, 32)
+INVARIANCE_ALONE = 8                # rows synthesized alone per length
 
 
 def route_invariance(loaded, cfg, dev) -> dict:
-    """Phase 3, every route at short and long padded lengths: at 60, 120
-    and 360 frames, 8 mels (T, T - 7, ... frames) are each synthesized
-    alone at that padded length (seed SEED + i), then the first 2, 4 and
-    8 together; on every route of ``ROUTES`` every row must be
-    bit-identical to itself alone.  The plain route (use_pallas=False)
-    is recorded, not held.  Prints per route the (length, batch) cells in
-    which a row differs and the largest gap (max |difference| over max
-    |audio|)."""
+    """Phase 3, every route at short and long padded lengths and at the
+    server's dispatch sizes: at 60, 120 and 360 frames, 32 mels (T, T - 1,
+    ... frames) and the first ``INVARIANCE_ALONE`` each synthesized alone
+    at that padded length (seed SEED + i), then the first 2, 4, 8, 16 and
+    32 together.  On every route of ``ROUTES`` and the plain route
+    (use_pallas=False) the first ``INVARIANCE_ALONE`` rows of every batch
+    must be bit-identical to themselves alone, and rows 8-15 of the
+    32-row batch to themselves in the 16-row batch.  Recorded, not held,
+    to show why synthesis runs the front convs, the conditioning products
+    and the hoist matmul one row at a time: the plain route on the
+    ``batched`` path of ``_path_patches`` (the first two over the whole
+    batch) and FWN_HOISTED=1 on the ``library`` path (the hoist matmul
+    too).  Prints per route the (length, batch) cells in which a row
+    differs and the largest gap (max |difference| over max |audio|); for
+    the first such cell, the library products of that batch that differ
+    on row 0 (``_op_split``)."""
     import torch
-    from flowavenet_tpu_torch.models import flowavenet as fwn
     from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
 
     rng = np.random.RandomState(SEED + 4)
     plain = cfg.replace(model=dataclasses.replace(cfg.model,
                                                   use_pallas=False))
+    nb = max(INVARIANCE_BATCHES)
     out = {}
-    for name, switches, _ in ROUTES + (("plain", None, None),):
-        saved = {k: getattr(fwn, k) for k in switches or {}}
-        c = plain if switches is None else cfg
-        cells, worst = [], 0.0
-        try:
-            for k, val in (switches or {}).items():
-                setattr(fwn, k, val)
+    for route, path in ([(r[0], None) for r in ROUTES] + [("plain", None),
+                         ("plain", "batched"), ("FWN_HOISTED=1", "library")]):
+        c = plain if route == "plain" else cfg
+        extra = _path_patches(path) if path else []
+        name = route + (f", {path} products" if path else "")
+        cells, worst, ops = [], 0.0, None
+
+        def synth(ms, seed, T):
+            return synthesize_mels(loaded, c, ms, seed=seed, bucket_frames=T,
+                                   compute_dtype=torch.bfloat16, device=dev)
+        with _patched(_route_patches(route) + extra):
             for T in INVARIANCE_FRAMES:
-                mels = [rng.rand(T - 7 * i, cfg.audio.num_mels).astype(
-                    np.float32) for i in range(8)]
-                alone = [synthesize_mels(loaded, c, [m], seed=SEED + i,
-                                         bucket_frames=T,
-                                         compute_dtype=torch.bfloat16,
-                                         device=dev)[0]
-                         for i, m in enumerate(mels)]
-                for B in (2, 4, 8):
-                    rows = synthesize_mels(loaded, c, mels[:B], seed=SEED,
-                                           bucket_frames=T,
-                                           compute_dtype=torch.bfloat16,
-                                           device=dev)
-                    for i in range(B):
-                        if not np.array_equal(rows[i], alone[i]):
-                            cells.append((T, B, i))
-                            worst = max(worst, _errors(rows[i],
-                                                       alone[i])[1])
-        finally:
-            for k, val in saved.items():
-                setattr(fwn, k, val)
-        out[name] = {"rows_that_differ": cells, "max_gap": worst}
-        print(f"{name} route, rows beside 1 / 3 / 7 companions vs alone at "
-              f"{INVARIANCE_FRAMES} padded frames: "
+                mels = [rng.rand(T - i, cfg.audio.num_mels).astype(
+                    np.float32) for i in range(nb)]
+                want = {i: synth([m], SEED + i, T)[0]
+                        for i, m in enumerate(mels[:INVARIANCE_ALONE])}
+                rows = {}
+                for B in INVARIANCE_BATCHES:
+                    rows[B] = synth(mels[:B], SEED, T)
+                    pairs = [(i, want[i]) for i in range(min(B,
+                                                             INVARIANCE_ALONE))]
+                    if B == nb:
+                        pairs += [(i, rows[nb // 2][i]) for i in
+                                  range(INVARIANCE_ALONE, nb // 2)]
+                    bad = [i for i, w in pairs
+                           if not np.array_equal(rows[B][i], w)]
+                    for i, w in pairs:
+                        if i in bad:
+                            worst = max(worst, _errors(rows[B][i], w)[1])
+                    cells += [(T, B, i) for i in bad]
+                    if bad and ops is None:
+                        ops = {"frames": T, "batch": B, "products": _op_split(
+                            lambda: synth(mels[:B], SEED, T), B)}
+        out[name] = {"rows_that_differ": cells, "max_gap": worst,
+                     "first_cell_products": ops}
+        print(f"{name} route, rows beside 1-31 companions (batches "
+              f"{INVARIANCE_BATCHES}) vs alone at {INVARIANCE_FRAMES} padded "
+              f"frames: "
               + (f"{len(cells)} rows differ, max gap {worst:.3e}, (frames, "
                  f"batch, row) {cells[:6]}" if cells else "all bit-identical"),
               flush=True)
-        check(switches is None or not cells,
-              (name, "rows follow their companions", cells[:6], worst))
+        if ops:
+            print(f"{name} route, row 0's library products at {ops['frames']} "
+                  f"frames, B = {ops['batch']} (calls that differ from row 0 "
+                  f"alone / calls, max |d|): {_op_line(ops['products'])}",
+                  flush=True)
+        check(path or not cells, (name, "rows follow their companions",
+                                  cells[:6], worst))
     return out
 
 
@@ -2172,66 +2333,6 @@ def gin_phase(dev, tmpdir: str):
     return out
 
 
-# The reverse pair kernels' options (ops/pair_flow.py:uses_tensor_cores),
-# which say whether the kernel line reports a kernel as running on the
-# tensor cores; the training pairs say it through
-# ops/pair_flow_train.py:train_uses_tensor_cores, and the ResBlocks through
-# ops/resblock.py:uses_tensor_cores.
-class _Stages:
-    """For the calls inside the ``with`` block: the port's upsampler and
-    each ``block_reverse`` (in call order, blocks n_block - 1 down to 0)
-    wrapped with CUDA events around them, and row 0 of each output kept
-    when ``rows``.  ``ms()`` gives each stage's event time (after a
-    synchronize), ``rows`` the (stage, row 0) pairs."""
-
-    def __init__(self, rows: bool = False):
-        self.keep = rows
-
-    def __enter__(self):
-        import torch
-        from flowavenet_tpu_torch.models import flowavenet as fwn
-        self.fwn, self.saved = fwn, (fwn.block_reverse, fwn.apply_upsample)
-        self.rows, self.events = [], []
-        block, up = self.saved
-        done = []                    # blocks run since the upsampler
-
-        def timed(fn, label):
-            def run(*a, **k):
-                e0, e1 = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-                e0.record()
-                out = fn(*a, **k)
-                e1.record()
-                name = label(a)
-                self.events.append((name, e0, e1))
-                if self.keep:
-                    self.rows.append((name, out[:1].float().clone()))
-                return out
-            return run
-
-        def block_label(a):
-            done.append(1)
-            return f"block {a[1].n_block - len(done)}"
-
-        def up_label(a):
-            done.clear()
-            return "upsampler"
-        fwn.block_reverse = timed(block, block_label)
-        fwn.apply_upsample = timed(up, up_label)
-        return self
-
-    def __exit__(self, *exc):
-        self.fwn.block_reverse, self.fwn.apply_upsample = self.saved
-
-    def ms(self) -> dict:
-        import torch
-        torch.cuda.synchronize()
-        out = {}
-        for name, e0, e1 in self.events:
-            out[name] = out.get(name, 0.0) + e0.elapsed_time(e1)
-        return out
-
-
 def _stage_gaps(rows_a, rows_b) -> dict:
     """Max |difference| of row 0 between two runs, per stage."""
     return {sa: float((a - b).abs().max())
@@ -2266,10 +2367,11 @@ def _op_class(name: str) -> str:
 def trace_split(prof, wall_ms: float, what: str, top: int = 12,
                 gaps: int = 5) -> dict:
     """The device's share of a ``torch.profiler`` window: the window's span
-    (first to last event), busy time (the union of device intervals) and
-    idle share, the top device ops by total time with calls, the time per
-    op class, and the longest idle gaps (with the kernels around them).
-    Returns None when the trace holds no device time."""
+    (first to last event), the number of device ops, busy time (the union
+    of device intervals) and idle share, the top device ops by total time
+    with calls, the time per op class, and the longest idle gaps
+    (with the kernels around them).  Returns None when the trace holds no
+    device time."""
     from torch.autograd import DeviceType
     evs = list(prof.events())
     dev_evs = [e for e in evs if e.device_type == DeviceType.CUDA]
@@ -2307,6 +2409,7 @@ def trace_split(prof, wall_ms: float, what: str, top: int = 12,
     ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     holes = sorted(holes, reverse=True)[:gaps]
     out = {"wall_ms": wall_ms, "span_ms": span / 1e3,
+           "device_ops": len(dev_evs),
            "busy_ms": busy / 1e3, "busy_share": busy / span,
            "idle_share": 1.0 - busy / span,
            "device_ms_by_class": {c: {"ms": t / 1e3, "calls": n}
@@ -2319,6 +2422,7 @@ def trace_split(prof, wall_ms: float, what: str, top: int = 12,
                           "after": a[:80], "before": b[:80]}
                          for g, at, a, b in holes]}
     print(f"profile split, {what}: wall {wall_ms:.1f} ms (host clock); "
+          f"{len(dev_evs)} device ops; "
           f"traced span {span / 1e3:.1f} ms, device busy {busy / 1e3:.1f} "
           f"ms ({100 * busy / span:.1f} %), idle {100 - 100 * busy / span:.1f}"
           f" %", flush=True)
@@ -2413,10 +2517,11 @@ def profile_phase(loaded, cfg, dev, tmpdir: str) -> dict:
     under ``utils/profiling.py:trace`` (launches checked: 15
     ``pair_flow_i8``), split by ``trace_split``; then the same call with
     CUDA events around the upsampler and each ``block_reverse``
-    (``_Stages``), printed per stage beside the call's wall time."""
+    (``utils/profiling.py:BlockStages``), printed per stage beside the
+    call's wall time."""
     import torch
     from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
-    from flowavenet_tpu_torch.utils.profiling import trace
+    from flowavenet_tpu_torch.utils.profiling import BlockStages, trace
 
     rng = np.random.RandomState(SEED)
     mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
@@ -2437,7 +2542,7 @@ def profile_phase(loaded, cfg, dev, tmpdir: str) -> dict:
                         f"the {len(FRAMES)}-mel batch")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _Stages() as st:
+    with BlockStages() as st:
         run()
     ms = st.ms()
     wall = (time.perf_counter() - t0) * 1e3
@@ -2530,6 +2635,11 @@ def trainer_phase(cfg, dev, data_dir: str, tmpdir: str) -> dict:
             "tensorboard_event_files": len(events)}
 
 
+# The reverse pair kernels' options (ops/pair_flow.py:uses_tensor_cores),
+# which say whether the kernel line reports a kernel as running on the
+# tensor cores; the training pairs say it through
+# ops/pair_flow_train.py:train_uses_tensor_cores, and the ResBlocks through
+# ops/resblock.py:uses_tensor_cores.
 PAIR_OPTIONS = {"pair_flow": {}, "pair_flow_i8": {"int8": True},
                 "pair_flow_i8rs": {"int8": True, "rs": True},
                 "pair_flow_hoisted": {"hoisted": True},
@@ -2826,6 +2936,8 @@ def main() -> int:
         "train_samples_per_s_plain_route": rp["samples_per_s"],
         "train_max_mem_gb_kernel_route": rk["max_mem_gb"],
         "train_max_mem_gb_plain_route": rp["max_mem_gb"],
+        "train_step_by_product_path": {"kernel route": rk["paths"],
+                                       "plain route": rp["paths"]},
         "train_first_loss_rel": tr["loss_rel"],
         "train_first_loss_rel_to_fp32": tr["loss_rel_fp32"],
         "train_grad_cos_fp32": tr["grad_cos"],
@@ -2839,6 +2951,8 @@ def main() -> int:
         "batch_invariance_cost": cost,
         "profile_split_reverse_int8_route": prof_out,
         "profile_split_train_step_kernel_route": tr["profile_split"],
+        "profile_split_train_step_synthesis_products":
+            tr["profile_split_synthesis_products"],
         "bench": bench_out,
         "frontend": {k: v for k, v in front.items() if k != "data_dir"},
         "trainer": trainer,

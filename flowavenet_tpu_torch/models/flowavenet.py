@@ -213,9 +213,8 @@ def coupling_reverse(p: dict, x: torch.Tensor, c: torch.Tensor,
                      logs_clamp: float = 0.0) -> torch.Tensor:
     out_a, out_b = torch.chunk(x, 2, dim=2)
     c_a, g_a = _halves(c)[0], _halves(g)[0]
-    # synthesis: a row's audio must not depend on its batch companions
     net_out = apply_wavenet(p, out_a, c_a, g_a, causal=causal,
-                            use_pallas=use_pallas, batch_invariant=True)
+                            use_pallas=use_pallas, per_row=True)
     if affine:
         log_s, t = torch.chunk(net_out, 2, dim=2)
         in_b = out_b * torch.exp(_bound_log_s(log_s, logs_clamp)) + t
@@ -245,11 +244,10 @@ def _couple_halves(fp: dict, u, v, c_half, g_half, cfg: ModelConfig,
                    reverse: bool, use_pallas: bool = False,
                    stats: bool = False):
     """Transform v given net(u).  Returns (v', logdet), plus the log_s
-    statistics when ``stats``.  In reverse (synthesis) the net's convs run
-    as GEMMs over their taps, so that a row's audio never depends on its
-    batch companions."""
+    statistics when ``stats``.  In reverse (synthesis) the net's
+    batch-sensitive products run one row at a time (``per_row``)."""
     net_out = apply_wavenet(fp, u, c_half, g_half, causal=cfg.causal,
-                            use_pallas=use_pallas, batch_invariant=reverse)
+                            use_pallas=use_pallas, per_row=reverse)
     zero = torch.zeros((), device=v.device)
     if cfg.affine:
         log_s, t = torch.chunk(net_out, 2, dim=2)

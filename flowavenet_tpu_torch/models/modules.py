@@ -66,14 +66,13 @@ def _fused_fg_kernel(pf: dict, pg: dict):
 
 def _cond_fg(c, g: Optional[torch.Tensor], layer: dict,
              conv_bias: torch.Tensor, out_dtype=None,
-             batch_invariant: bool = False) -> torch.Tensor:
+             per_row: bool = False) -> torch.Tensor:
     """Conditioning pre-activations plus ``conv_bias``, one [B, T, 2R]
     tensor, with the global-conditioning term when ``g`` is given.  ``c``
     may be a pre-quantized ``(q_int8, fp32_scale)`` pair: the 1x1 then runs
     on int8 operands (the deep-block int8 route, which has no g; exact
-    int32 sums, so no row follows its companions).  ``batch_invariant``:
-    the compute-dtype products (K = Cc up to 10240) run one row at a
-    time."""
+    int32 sums, so no row follows its companions).  ``per_row``: the
+    compute-dtype products (K = Cc up to 10240) one row at a time."""
     kc, bc = _fused_fg_kernel(layer["filter_c"], layer["gate_c"])
     if isinstance(c, tuple):
         if g is not None:
@@ -82,16 +81,16 @@ def _cond_fg(c, g: Optional[torch.Tensor], layer: dict,
         c_q, c_scale = c
         return conv1x1_int8(c_q, c_scale, kc,
                             bc + conv_bias.to(bc.dtype), out_dtype)
-    fg = conv1x1(c, kc, bc + conv_bias.to(bc.dtype), batch_invariant)
+    fg = conv1x1(c, kc, bc + conv_bias.to(bc.dtype), per_row)
     if g is not None and "filter_g" in layer:
         kg, bg = _fused_fg_kernel(layer["filter_g"], layer["gate_g"])
-        fg = fg + conv1x1(g, kg, bg, batch_invariant)
+        fg = fg + conv1x1(g, kg, bg, per_row)
     return fg
 
 
 def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
                dilation: int, causal: bool = False, use_pallas: bool = False,
-               need_residual: bool = True, batch_invariant: bool = False):
+               need_residual: bool = True, per_row: bool = False):
     """One gated residual unit: returns (residual_out or None, skip)."""
     r = layer["res"]["b"].shape[0]
     k, b = _fused_fg_kernel(layer["filter"], layer["gate"])
@@ -108,12 +107,12 @@ def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
                 h, c, k, kc[0], bc + b, res_w, layer["res"]["b"], skip_w,
                 layer["skip"]["b"], dilation=dilation, causal=causal)
         return rb.fused_gated_resblock(
-            h, _cond_fg(c, g, layer, b), k, res_w, layer["res"]["b"],
-            skip_w, layer["skip"]["b"], dilation=dilation, causal=causal)
-    fg = dilated_conv1d(h, k, b, dilation=dilation, causal=causal,
-                        batch_invariant=batch_invariant)
+            h, _cond_fg(c, g, layer, b, per_row=per_row), k, res_w,
+            layer["res"]["b"], skip_w, layer["skip"]["b"],
+            dilation=dilation, causal=causal)
+    fg = dilated_conv1d(h, k, b, dilation=dilation, causal=causal)
     fg = fg + _cond_fg(c, g, layer, torch.zeros_like(b), out_dtype=h.dtype,
-                       batch_invariant=batch_invariant)
+                       per_row=per_row)
     out = torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
     skip = conv1x1(out, wn_kernel(layer["skip"]), layer["skip"]["b"])
     if not need_residual:
@@ -126,23 +125,24 @@ def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
 def apply_wavenet(params: dict, x: torch.Tensor, c,
                   g: Optional[torch.Tensor] = None, *, causal: bool = False,
                   kernel_size: int = 3, use_pallas: bool = False,
-                  batch_invariant: bool = False) -> torch.Tensor:
+                  per_row: bool = False) -> torch.Tensor:
     """Coupling net: x [B, T, in] half-tensor, c [B, T, Cc] half-condition
     (or its int8 ``(q, scale)`` pair), g [B, T, Cg] half global condition
     or None.  Returns [B, T, out] (log_s || t for affine couplings).
-    ``batch_invariant`` runs the dilated convs as GEMMs over their taps
-    and the conditioning products one row at a time, so that a row's
-    output never depends on its batch companions (synthesis;
-    ``ops/conv.py:_conv_as_gemm``, ``conv1x1(per_row=True)``)."""
+    ``per_row`` (synthesis) runs the front conv and the compute-dtype
+    conditioning products one row at a time, so that a row's output never
+    depends on its batch companions: at their shapes (the front conv's
+    short K, the conditioning's long K) cuBLAS gave a row other bits
+    beside companions.  Training batches them: per row they cost a step
+    about a fifth more (PERF.md §6)."""
     h = torch.relu(wn_conv1d(x, params["front"], dilation=1, causal=causal,
-                             batch_invariant=batch_invariant))
+                             per_row=per_row))
     skip_sum = None
     n_layers = len(params["layers"])
     for n, layer in enumerate(params["layers"]):
         h, s = _res_layer(h, c, g, layer, dilation=kernel_size ** n,
                           causal=causal, use_pallas=use_pallas,
-                          need_residual=n + 1 < n_layers,
-                          batch_invariant=batch_invariant)
+                          need_residual=n + 1 < n_layers, per_row=per_row)
         skip_sum = s if skip_sum is None else skip_sum + s
     out = torch.relu(skip_sum)
     out = torch.relu(conv1x1(out, wn_kernel(params["final"]),

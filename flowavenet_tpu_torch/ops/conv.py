@@ -56,57 +56,35 @@ def wn_kernel(p: dict) -> torch.Tensor:
     return v * torch.rsqrt(torch.clamp(sq, min=_WN_EPS)) * p["g"].float()
 
 
-def _conv_as_gemm(x: torch.Tensor, w: torch.Tensor, dilation: int,
-                  causal: bool) -> torch.Tensor:
-    """The dilated conv of x [B, T, Cin] with w [K, Cin, Cout] as one GEMM
-    over its taps, [B*T, K*Cin] x [K*Cin, Cout] (fp32 sums, x.dtype out).
-    cuDNN picks a conv's algorithm by the batch size, so a row's bits
-    follow its companions there; at the widths of the kernel routes'
-    plain blocks cuBLAS kept a GEMM row's bits whatever the number of
-    rows (measured: PERF.md §6)."""
-    k = w.shape[0]
+def dilated_conv1d(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor], dilation: int = 1,
+                   causal: bool = False, per_row: bool = False
+                   ) -> torch.Tensor:
+    """Dilated conv of x [B, T, Cin] with kernel [K, Cin, Cout] as one GEMM
+    over its taps, [B*T, K*Cin] x [K*Cin, Cout], in x.dtype (on the GPU an
+    fp32 product follows ``torch.backends.cuda.matmul.allow_tf32``).
+    Non-causal: symmetric zero padding d*(k-1)//2 (odd kernels).  Causal:
+    a left pad of d*(k-1), the reference's pad-both-sides-then-crop in one
+    step.  Not cuDNN: cuDNN picks a conv's algorithm by the batch size, so
+    a synthesized row's bits would follow its batch companions.  cuBLAS
+    kept a GEMM row's bits at the widths of the coupling nets' layer convs
+    at every batch size measured, but not at a front conv's short K
+    (PERF.md §6): ``per_row`` runs one GEMM per row of x, whose bits then
+    never depend on the other rows."""
+    k = kernel.shape[0]
     left = dilation * (k - 1) if causal else dilation * (k - 1) // 2
     xp = F.pad(x, (0, 0, left, dilation * (k - 1) - left))
     T = x.shape[1]
     taps = torch.cat([xp[:, j * dilation: j * dilation + T]
                       for j in range(k)], dim=-1)     # [B, T, K*Cin]
-    return torch.matmul(taps, w.reshape(-1, w.shape[-1]))
-
-
-def dilated_conv1d(x: torch.Tensor, kernel: torch.Tensor,
-                   bias: Optional[torch.Tensor], dilation: int = 1,
-                   causal: bool = False, batch_invariant: bool = False
-                   ) -> torch.Tensor:
-    """Dilated conv accumulated in fp32 and cast back to x.dtype (on the
-    GPU an fp32 conv follows ``torch.backends.cudnn.allow_tf32``).
-    Non-causal: symmetric zero padding d*(k-1)//2 (odd kernels).  Causal:
-    a left pad of d*(k-1), the reference's pad-both-sides-then-crop in
-    one step.  ``batch_invariant``: the same conv as one GEMM over its
-    taps (:func:`_conv_as_gemm`), whose rows do not depend on their batch
-    companions (synthesis)."""
-    k = kernel.shape[0]
-    if batch_invariant:
-        out = _conv_as_gemm(x, kernel.to(x.dtype), dilation, causal)
-    else:
-        w = kernel.to(x.dtype).permute(2, 1, 0)         # [Cout, Cin, K]
-        xt = x.transpose(1, 2)
-        if causal:
-            out = F.conv1d(F.pad(xt, (dilation * (k - 1), 0)), w,
-                           dilation=dilation)
-        else:
-            out = F.conv1d(xt, w, padding=dilation * (k - 1) // 2,
-                           dilation=dilation)
-        out = out.transpose(1, 2)
-    if bias is not None:
-        out = out + bias.to(x.dtype)
-    return out
+    return conv1x1(taps, kernel.reshape(-1, kernel.shape[-1]), bias,
+                   per_row)
 
 
 def wn_conv1d(x: torch.Tensor, p: dict, dilation: int = 1,
-              causal: bool = False, batch_invariant: bool = False
-              ) -> torch.Tensor:
+              causal: bool = False, per_row: bool = False) -> torch.Tensor:
     return dilated_conv1d(x, wn_kernel(p), p["b"], dilation, causal,
-                          batch_invariant)
+                          per_row)
 
 
 def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
@@ -114,9 +92,9 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
             ) -> torch.Tensor:
     """1x1 conv as a matmul. kernel ``[1, Cin, Cout]`` or ``[Cin, Cout]``.
     ``per_row``: one matmul per row of x [B, T, Cin], so that a row's bits
-    never depend on its batch companions: cuBLAS picks a long-K product's
-    kernel, and with it the order of its sums, by the number of rows
-    (measured: PERF.md §6)."""
+    never depend on its batch companions: at some shapes (a long K, a
+    short one) cuBLAS picks the kernel, and with it the order of the sums,
+    by the number of rows (measured: PERF.md §6)."""
     w = (kernel[0] if kernel.dim() == 3 else kernel).to(x.dtype)
     if per_row and x.shape[0] > 1:
         out = torch.cat([torch.matmul(x[b:b + 1], w)

@@ -212,9 +212,9 @@ def hoist_cond(c: torch.Tensor, w_flow: torch.Tensor) -> torch.Tensor:
     its batch companions (PERF.md §6)."""
     if c.is_cuda and c.dtype in (torch.bfloat16, torch.float16):
         w = w_flow.to(c.dtype)
-        out = torch.cat([torch.mm(r, w, out_dtype=torch.float32)
+        out = torch.cat([torch.mm(r, w, out_dtype=torch.float32).to(c.dtype)
                          for r in c.reshape(c.shape[0], -1, c.shape[-1])])
-        return out.reshape(*c.shape[:-1], -1).to(c.dtype)
+        return out.reshape(*c.shape[:-1], -1)
     return torch.matmul(c.float(), w_flow.float()).to(c.dtype)
 
 

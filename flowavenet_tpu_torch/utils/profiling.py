@@ -5,7 +5,9 @@
   writes a Chrome trace (``*.pt.trace.json``, chrome://tracing or
   Perfetto) under ``logdir``;
 * ``StepTimer``: wall-clock stats that leave out the first step(s);
-* ``device_memory_stats``: memory in use on each card.
+* ``device_memory_stats``: memory in use on each card;
+* ``BlockStages``: synthesis split by stage (the upsampler and each
+  ``block_reverse``), with each stage's time and row 0 of its output.
 """
 
 from __future__ import annotations
@@ -82,3 +84,71 @@ def device_memory_stats() -> list[dict]:
             "peak_bytes_in_use": s.get("allocated_bytes.all.peak", -1),
         })
     return out
+
+
+class BlockStages:
+    """Inside the ``with`` block, ``models/flowavenet.py``'s upsampler and
+    each ``block_reverse`` run wrapped, in call order: ``upsampler``, then
+    ``block n_block - 1`` down to ``block 0``.  ``stage`` names the stage
+    running (``-`` outside them); ``ms()`` sums each stage's time (CUDA
+    events for tensors on the card, the host clock on the CPU); with
+    ``rows=True``, ``rows`` holds (stage, row 0 of its output in fp32)."""
+
+    def __init__(self, rows: bool = False):
+        self.keep = rows
+        self.stage = "-"
+        self.rows, self.times = [], []
+
+    def __enter__(self):
+        from ..models import flowavenet as fwn
+        self._fwn = fwn
+        self._saved = (fwn.block_reverse, fwn.apply_upsample)
+        block, up = self._saved
+        done = []                    # blocks run since the upsampler
+
+        def timed(fn, label):
+            def run(*a, **k):
+                self.stage = label(a)
+                cuda = next(t for t in a if torch.is_tensor(t)).is_cuda
+                if cuda:
+                    t0, t1 = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                    t0.record()
+                else:
+                    t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if cuda:
+                    t1.record()
+                else:
+                    t1 = time.perf_counter()
+                self.times.append((self.stage, t0, t1))
+                if self.keep:
+                    self.rows.append((self.stage, out[:1].float().clone()))
+                self.stage = "-"
+                return out
+            return run
+
+        def block_label(a):
+            done.append(1)
+            return f"block {a[1].n_block - len(done)}"
+
+        def up_label(a):
+            done.clear()
+            return "upsampler"
+        fwn.block_reverse = timed(block, block_label)
+        fwn.apply_upsample = timed(up, up_label)
+        return self
+
+    def __exit__(self, *exc):
+        self._fwn.block_reverse, self._fwn.apply_upsample = self._saved
+
+    def ms(self) -> dict:
+        out = {}
+        for name, t0, t1 in self.times:
+            if isinstance(t0, float):
+                d = (t1 - t0) * 1e3
+            else:
+                t1.synchronize()
+                d = t0.elapsed_time(t1)
+            out[name] = out.get(name, 0.0) + d
+        return out

@@ -1,7 +1,7 @@
 """PyTorch port, synthesis rows that do not follow their batch companions:
-in reverse the coupling nets' dilated convs run as one GEMM over their
-taps (``ops/conv.py:_conv_as_gemm``), which gives the conv's result (fp64
-here, to rounding) and replaces cuDNN, whose algorithm, and so a row's
+the coupling nets' dilated convs run as one GEMM over their taps
+(``ops/conv.py:dilated_conv1d``), which gives the conv's result (fp64
+here, to rounding) in place of cuDNN, whose algorithm, and so a row's
 bits, follows the batch size on the card; the compute-dtype conditioning
 products run one row at a time (``conv1x1(per_row=True)``), as cuBLAS
 splits their long K by the number of rows.  The card's own check is
@@ -31,15 +31,17 @@ def _one_thread():
 @pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
 @pytest.mark.parametrize("dilation,T", [(1, 40), (3, 40), (9, 40), (9, 5)])
 def test_conv_as_gemm_is_the_conv(causal, dilation, T):
-    """fp64, bias, 3 taps: the GEMM over the taps against F.conv1d (the
-    batch_invariant=False path), including a T shorter than the dilated
-    receptive field."""
+    """fp64, bias, 3 taps: the GEMM over the taps against F.conv1d with the
+    same padding, including a T shorter than the dilated receptive
+    field."""
     g = torch.Generator().manual_seed(dilation * T)
     x = torch.randn(3, T, 7, generator=g, dtype=torch.float64)
     k = torch.randn(3, 7, 5, generator=g, dtype=torch.float64)
     b = torch.randn(5, generator=g, dtype=torch.float64)
-    want = conv.dilated_conv1d(x, k, b, dilation, causal)
-    got = conv.dilated_conv1d(x, k, b, dilation, causal, batch_invariant=True)
+    pad = (2 * dilation, 0) if causal else (dilation, dilation)
+    want = F.conv1d(F.pad(x.transpose(1, 2), pad), k.permute(2, 1, 0), b,
+                    dilation=dilation).transpose(1, 2)
+    got = conv.dilated_conv1d(x, k, b, dilation, causal)
     assert got.shape == want.shape == (3, T, 5)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
 
@@ -53,8 +55,8 @@ def test_conv_as_gemm_rows_are_their_own(monkeypatch):
                         lambda a, b: calls.append(a.shape) or mm(a, b))
     x = torch.randn(2, 30, 4, dtype=torch.float64)
     k = torch.randn(3, 4, 6, dtype=torch.float64)
-    both = conv.dilated_conv1d(x, k, None, 3, batch_invariant=True)
-    alone = conv.dilated_conv1d(x[:1], k, None, 3, batch_invariant=True)
+    both = conv.dilated_conv1d(x, k, None, 3)
+    alone = conv.dilated_conv1d(x[:1], k, None, 3)
     assert calls == [(2, 30, 12), (1, 30, 12)]
     np.testing.assert_array_equal(both[:1].numpy(), alone.numpy())
 
@@ -68,10 +70,11 @@ def _spy_conv1d(monkeypatch):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
-def test_synthesis_runs_no_cudnn_conv_and_training_does(monkeypatch, causal):
+def test_no_cudnn_conv_in_either_direction(monkeypatch, causal):
     """tiny on the plain route (use_pallas=False, every block a plain
-    pair-scan): ``reverse`` calls no F.conv1d, ``loss_fn`` (the likelihood
-    side, which keeps cuDNN) does; the reverse still inverts the forward."""
+    pair-scan): neither ``reverse`` nor ``loss_fn`` with its gradient calls
+    F.conv1d, and the gradient reaches the first coupling net's front
+    conv."""
     import dataclasses
     cfg = dataclasses.replace(tiny().model, use_pallas=False, causal=causal)
     gen = torch.Generator().manual_seed(5)
@@ -82,9 +85,13 @@ def test_synthesis_runs_no_cudnn_conv_and_training_does(monkeypatch, causal):
     c = torch.rand(2, 4, cfg.num_mels, generator=gen, dtype=torch.float64)
     seen = _spy_conv1d(monkeypatch)
     x = fwn.reverse(params, cfg, z, c, compute_dtype=torch.float64)
+    v = params["blocks"][0]["flows"]["coupling"]["front"]["v"]
+    v.requires_grad_()
+    total, _ = fwn.loss_fn(params, cfg, x, c, compute_dtype=torch.float64)
+    total.backward()
     assert seen == []
-    fwn.loss_fn(params, cfg, x, c, compute_dtype=torch.float64)
-    assert seen
+    assert v.grad is not None and bool(torch.isfinite(v.grad).all())
+    assert float(v.grad.abs().max()) > 0
 
 
 def test_plain_reverse_row_equals_itself_alone_in_fp64():
@@ -116,3 +123,36 @@ def test_conv1x1_per_row_is_one_matmul_per_row(monkeypatch):
     assert calls == [(1, 20, 40)] * 3
     want = conv.conv1x1(x, k, b)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+def test_dilated_conv1d_per_row_is_one_gemm_per_row(monkeypatch, causal):
+    """``per_row=True``: one tap GEMM per row, the batched result in fp64;
+    ``apply_wavenet(per_row=True)`` (synthesis) runs its front conv one
+    row at a time and its layer convs batched, and by default (training)
+    the front conv batched too."""
+    from flowavenet_tpu_torch.models import modules
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 25, 4, generator=g, dtype=torch.float64)
+    k = torch.randn(3, 4, 6, generator=g, dtype=torch.float64)
+    b = torch.randn(6, generator=g, dtype=torch.float64)
+    calls = []
+    mm = torch.matmul
+    monkeypatch.setattr(torch, "matmul",
+                        lambda a, w: calls.append(tuple(a.shape)) or mm(a, w))
+    got = conv.dilated_conv1d(x, k, b, 2, causal, per_row=True)
+    assert calls == [(1, 25, 12)] * 3
+    want = conv.dilated_conv1d(x, k, b, 2, causal)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+    params = modules.init_wavenet(g, 2, 4, 2, 16, 3)
+    args = (params, x[..., :2].float(), x[..., :3].float())
+    calls.clear()
+    rows = modules.apply_wavenet(*args, causal=causal, per_row=True)
+    assert calls[:3] == [(1, 25, 6)] * 3          # the front conv, per row
+    assert (3, 25, 48) in calls                   # a layer conv, batched
+    assert (1, 25, 3) in calls                    # conditioning, per row
+    calls.clear()
+    batched = modules.apply_wavenet(*args, causal=causal)
+    assert calls[0] == (3, 25, 6) and (1, 25, 3) not in calls
+    np.testing.assert_allclose(rows.numpy(), batched.numpy(), rtol=0,
+                               atol=1e-5)

@@ -19,6 +19,7 @@ from flowavenet_tpu_torch.models import flowavenet as fwn
 from flowavenet_tpu_torch.ops import pair_flow as pf
 from flowavenet_tpu_torch.ops import resblock as rb
 from flowavenet_tpu_torch.ops.conv import quantize_act
+from flowavenet_tpu_torch.utils.profiling import BlockStages
 from flowavenet_tpu_torch.utils.tree import tree_map
 
 
@@ -683,13 +684,15 @@ def test_synthesis_row_does_not_follow_its_companions(cuda, monkeypatch,
     same bits on both routes: an item's audio depends only on its mel,
     seed, temperature and padded length, the contract of the JAX
     package's ``synthesize_mels``.  The default route's deep blocks run
-    the plain pair-scan, whose library products run one row at a time in
-    reverse (``ops/conv.py:_row_by_row``); on FWN_HOISTED=1 every batch
+    the plain pair-scan, whose convs are one GEMM over their taps
+    (``ops/conv.py:dilated_conv1d``) and whose compute-dtype conditioning
+    products run one row at a time; on FWN_HOISTED=1 every batch
     size launches pair_flow_hoisted_i8 on the same tile (block 5's, the
     last launch, at T_k = 1440: the rule's tile at the reference batch, 44
     rows on an H100 SXM).  Row 0's largest difference after the upsampler
-    and after each block is printed with the audio's gap; rows 1-3 of
-    the 4-row batch equal each of them synthesized alone."""
+    and after each block (``utils/profiling.py:BlockStages``) is printed
+    with the audio's gap; rows 1-3 of the 4-row batch equal each of them
+    synthesized alone."""
     from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
     if route == "FWN_HOISTED=1":
         monkeypatch.setattr(fwn, "PAIR_KERNEL_HOISTED", True)
@@ -702,24 +705,13 @@ def test_synthesis_row_does_not_follow_its_companions(cuda, monkeypatch,
     rng = np.random.RandomState(360)
     mels = [rng.rand(360, cfg.audio.num_mels).astype(np.float32)
             for _ in range(4)]
-    stages = []
-    block, up = fwn.block_reverse, fwn.apply_upsample
-
-    def keep(fn, name):
-        def run(*a, **k):
-            out = fn(*a, **k)
-            stages.append((name, out[:1].float().clone()))
-            return out
-        return run
-    monkeypatch.setattr(fwn, "block_reverse", keep(block, "block"))
-    monkeypatch.setattr(fwn, "apply_upsample", keep(up, "upsampler"))
     rows, by_stage, tiles = {}, {}, set()
     for n in (1, 2, 4):
-        stages.clear()
-        batch = synthesize_mels(params, cfg, mels[:n], seed=0,
-                                compute_dtype=torch.bfloat16, device=cuda)
+        with BlockStages(rows=True) as st:
+            batch = synthesize_mels(params, cfg, mels[:n], seed=0,
+                                    compute_dtype=torch.bfloat16, device=cuda)
         rows[n] = batch[0]
-        by_stage[n] = list(stages)
+        by_stage[n] = st.rows
         if route == "FWN_HOISTED=1":
             tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"])
     if route == "FWN_HOISTED=1":

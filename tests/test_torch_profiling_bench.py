@@ -281,6 +281,7 @@ def test_chip_smoke_trace_split_reads_busy_idle_and_gaps():
            ev("void pair_reverse_kernel<x>", 70, 80)]
     out = cs.trace_split(NS(events=lambda: evs), 5.0, "scripted")
     assert out["span_ms"] == pytest.approx(0.1)
+    assert out["device_ops"] == 3
     assert out["busy_ms"] == pytest.approx(0.04)
     assert out["idle_share"] == pytest.approx(0.6)
     assert out["idle_gaps"][0]["ms"] == pytest.approx(0.03)
@@ -290,3 +291,68 @@ def test_chip_smoke_trace_split_reads_busy_idle_and_gaps():
     assert out["top_ops"][0] == {"name": "nvjet_gemm", "ms": 0.04,
                                  "calls": 2}
     assert cs.trace_split(NS(events=lambda: evs[:1]), 1.0, "none") is None
+
+
+def _tiny_reverse(seed: int, B: int = 3):
+    """A plain-route tiny reverse in fp64 on the CPU: (run, n_block)."""
+    import dataclasses
+
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    cfg = dataclasses.replace(ttiny().model, use_pallas=False)
+    gen = torch.Generator().manual_seed(seed)
+    params = fwn.init_flowavenet(gen, cfg)
+    for bp in params["blocks"]:
+        bp["flows"]["coupling"]["zero"]["w"].normal_(0, 0.05, generator=gen)
+    z = torch.randn(B, 1024, 1, generator=gen, dtype=torch.float64)
+    c = torch.rand(B, 4, cfg.num_mels, generator=gen, dtype=torch.float64)
+    return (lambda: fwn.reverse(params, cfg, z, c,
+                                compute_dtype=torch.float64)), cfg.n_block
+
+
+def test_block_stages_names_times_and_keeps_rows():
+    """BlockStages on a CPU reverse: the upsampler, then blocks n_block - 1
+    down to 0, each with a host-clock time and row 0 of its output; the
+    model's functions are back after the block."""
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    run, n_block = _tiny_reverse(7)
+    saved = (fwn.block_reverse, fwn.apply_upsample)
+    with tprof.BlockStages(rows=True) as st:
+        out = run()
+    names = ["upsampler"] + [f"block {b}" for b in range(n_block - 1, -1, -1)]
+    assert [n for n, _ in st.rows] == names
+    assert st.stage == "-"
+    assert list(st.ms()) == names and all(v > 0 for v in st.ms().values())
+    assert all(r.shape[0] == 1 and r.dtype == torch.float32
+               for _, r in st.rows)
+    np.testing.assert_array_equal(st.rows[-1][1].numpy(),
+                                  out[:1].float().numpy())
+    assert (fwn.block_reverse, fwn.apply_upsample) == saved
+
+
+def test_chip_smoke_product_paths_and_op_split():
+    """chip_smoke's replays of the nets' products (``library``: cuDNN convs
+    and batched products; ``per-row``: every product one row at a time;
+    ``batched``: none per row; ``synthesis``: reverse's schedule) give the
+    port's reverse in fp64 to rounding, and ``_op_split`` finds
+    no product that follows the batch there, but names the matmul of each
+    stage when a matmul mixes a row with its companions."""
+    cs = _chip_smoke()
+    run, n_block = _tiny_reverse(8)
+    base = run()
+    for path in ("library", "per-row", "batched", "synthesis"):
+        with cs._patched(cs._path_patches(path)):
+            got = run()
+        np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=0,
+                                   atol=1e-12)
+    ops = cs._op_split(run, 3)
+    assert {k.rsplit(" ", 1)[0] for k in ops} == {"upsampler matmul"} | {
+        f"block {b} matmul" for b in range(n_block)}
+    assert not any(v["differ"] for v in ops.values())
+    mm = torch.matmul
+
+    def mixing(a, b):
+        out = mm(a, b)
+        return out + 1e-3 * out.mean(0, keepdim=True) if a.dim() == 3 else out
+    with cs._patched([(torch, "matmul", mixing)]):
+        ops = cs._op_split(run, 3)
+    assert all(v["differ"] == v["calls"] > 0 for v in ops.values()), ops
