@@ -106,6 +106,16 @@
    time-parallel synthesis.
    Then (phase 7, ``gin_phase``) lj8k_gin at full width with speaker ids:
    synthesis, serving with X-Speaker-Id, DDI and training steps.
+   Scale-out (phases (a)-(d)): the native C++ loader built on the
+   card's host (``native_loader_phase``: its prefetched stream against
+   ``batch_at``, both loaders' ms per batch, ``train(loader="native")``
+   resumed bit for bit); an NCCL step at world size 1 on FWN_TRAIN_KERNEL=1
+   and FWN_FWD_KERNEL=1, gradients and steps bit-identical to one device
+   (``nccl_phase``); two gloo ranks on the one card on (2, 1) and (1, 2)
+   meshes in fp32, gradients against one process, the 12 TP leaves of
+   blocks 5-7, a TP checkpoint restored in one process, gloo's step time
+   (``gloo_phase``); data-parallel synthesis and serving over
+   ``make_data_mesh`` (``data_parallel_phase``: rows bit-identical).
 7. Prints a JSON line of main-path numbers, one JSON line of per-kernel
    numbers (per reverse for the reverse pairs, per train step for the
    training pair, per eval step for the forward pair: the sum over the
@@ -133,7 +143,7 @@ import numpy as np
 FRAMES = (180, 262, 301, 345)       # ~2.1-4.0 s of 22.05 kHz audio
 SEED = 1234
 REPS = 5                            # timed synthesize_mels calls per route
-TRAIN_STEPS = 12                    # training steps per route
+TRAIN_STEPS = 8                     # training steps per route
 WARMUP_STEPS = 2                    # of which untimed
 
 
@@ -1244,7 +1254,7 @@ def training_phase(cfg, dev, data_dir: str, steps: int = TRAIN_STEPS):
 
 
 def _timed_steps(step_fn, state0, batches, patches: dict,
-                 dev, steps: int = 3) -> dict:
+                 dev, steps: int = 2) -> dict:
     """Training steps from ``state0`` under each set of ``patches`` (name
     -> list), in turns: each in order, then in reverse order, each turn
     one warm-up and ``steps`` timed steps on batches 0, 1, ...; host clock
@@ -1654,12 +1664,15 @@ def repair_cost(loaded, cfg, dev) -> dict:
     ``library`` path of ``_path_patches`` (synthesis before it was made
     batch-invariant) and, on the int8 route, the ``per-row`` path (every
     product one row at a time), in turns (``_timed_reverse``; one timed
-    call a turn at the bench's batch)."""
+    call a turn at the bench's batch, which only the int8 route, the
+    bench's, runs)."""
     from flowavenet_tpu_torch import bench
 
     out = {}
     for route in ("int8", "FWN_INT8=0", "FWN_HOISTED=1"):
-        for B, frames in ((4, 360), (bench.DEFAULT_BATCH, 600)):
+        sizes = [(4, 360)] + ([(bench.DEFAULT_BATCH, 600)]
+                              if route == "int8" else [])
+        for B, frames in sizes:
             paths = {"batch-invariant": [],
                      "library": _path_patches("library")}
             if route == "int8":
@@ -1679,7 +1692,7 @@ def repair_cost(loaded, cfg, dev) -> dict:
 
 INVARIANCE_FRAMES = (60, 120, 360)  # padded lengths of route_invariance
 INVARIANCE_BATCHES = (2, 4, 8, 16, 32)
-INVARIANCE_ALONE = 8                # rows synthesized alone per length
+INVARIANCE_ALONE = 4                # rows synthesized alone per length
 
 
 def route_invariance(loaded, cfg, dev) -> dict:
@@ -2635,6 +2648,531 @@ def trainer_phase(cfg, dev, data_dir: str, tmpdir: str) -> dict:
             "tensorboard_event_files": len(events)}
 
 
+# ---------------------------------------------------------------------------
+# Scale-out: the native loader, the process mesh and the data mesh
+# ---------------------------------------------------------------------------
+
+LOADER_BATCHES = 20                 # timed batch_at calls per loader
+
+
+def native_loader_phase(cfg, dev, data_dir: str, tmpdir: str) -> dict:
+    """Phase (a): the native C++ loader, built with the host compiler on
+    the card's machine.  On the frontend's corpus its prefetched stream
+    equals ``batch_at`` for steps 3-6; ms per batch of ``batch_at`` at 8 x
+    6400 for both loaders (LOADER_BATCHES each, after one untimed), and of
+    the prefetched streams; then ``train(loader="native")`` on the
+    FWN_TRAIN_KERNEL=1 route: 4 steps in one run against 2 steps and a
+    resumed run to 4, whose step-4 checkpoints must hold the same bits,
+    with the loader in their metadata."""
+    import torch
+    from flowavenet_tpu_torch.checkpoint.checkpoint import read_meta
+    from flowavenet_tpu_torch.data.dataset import CropDataset
+    from flowavenet_tpu_torch.data.native_loader import (NativeCropDataset,
+                                                         load_library)
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.training.train import train
+
+    t0 = time.perf_counter()
+    load_library()
+    build_s = time.perf_counter() - t0
+    path = os.path.join(data_dir, "train.fwrec")
+    kw = dict(hop_size=cfg.audio.hop_size,
+              max_time_steps=cfg.data.max_time_steps,
+              batch_size=cfg.data.batch_size, seed=cfg.train.seed)
+    nat, py = NativeCropDataset(path, **kw), CropDataset(path, **kw)
+    it = nat.iterate(start_step=3)
+    for s in range(3, 7):
+        got, want = next(it), nat.batch_at(s)
+        check(all(np.array_equal(got[k], want[k]) for k in want),
+              ("native prefetch vs batch_at", s))
+    out = {"build_s": build_s}
+    for name, ds in (("python", py), ("native", nat)):
+        ds.batch_at(0)
+        t0 = time.perf_counter()
+        for s in range(LOADER_BATCHES):
+            ds.batch_at(s)
+        out[f"{name}_batch_at_ms"] = ((time.perf_counter() - t0) * 1e3
+                                      / LOADER_BATCHES)
+        stream = ds.iterate(start_step=0)
+        next(stream)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(stream)
+        out[f"{name}_stream_ms"] = ((time.perf_counter() - t0) * 1e3
+                                    / LOADER_BATCHES)
+        stream.close()
+    nat.close()
+    print(f"native loader: built in {build_s:.1f} s; batch_at at "
+          f"{cfg.data.batch_size} x {cfg.data.max_time_steps}: python "
+          f"{out['python_batch_at_ms']:.3f} ms, native "
+          f"{out['native_batch_at_ms']:.3f} ms per batch; prefetched stream "
+          f"python {out['python_stream_ms']:.3f}, native "
+          f"{out['native_stream_ms']:.3f} ms per batch", flush=True)
+
+    runs = {k: os.path.join(tmpdir, f"native_{k}") for k in ("a", "b")}
+    tkw = dict(summary_interval=2, checkpoint_interval=2,
+               probe_synthesis=False, log_every=1, loader="native",
+               device=dev)
+    saved = fwn.TRAIN_KERNEL
+    fwn.TRAIN_KERNEL = True
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        train(cfg, data_dir, runs["a"], train_steps=4, **tkw)
+        out["train_s"] = time.perf_counter() - t0
+        out["launches"] = _counts()
+        train(cfg, data_dir, runs["b"], train_steps=2, **tkw)
+        train(cfg, data_dir, runs["b"], train_steps=4, **tkw)
+    finally:
+        fwn.TRAIN_KERNEL = saved
+    ck = [os.path.join(runs[k], "pretrained", "ckpt-4.npz") for k in "ab"]
+    with np.load(ck[0]) as fa, np.load(ck[1]) as fb:
+        keys = [k for k in fa.files if k != "__meta__"]
+        same = all(np.array_equal(fa[k], fb[k]) for k in keys)
+    meta = read_meta(ck[0])
+    print(f"native loader trainer: 4 steps in {out['train_s']:.1f} s, "
+          f"launches {out['launches']}; resumed run == unbroken run bit for "
+          f"bit: {same} ({len(keys)} leaves); loader {meta.get('loader')}",
+          flush=True)
+    check(same and meta.get("loader") == "native",
+          ("native-loader resume", same, meta.get("loader")))
+    check(out["launches"].get("pair_train_fwd", 0) > 0
+          and out["launches"].get("pair_train_bwd", 0) > 0,
+          ("native-loader trainer launches", out["launches"]))
+    out["resume_bit_exact"] = same
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+SCALE_STEPS = 4                     # timed steps per path, in turns
+
+
+def nccl_phase(cfg, dev, data_dir: str, backend: str = "nccl") -> dict:
+    """Phase (b): the production scale-out path at world size 1: NCCL, a
+    (1, 1) mesh, the state placed by ``put_tree``, lj22k bf16 at 8 x 6400
+    on FWN_TRAIN_KERNEL=1 and FWN_FWD_KERNEL=1 (the log_s guards off, as
+    that route needs).  The gradients (``grads_of`` with the mesh and
+    without) and two whole steps (metrics and every state leaf) must be
+    bit-identical to the one-device path; then SCALE_STEPS steps of each,
+    in turns, timed on the host clock around synchronized steps."""
+    import torch
+    import torch.distributed as dist
+    from flowavenet_tpu_torch.data.dataset import CropDataset
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.parallel.mesh import make_mesh
+    from flowavenet_tpu_torch.parallel.multihost import put_tree, shutdown
+    from flowavenet_tpu_torch.training.train import state_sharding, to_device
+    from flowavenet_tpu_torch.training.train_state import (
+        create_state, ddi_initialize, grads_of, make_train_step)
+    from flowavenet_tpu_torch.utils.tree import leaves
+
+    # without the log_s guards, which FWN_FWD_KERNEL=1 refuses
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, logs_hinge=0.0,
+                                                 logs_l2=0.0))
+    ds = CropDataset(os.path.join(data_dir, "train.fwrec"),
+                     hop_size=cfg.audio.hop_size,
+                     max_time_steps=cfg.data.max_time_steps,
+                     batch_size=cfg.data.batch_size, seed=cfg.train.seed)
+    batches = [to_device(ds.batch_at(s), dev) for s in range(2)]
+    saved = fwn.TRAIN_KERNEL, fwn.PAIR_KERNEL_FWD
+    fwn.TRAIN_KERNEL = fwn.PAIR_KERNEL_FWD = True
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        state0 = ddi_initialize(create_state(
+            torch.Generator(dev).manual_seed(SEED), cfg), cfg, batches[0])
+        mesh = make_mesh(cfg.mesh, dev)
+        check(mesh.distributed and mesh.size == 1, ("nccl mesh", mesh))
+        specs = state_sharding(state0, mesh, cfg.mesh)
+        placed = put_tree(state0, mesh, specs)
+        steps = {"one-device": (make_train_step(cfg), state0),
+                 "nccl mesh": (make_train_step(cfg, mesh, specs.params),
+                               placed)}
+        dt = torch.bfloat16
+
+        def loss_of(p):
+            return fwn.loss_fn(p, cfg.model, batches[0]["audio"],
+                               batches[0]["mel"], compute_dtype=dt)
+
+        g1 = grads_of(loss_of, state0.params)[2]
+        _reset_counts()
+        g2 = grads_of(loss_of, placed.params, mesh)[2]
+        torch.cuda.synchronize()
+        grad_counts = _counts()
+        grads_same = all(torch.equal(a, b)
+                         for a, b in zip(leaves(g1), leaves(g2)))
+        del g1, g2
+        ends = {}
+        for name, (fn, st) in steps.items():
+            m = None
+            for b in batches:
+                st, m = fn(st, b)
+            torch.cuda.synchronize()
+            ends[name] = (st, m)
+        (sa, ma), (sb, mb) = ends["one-device"], ends["nccl mesh"]
+        step_same = (set(ma) == set(mb)
+                     and all(torch.equal(ma[k], mb[k]) for k in ma)
+                     and all(torch.equal(a, b)
+                             for a, b in zip(leaves(sa), leaves(sb))))
+        del ends, sa, sb
+        walls = {k: [] for k in steps}
+        order = list(steps) + list(steps)[::-1]
+        _reset_counts()
+        for i in range(SCALE_STEPS):
+            for name in order[i % 2 * 2: i % 2 * 2 + 2]:
+                fn, st = steps[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = fn(st, batches[i % 2])
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+                steps[name] = (fn, st)
+        counts = _counts()
+    finally:
+        shutdown()
+        fwn.TRAIN_KERNEL, fwn.PAIR_KERNEL_FWD = saved
+    out = {"grads_bit_identical": grads_same,
+           "steps_bit_identical": step_same,
+           "grad_launches": grad_counts, "launches": counts,
+           **{f"{k.replace(' ', '_').replace('-', '_')}_step_ms":
+              float(np.median(v)) for k, v in walls.items()},
+           "walls_ms": walls}
+    print(f"nccl world size 1, mesh (1, 1): gradients bit-identical "
+          f"{grads_same}, two steps bit-identical {step_same}; step ms "
+          f"(median of {SCALE_STEPS}, in turns): one-device "
+          f"{out['one_device_step_ms']:.1f}, nccl mesh "
+          f"{out['nccl_mesh_step_ms']:.1f}; launches {counts}", flush=True)
+    check(grads_same and step_same, ("nccl world size 1", grads_same,
+                                     step_same))
+    check(counts.get("pair_train_bwd", 0) > 0
+          and counts.get("pair_fwd", 0) > 0, ("nccl launches", counts))
+    return out
+
+
+GLOO_BATCH = 4                      # global batch of phase (c), x 6400
+GLOO_STEPS = 2                      # timed train steps per mesh
+# the conditioning 1x1s JAX's rule splits at lj22k on a (1, 2) mesh:
+# filter_c and gate_c of both layers of blocks 5-7
+GLOO_TP_LEAVES = sorted(f"['blocks'][{b}]['flows']['coupling']['layers'][{l}]"
+                        f"['{k}']['v']" for b in (5, 6, 7) for l in (0, 1)
+                        for k in ("filter_c", "gate_c"))
+
+
+def _sha(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def _gloo_rank(rank: int, port: int, cfg, shape: tuple, data_dir: str,
+               out_dir: str, device: str) -> None:
+    """One of two gloo ranks on the one card (phase (c)), started by
+    ``torch.multiprocessing``: lj22k fp32 (TF32 off) gradients of a
+    GLOO_BATCH x 6400 global batch over a ``shape`` mesh against the
+    one-process gradients on the same batch (rank 0), then GLOO_STEPS
+    timed train steps, and the gathered checkpoint with each rank's hashes
+    of its params."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from flowavenet_tpu_torch.checkpoint.checkpoint import (_paths,
+                                                            save_checkpoint)
+    from flowavenet_tpu_torch.data.dataset import CropDataset
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.parallel.mesh import make_mesh, param_sharding
+    from flowavenet_tpu_torch.parallel.multihost import (
+        gather_tree, host_batch_slice, initialize_distributed,
+        make_global_batch, put_tree, sharded_paths, shutdown)
+    from flowavenet_tpu_torch.training.train import (state_sharding,
+                                                     to_device)
+    from flowavenet_tpu_torch.training.train_state import (
+        create_state, grads_of, make_train_step)
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device(device)
+    cfg = cfg.replace(
+        train=dataclasses.replace(cfg.train, compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, batch_size=GLOO_BATCH // shape[0]),
+        mesh=dataclasses.replace(cfg.mesh, data_parallel=shape[0],
+                                 model_parallel=shape[1]))
+    initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo",
+                           device=dev)
+    try:
+        mesh = make_mesh(cfg.mesh, dev)
+        ds = CropDataset(os.path.join(data_dir, "train.fwrec"),
+                         hop_size=cfg.audio.hop_size,
+                         max_time_steps=cfg.data.max_time_steps,
+                         batch_size=GLOO_BATCH, seed=cfg.train.seed)
+        full_b = ds.batch_at(0)
+        rows = host_batch_slice(GLOO_BATCH, mesh)
+        local = make_global_batch({k: v[rows] for k, v in full_b.items()},
+                                  mesh)
+        params = tree_map(lambda l: l.to(dev), randomized_params(cfg, SEED))
+        specs = param_sharding(params, mesh, cfg.mesh)
+        split = sharded_paths(specs)
+        placed = put_tree(params, mesh, specs)
+
+        def loss_on(b):
+            return lambda p: fwn.loss_fn(p, cfg.model, b["audio"], b["mel"])
+
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, grads = grads_of(loss_on(local), placed, mesh)
+        torch.cuda.synchronize()
+        grad_ms = (time.perf_counter() - t0) * 1e3
+        grads = gather_tree(grads, mesh, specs)
+        res = {"rank": rank, "shape": list(shape), "grad_ms": grad_ms,
+               "split": {p: [int(x) for x in l.shape] for p, l in
+                         _paths(grads) if p in split},
+               "grad_launches": _counts()}
+        if rank == 0:
+            ref = grads_of(loss_on(to_device(full_b, dev)), params)[2]
+            worst, worst_leaf = 0.0, None
+            for (p, a), (_, b) in zip(_paths(grads), _paths(ref)):
+                atol = max(5e-7, 5e-5 * float(b.abs().max()))
+                r = float(((a - b).abs() / (atol + 5e-4 * b.abs())).max())
+                if r > worst:
+                    worst, worst_leaf = r, p
+            res.update(worst_ratio=worst, worst_leaf=worst_leaf,
+                       n_leaves=len(list(_paths(ref))))
+            del ref
+        del grads
+        state = create_state(torch.Generator(dev).manual_seed(SEED), cfg)
+        state = state._replace(params=params)
+        st_specs = state_sharding(state, mesh, cfg.mesh)
+        state = put_tree(state, mesh, st_specs)
+        step = make_train_step(cfg, mesh, st_specs.params)
+        walls = []
+        _reset_counts()
+        for _ in range(GLOO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, local)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        res.update(step_walls_ms=walls, step_loss=float(m["loss"]),
+                   step_launches=_counts())
+        full = gather_tree(state, mesh, st_specs)
+        if rank == 0:
+            save_checkpoint(os.path.join(out_dir, "ckpt"), GLOO_STEPS, full)
+        res["hashes"] = {p: _sha(l) for p, l in _paths(state.params)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        shutdown()
+
+
+def gloo_phase(cfg, dev, data_dir: str, tmpdir: str) -> dict:
+    """Phase (c): two ranks on the one card over gloo
+    (``torch.multiprocessing``; NCCL refuses two ranks on one device), on
+    meshes (2, 1) and (1, 2), fp32, TF32 off, global batch GLOO_BATCH x
+    6400.  Per-leaf gradients against one process on the same batch at
+    tests/test_parallel.py's bars (rtol 5e-4, atol max(5e-7, 5e-5 max|g|);
+    the worst ratio of error to allowance must be <= 1); the (1, 2) mesh
+    must split exactly GLOO_TP_LEAVES, shaped [6, 1, Cc, 256] with Cc
+    2560, 5120 and 10240; its checkpoint, gathered to the one-device
+    layout, restored in this process must hold each rank's params (shards
+    and replicated leaves, by hash).  GLOO_STEPS train steps per mesh are
+    timed: gloo's step time (host staging of every collective), not a
+    scale-out rate."""
+    import torch
+    import torch.multiprocessing as mp
+    from flowavenet_tpu_torch.checkpoint.checkpoint import restore_checkpoint
+    from flowavenet_tpu_torch.training.train_state import create_state
+
+    torch.cuda.empty_cache()
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        d = os.path.join(tmpdir, f"gloo_{shape[0]}x{shape[1]}")
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        mp.spawn(_gloo_rank, args=(_free_port(), cfg, shape, data_dir, d,
+                                   str(dev)), nprocs=2, join=True)
+        secs = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        key = f"{shape[0]}x{shape[1]}"
+        split = sorted(r0["split"])
+        res = {"seconds": secs, "worst_ratio": r0["worst_ratio"],
+               "worst_leaf": r0["worst_leaf"], "n_leaves": r0["n_leaves"],
+               "split": r0["split"],
+               "gloo_grad_ms": [r["grad_ms"] for r in ranks],
+               "gloo_step_ms": [float(np.median(r["step_walls_ms"]))
+                                for r in ranks],
+               "step_losses": [r["step_loss"] for r in ranks],
+               "launches": [r["step_launches"] for r in ranks]}
+        print(f"gloo {key}: worst gradient error / allowance "
+              f"{r0['worst_ratio']:.3f} ({r0['worst_leaf']}) over "
+              f"{r0['n_leaves']} leaves; split {len(split)} leaves"
+              + "".join(f"\n  {p} {s}" for p, s in sorted(
+                  r0["split"].items()))
+              + f"\n  gloo's step ms per rank (median of {GLOO_STEPS}) "
+              f"{res['gloo_step_ms']}, losses {res['step_losses']}; "
+              f"{secs:.1f} s with the spawn", flush=True)
+        check(r0["worst_ratio"] <= 1.0, ("gloo gradients", key, res))
+        check(len(set(res["step_losses"])) == 1
+              and np.isfinite(res["step_losses"][0]), ("gloo losses", res))
+        if shape == (1, 2):
+            check(split == GLOO_TP_LEAVES
+                  and sorted(r0["split"][p][2] for p in split)
+                  == sorted([2560, 5120, 10240] * 4)
+                  and all(r0["split"][p][:2] == [6, 1]
+                          and r0["split"][p][3] == 256 for p in split),
+                  ("TP leaves at lj22k", r0["split"]))
+            template = create_state(torch.Generator().manual_seed(0), cfg)
+            st, step = restore_checkpoint(
+                os.path.join(d, "ckpt", f"ckpt-{GLOO_STEPS}.npz"), template)
+            from flowavenet_tpu_torch.checkpoint.checkpoint import _paths
+            ok = step == GLOO_STEPS
+            for p, leaf in _paths(st.params):
+                for m, rk in enumerate(ranks):
+                    part = leaf
+                    if p in split:
+                        n = leaf.shape[2] // 2
+                        part = leaf[:, :, m * n: (m + 1) * n]
+                    ok = ok and _sha(part) == rk["hashes"][p]
+            res["checkpoint_restores"] = ok
+            print(f"gloo 1x2 checkpoint restored in one process holds every "
+                  f"rank's params: {ok}", flush=True)
+            check(ok, ("gloo 1x2 checkpoint", step))
+        else:
+            check(not split, ("gloo 2x1 split", split))
+        out[key] = res
+    return out
+
+
+DP_STREAM_FRAMES = 800              # the time-parallel utterance
+
+
+def data_parallel_phase(loaded, cfg, dev) -> dict:
+    """Phase (d): data-parallel synthesis and serving on the one card.
+    ``dispatch_mels`` over ``make_data_mesh(["cuda:0", "cuda:0"])`` (the
+    phase-3 mels, 4 rows, 2 per replica) on the default int8 route and on
+    FWN_INT8=0: every row bit-identical to the one-device call, the
+    route's kernels launched on both shards (30 ``pair_flow_i8``; 18
+    ``pair_flow_wino`` + 6 ``pair_flow``).  ``synthesize_time_parallel``
+    of a DP_STREAM_FRAMES-frame mel over that mesh: bit-identical to one
+    device.  The server with ``mesh=local_data_mesh(-1)`` (what
+    ``--data_parallel -1`` builds: every card, here one) against the
+    mesh-less server: a warm-up round each, then rounds of the 8
+    SERVE_FRAMES requests in turns (A B B A), bytes identical, requests/s
+    of each."""
+    import threading
+
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.parallel.mesh import make_data_mesh
+    from flowavenet_tpu_torch.serving.server import serve
+    from flowavenet_tpu_torch.synthesis.streaming import (
+        synthesize_time_parallel)
+    from flowavenet_tpu_torch.synthesis.synthesize import (
+        dispatch_mels, local_data_mesh, materialize_wavs, synthesize_mels)
+
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(SEED)
+    mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
+            for f in FRAMES]
+    mesh2 = make_data_mesh([dev, dev])
+    want_launch = {"int8": {"pair_flow_i8": 30},
+                   "FWN_INT8=0": {"pair_flow_wino": 18, "pair_flow": 6}}
+    out = {}
+    saved = fwn.PAIR_KERNEL_INT8
+    try:
+        for route, int8 in (("int8", True), ("FWN_INT8=0", False)):
+            fwn.PAIR_KERNEL_INT8 = int8
+            one = synthesize_mels(loaded, cfg, mels, seed=SEED,
+                                  compute_dtype=bf16, device=dev)
+            torch.cuda.synchronize()
+            _reset_counts()
+            wav, frames = dispatch_mels(loaded, cfg, mels, seed=SEED,
+                                        compute_dtype=bf16,
+                                        data_sharding=mesh2,
+                                        batch_multiple=2)
+            two = materialize_wavs(wav, frames, cfg)
+            counts = _counts()
+            same = all(np.array_equal(a, b) for a, b in zip(one, two))
+            out[route] = {"rows_bit_identical": same, "launches": counts}
+            print(f"data mesh of 2 replicas, {route}: {len(two)} rows "
+                  f"bit-identical to one device {same}; launches {counts}",
+                  flush=True)
+            check(same and all(counts.get(k) == v for k, v in
+                               want_launch[route].items()),
+                  ("data-parallel dispatch", route, same, counts))
+        fwn.PAIR_KERNEL_INT8 = True
+        long = rng.rand(DP_STREAM_FRAMES, cfg.audio.num_mels).astype(
+            np.float32)
+        one = synthesize_time_parallel(loaded, cfg, long, seed=SEED,
+                                       compute_dtype=bf16, device=dev)
+        _reset_counts()
+        two = synthesize_time_parallel(loaded, cfg, long, seed=SEED,
+                                       compute_dtype=bf16,
+                                       data_sharding=mesh2, batch_multiple=2)
+        counts = _counts()
+        same = np.array_equal(one, two)
+        out["time_parallel"] = {"bit_identical": same, "launches": counts}
+        print(f"time-parallel over the data mesh ({DP_STREAM_FRAMES} "
+              f"frames): bit-identical to one device {same}; launches "
+              f"{counts}", flush=True)
+        check(same and counts.get("pair_flow_i8", 0) > 0,
+              ("data-parallel time-parallel", same, counts))
+
+        mesh_all = local_data_mesh(-1, dev.type)
+        check(dev.type != "cuda" or mesh_all.size
+              == torch.cuda.device_count(),
+              ("--data_parallel -1 mesh", mesh_all.devices))
+        servers = {}
+        for name, kw in (("one-device", {"device": dev}),
+                         ("data mesh", {"mesh": mesh_all})):
+            httpd = serve(loaded, cfg, port=0, **kw)
+            threading.Thread(target=httpd.serve_forever,
+                             daemon=True).start()
+            servers[name] = httpd
+        reqs = [(rng.rand(f, cfg.audio.num_mels).astype(np.float32),
+                 2000 + i) for i, f in enumerate(SERVE_FRAMES)]
+        bodies, rps = {}, {k: [] for k in servers}
+        try:
+            for name, h in servers.items():
+                _post_all(h.server_address[1], reqs)        # warm-up
+            _reset_counts()
+            for name in ("one-device", "data mesh", "data mesh",
+                         "one-device"):
+                res, wall = _post_all(servers[name].server_address[1], reqs)
+                rps[name].append(len(reqs) / wall)
+                bodies.setdefault(name, [r[2] for r in res])
+            counts = _counts()
+            stats = servers["data mesh"].service.stats
+        finally:
+            for h in servers.values():
+                h.shutdown()
+                h.service.close()
+        same = bodies["one-device"] == bodies["data mesh"]
+        out["serving"] = {
+            "bytes_identical": same, "data_parallel": stats["data_parallel"],
+            "requests_per_s_one_device": rps["one-device"],
+            "requests_per_s_data_mesh": rps["data mesh"], "launches": counts}
+        print(f"server with mesh=local_data_mesh(-1) "
+              f"({mesh_all.size} card): bytes identical to the mesh-less "
+              f"server {same}; requests/s one-device {rps['one-device']}, "
+              f"data mesh {rps['data mesh']}; /stats data_parallel "
+              f"{stats['data_parallel']}", flush=True)
+        check(same and stats["data_parallel"] == mesh_all.size,
+              ("data-parallel serving", same, stats))
+    finally:
+        fwn.PAIR_KERNEL_INT8 = saved
+    return out
+
+
 # The reverse pair kernels' options (ops/pair_flow.py:uses_tensor_cores),
 # which say whether the kernel line reports a kernel as running on the
 # tensor cores; the training pairs say it through
@@ -2737,7 +3275,11 @@ def main() -> int:
         # routes
         odd_out = odd_width_phase(dev)
         # phase 6 (run here, on the loaded bf16 params): serving
-        serve_out = serving_phase(main_out.pop("loaded"), cfg, dev)
+        loaded = main_out.pop("loaded")
+        serve_out = serving_phase(loaded, cfg, dev)
+        # phase (d): data-parallel synthesis and serving
+        dp_out = data_parallel_phase(loaded, cfg, dev)
+        del loaded
         # phase 4: the training kernels at the training geometry of
         # blocks 0-3
         tB, tT = cfg.data.batch_size, cfg.data.max_time_steps
@@ -2748,6 +3290,11 @@ def main() -> int:
         # with TensorBoard and a profile window
         tr = training_phase(cfg, dev, front["data_dir"])
         trainer = trainer_phase(cfg, dev, front["data_dir"], tmp)
+        # phases (a)-(c): the native loader, the NCCL mesh at world size
+        # 1, two gloo ranks on the one card
+        native = native_loader_phase(cfg, dev, front["data_dir"], tmp)
+        nccl = nccl_phase(cfg, dev, front["data_dir"])
+        gloo = gloo_phase(cfg, dev, front["data_dir"], tmp)
         # phase 7: lj8k_gin, global conditioning end to end
         gin = gin_phase(dev, tmp)
 
@@ -2958,6 +3505,8 @@ def main() -> int:
         "trainer": trainer,
         "hoisted_i8_batch_tiles": brows,
         "gin": gin,
+        "scale_out": {"native_loader": native, "nccl_world_size_1": nccl,
+                      "gloo_two_ranks": gloo, "data_parallel": dp_out},
         "seconds": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

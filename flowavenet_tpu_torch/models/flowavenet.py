@@ -404,6 +404,7 @@ def _permute_cond_rows(flows: dict, perm) -> dict:
     """Permute the conditioning convs' input rows (the weight-norm sum is
     over those rows, so the fold is unchanged); pairs with the free reshape
     view of the mel halves (ops/squeeze.py squeeze_level_cond_perm)."""
+    _whole_cond(flows, len(perm), "synthesis")
     coup = flows["coupling"]
     layers = []
     for layer in coup["layers"]:
@@ -414,6 +415,18 @@ def _permute_cond_rows(flows: dict, perm) -> dict:
             layer[kk] = {**layer[kk], "v": v.index_select(v.dim() - 2, idx)}
         layers.append(layer)
     return {**flows, "coupling": {**coup, "layers": layers}}
+
+
+def _whole_cond(flows: dict, cc_half: int, route: str) -> None:
+    """The kernel routes and the reverse's row permutation take whole
+    conditioning kernels: a tensor-parallel shard (``parallel/tp.py``)
+    raises here rather than reach them."""
+    for layer in flows["coupling"]["layers"]:
+        if layer["filter_c"]["v"].shape[-2] != cc_half:
+            raise ValueError(
+                f"the {route} route takes no tensor-parallel shard (a "
+                f"conditioning kernel of {layer['filter_c']['v'].shape[-2]} "
+                f"input channels beside {cc_half})")
 
 
 def _pair_kernel_eligible(cfg: ModelConfig, has_g: bool) -> bool:
@@ -497,6 +510,8 @@ def block_reverse(p: dict, cfg: ModelConfig, x: torch.Tensor,
     g_a, g_b = g_halves if has_g else (None, None)
     cc_half = (c_a[0] if isinstance(c_a, tuple) else c_a).shape[-1]
     mode = _pair_kernel_mode(cfg, cc_half, has_g)
+    if mode is not None:
+        _whole_cond(p["flows"], cc_half, mode)
     pp = _pair_params(p)
     n_pair = cfg.n_flow // 2
     dt = x.dtype
@@ -709,6 +724,8 @@ def block_forward(p: dict, cfg: ModelConfig, x, c, g=None, *,
                 + _an_logdet(_index(pair, 1)["actnorm"]))
 
     B, T_lvl, r_in = u.shape
+    if route is not None:
+        _whole_cond(p["flows"], c_a.shape[-1], route)
     if route == "train":
         # the training pair: exact log_s statistics out of the kernel, and
         # its backward recomputes from input-only residuals (no checkpoint)

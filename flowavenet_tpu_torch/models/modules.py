@@ -28,6 +28,7 @@ import torch
 from ..ops.conv import (conv1x1, conv1x1_int8, dilated_conv1d,
                         init_wn_conv1d, init_zero_conv1d, wn_conv1d,
                         wn_kernel, zero_conv1d)
+from ..parallel.tp import copy_to_model, reduce_from_model, shard_of
 
 SQRT_HALF = math.sqrt(0.5)
 
@@ -58,10 +59,29 @@ def init_wavenet(gen: torch.Generator, in_channels: int, out_channels: int,
     return params
 
 
-def _fused_fg_kernel(pf: dict, pg: dict):
-    k = torch.cat([wn_kernel(pf), wn_kernel(pg)], dim=-1)
+def _fused_fg_kernel(pf: dict, pg: dict, group=None):
+    k = torch.cat([wn_kernel(pf, group), wn_kernel(pg, group)], dim=-1)
     b = torch.cat([pf["b"], pg["b"]], dim=-1)
     return k, b
+
+
+def _cond_conv(x: torch.Tensor, pf: dict, pg: dict,
+               bias: Optional[torch.Tensor], per_row: bool) -> torch.Tensor:
+    """The fused filter|gate conditioning 1x1 of x plus its biases (and
+    ``bias``, when given).  When the kernels hold this rank's Cin shard (tensor
+    parallelism, ``parallel/tp.py``), the rank multiplies its slice of x
+    and the partial products are summed over the model group."""
+    tp = shard_of(x.shape[-1], pf["v"].shape[-2])
+    group, index = tp if tp is not None else (None, 0)
+    k, b = _fused_fg_kernel(pf, pg, group)
+    if bias is not None:
+        b = b + bias.to(b.dtype)
+    if group is None:
+        return conv1x1(x, k, b, per_row)
+    n = k.shape[-2]
+    x = copy_to_model(x, group)[..., index * n: (index + 1) * n]
+    return (reduce_from_model(conv1x1(x, k, None, per_row), group)
+            + b.to(x.dtype))
 
 
 def _cond_fg(c, g: Optional[torch.Tensor], layer: dict,
@@ -73,18 +93,22 @@ def _cond_fg(c, g: Optional[torch.Tensor], layer: dict,
     on int8 operands (the deep-block int8 route, which has no g; exact
     int32 sums, so no row follows its companions).  ``per_row``: the
     compute-dtype products (K = Cc up to 10240) one row at a time."""
-    kc, bc = _fused_fg_kernel(layer["filter_c"], layer["gate_c"])
     if isinstance(c, tuple):
         if g is not None:
             raise ValueError("the int8 conditioning route takes no global "
                              "conditioning")
         c_q, c_scale = c
+        if shard_of(c_q.shape[-1], layer["filter_c"]["v"].shape[-2]):
+            raise ValueError("the int8 conditioning route takes no "
+                             "tensor-parallel shard")
+        kc, bc = _fused_fg_kernel(layer["filter_c"], layer["gate_c"])
         return conv1x1_int8(c_q, c_scale, kc,
                             bc + conv_bias.to(bc.dtype), out_dtype)
-    fg = conv1x1(c, kc, bc + conv_bias.to(bc.dtype), per_row)
+    fg = _cond_conv(c, layer["filter_c"], layer["gate_c"], conv_bias,
+                    per_row)
     if g is not None and "filter_g" in layer:
-        kg, bg = _fused_fg_kernel(layer["filter_g"], layer["gate_g"])
-        fg = fg + conv1x1(g, kg, bg, per_row)
+        fg = fg + _cond_conv(g, layer["filter_g"], layer["gate_g"], None,
+                             per_row)
     return fg
 
 
@@ -98,6 +122,9 @@ def _res_layer(h: torch.Tensor, c, g: Optional[torch.Tensor], layer: dict,
         if isinstance(c, tuple):
             raise ValueError("pre-quantized conditioning takes the plain "
                              "route (use_pallas=False)")
+        if c.shape[-1] != layer["filter_c"]["v"].shape[-2]:
+            raise ValueError("the fused ResBlock route takes no "
+                             "tensor-parallel shard")
         from ..ops import resblock as rb
         res_w, skip_w = wn_kernel(layer["res"])[0], wn_kernel(layer["skip"])[0]
         if g is None and c.shape[-1] <= rb.V2_MAX_CC:

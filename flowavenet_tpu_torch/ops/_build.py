@@ -5,6 +5,11 @@ Each ``csrc/<name>.cu`` becomes ``build/flowavenet_tpu_torch/lib<name>-
 <hash>.so`` beside the package (the hash covers the source, the shared
 ``csrc/*.cuh`` headers and the flags, so an edited source rebuilds).  The sources expose a plain C interface;
 nothing here includes PyTorch's headers, which keeps a build to seconds.
+
+:func:`build_host` is the host compiler's twin for C++ sources (the native
+data loader): ``g++`` (or ``$CXX``) with ``native/Makefile``'s flags into
+the same directory, the hash covering the source, the flags, the
+compiler's version and the CPU that ``-march=native`` resolves to.
 """
 
 from __future__ import annotations
@@ -24,6 +29,11 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# native/Makefile's CXXFLAGS and LDFLAGS
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+             "-Wextra"]
+LD_FLAGS = ["-shared", "-lpthread"]
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, compiler output) of builds made by this process
 BUILD_INFO: dict[str, tuple[float, str]] = {}
@@ -42,14 +52,10 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists (the
-    hash covers the source, every header in ``csrc`` and the flags)."""
-    src = CSRC / f"{name}.cu"
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+def _compile(name: str, key: bytes, cmd: list, src: Path) -> Path:
+    """Run ``cmd + ["-o", <out>]`` into ``lib<name>-<hash of key>.so``
+    unless that build exists; the output appears atomically."""
+    out = BUILD_DIR / f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -57,10 +63,10 @@ def build(name: str) -> Path:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([*cmd, "-o", tmp], capture_output=True,
+                              text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{cmd[0]} failed for {src}:\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -68,6 +74,43 @@ def build(name: str) -> Path:
     BUILD_INFO[name] = (time.perf_counter() - t0,
                         proc.stdout + proc.stderr)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists (the
+    hash covers the source, every header in ``csrc`` and the flags)."""
+    src = CSRC / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    return _compile(name, key, [_nvcc(), *NVCC_FLAGS, str(src)], src)
+
+
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(
+            f"C++ compiler {cxx!r} not found (set CXX); the native data "
+            "loader is built from source with it")
+    return found
+
+
+def build_host(src: Path) -> Path:
+    """Compile the C++ source ``src`` with the host compiler unless an
+    up-to-date build exists.  The hash covers the source, the flags, the
+    compiler's version and the ``-march`` that ``-march=native`` resolves
+    to, so a build made for another CPU is never loaded."""
+    cxx = _cxx()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True).stdout
+    march = [l for l in target.splitlines() if l.strip().startswith(
+        "-march=")]
+    key = (src.read_bytes() + " ".join(CXX_FLAGS + LD_FLAGS).encode()
+           + version.encode() + "".join(march).encode())
+    return _compile(src.stem, key, [cxx, *CXX_FLAGS, str(src), *LD_FLAGS],
+                    src)
 
 
 def build_all(names) -> None:

@@ -48,12 +48,19 @@ def init_wn_conv1d(gen: torch.Generator, in_ch: int, out_ch: int,
             "b": he_uniform(gen, (out_ch,))}
 
 
-def wn_kernel(p: dict) -> torch.Tensor:
+def wn_kernel(p: dict, group=None) -> torch.Tensor:
     """Effective weight-normalized kernel, computed in fp32: l2 over axes
-    [0, 1] with eps 1e-12, times g."""
+    [0, 1] with eps 1e-12, times g.  ``group``: ``v`` is this rank's Cin
+    shard of a tensor-parallel kernel (``parallel/tp.py``); the sum of
+    squares runs over every shard of the model group, and the replicated
+    scale and gain enter the shard's product through ``copy_to_model``."""
     v = p["v"].float()
     sq = torch.sum(v * v, dim=(0, 1), keepdim=True)
-    return v * torch.rsqrt(torch.clamp(sq, min=_WN_EPS)) * p["g"].float()
+    if group is None:
+        return v * torch.rsqrt(torch.clamp(sq, min=_WN_EPS)) * p["g"].float()
+    from ..parallel.tp import copy_to_model, reduce_from_model
+    r = torch.rsqrt(torch.clamp(reduce_from_model(sq, group), min=_WN_EPS))
+    return v * copy_to_model(r, group) * copy_to_model(p["g"].float(), group)
 
 
 def dilated_conv1d(x: torch.Tensor, kernel: torch.Tensor,

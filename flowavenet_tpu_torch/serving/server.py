@@ -31,7 +31,8 @@ API:
 
 ``python -m flowavenet_tpu_torch.serving.server --device cuda --saved_dir
 <dir> --config lj22k`` serves a checkpoint on the card; ``--device cpu``
-on the CPU.
+on the CPU; ``--data_parallel N`` splits each micro-batch over N cards
+(-1: every card).
 """
 
 from __future__ import annotations
@@ -75,8 +76,11 @@ class SynthesisService:
     ``noise='device'`` (default) draws each request's z on the device with
     the JAX package's threefry stream; 'host' reproduces offline-CLI audio.
     ``pcm16`` (on by default with device noise) quantizes to 16-bit PCM on
-    the device, halving the readback.  ``mesh`` (data-parallel serving) is
-    not ported."""
+    the device, halving the readback.  ``mesh`` (a ``parallel/mesh.py:
+    DataMesh``) serves data-parallel: the params are replicated on its
+    devices once, each micro-batch's rows are rounded up to a multiple of
+    its size and split over them, and streams run on its first device (in
+    place of ``device``)."""
 
     def __init__(self, params, cfg: Config, *, max_batch: int = 16,
                  batch_window_ms: float = 10.0, bucket_frames: int = 60,
@@ -84,15 +88,16 @@ class SynthesisService:
                  max_frames: int = 4000, mesh=None,
                  max_dispatch_rows: int = 32,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel serving is not ported yet (ROADMAP Queue 1 "
-                "item 8; flowavenet_tpu/serving/server.py:SynthesisService, "
-                "mesh)")
-        self.device = resolve_device(device)
         self.params = params
+        self._batch_multiple = 1
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices[0]
+            mesh.replicas(params)            # made once, kept by the mesh
+            self._batch_multiple = mesh.size
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.max_batch = max_batch
         self.batch_window = batch_window_ms / 1000.0
         self.bucket_frames = bucket_frames
@@ -115,7 +120,8 @@ class SynthesisService:
         self._done_q: "queue.Queue" = queue.Queue(maxsize=per_drain + 1)
         self._stop = threading.Event()
         self._inflight: list = []
-        self.stats = {"requests": 0, "batches": 0, "streams": 0,
+        self.stats = {"data_parallel": self._batch_multiple,
+                      "requests": 0, "batches": 0, "streams": 0,
                       "dispatches": 0, "max_dispatch_rows_seen": 0,
                       "audio_seconds": 0.0, "busy_seconds": 0.0,
                       "backpressure_seconds": 0.0}
@@ -167,11 +173,15 @@ class SynthesisService:
         plan = plan_chunks(self.cfg, mel.shape[0], chunk_frames)
         n_samples = plan.total_frames * self.cfg.audio.hop_size
 
+        # on a mesh, the first device's replica
+        params = (self.params if self.mesh is None
+                  else self.mesh.replicas(self.params)[0])
+
         def chunks():
             self.stats["streams"] += 1
             t0 = time.time()
             for _, audio in stream_reverse(
-                    self.params, self.cfg, mel, seed=seed, temp=temp,
+                    params, self.cfg, mel, seed=seed, temp=temp,
                     chunk_frames=chunk_frames, speaker_id=speaker_id,
                     device=self.device):
                 if self._stop.is_set():
@@ -255,7 +265,8 @@ class SynthesisService:
                 # group sizes follow the load: pow2 rows keep the set of
                 # batch shapes (and each row's arithmetic) small
                 pad_batch=True, noise=self.noise, pcm16=self.pcm16,
-                device=self.device)
+                data_sharding=self.mesh,
+                batch_multiple=self._batch_multiple, device=self.device)
             # hand the queued result to the completion thread; blocks only
             # when the bounded hand-off is full (readback-bound waiting,
             # kept out of busy_seconds)
@@ -377,7 +388,7 @@ def make_handler(service: SynthesisService):
                     "model": f"{cfg.model.n_block}x{cfg.model.n_flow}",
                     "sample_rate": cfg.audio.sample_rate,
                     "num_mels": cfg.audio.num_mels,
-                    "data_parallel": 1,
+                    "data_parallel": service._batch_multiple,
                     "device": str(service.device),
                 })
             elif self.path == "/stats":
@@ -454,7 +465,7 @@ def main(argv=None):
     import argparse
 
     from ..config import get_config
-    from ..synthesis.synthesize import load_params
+    from ..synthesis.synthesize import load_params, local_data_mesh
 
     p = argparse.ArgumentParser(
         description="FloWaveNet serving on the GPU (PyTorch port)")
@@ -466,17 +477,17 @@ def main(argv=None):
     p.add_argument("--batch_window_ms", type=float, default=10.0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet (scale-out)")
+                   help="split each micro-batch over this many devices "
+                        "(0 = one device; -1 = every local card)")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP Queue 1 item 8; "
-            "flowavenet_tpu/serving/server.py:main)")
+    mesh = (local_data_mesh(args.data_parallel, args.device)
+            if args.data_parallel else None)
     cfg = get_config(args.config)
     params, step = load_params(args.saved_dir, cfg, device=args.device)
     httpd = serve(params, cfg, args.host, args.port,
                   max_batch=args.max_batch,
-                  batch_window_ms=args.batch_window_ms, device=args.device)
+                  batch_window_ms=args.batch_window_ms, mesh=mesh,
+                  device=args.device)
     print(f"serving step-{step} model on http://{args.host}:{args.port} "
           f"({args.device})")
     httpd.serve_forever()

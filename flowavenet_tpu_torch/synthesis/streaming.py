@@ -42,7 +42,7 @@ from ..models.flowavenet import reverse
 from ..utils.device import upload
 from .noise import frame_noise
 from .synthesize import (_usable_frames, pcm16_quantize,
-                         resolve_compute_dtype, resolve_device)
+                         resolve_compute_dtype, resolve_device, split_rows)
 
 
 def reverse_halo(m: ModelConfig) -> int:
@@ -207,26 +207,23 @@ def synthesize_time_parallel(params, cfg: Config, mel: np.ndarray,
                              ) -> np.ndarray:
     """One long utterance synthesized as a batch: the halo windows that
     :func:`stream_reverse` walks one by one run ``rows_per_pass`` (default
-    min(16, chunks)) at a time through one reverse, one pass in flight,
-    with each row's halo trimmed on the device.  With host noise the
-    output equals :func:`synthesize_streaming`'s for the same (seed, temp,
-    plan).  ``noise='device'`` draws positional noise on the device (the
-    JAX package's ``normal(fold_in(PRNGKey(seed), frame))`` per mel frame,
+    min(16, chunks), rounded up to ``batch_multiple``) at a time through
+    one reverse, one pass in flight, with each row's halo trimmed on the
+    device.  With host noise the output equals
+    :func:`synthesize_streaming`'s for the same (seed, temp, plan).
+    ``noise='device'`` draws positional noise on the device (the JAX
+    package's ``normal(fold_in(PRNGKey(seed), frame))`` per mel frame,
     synthesis/noise.py), a function of (seed, absolute frame) alone;
     ``pcm16`` (device noise only) returns int16 quantized on the device.
-    ``speaker_id`` as in :func:`stream_reverse`.  Sharding over several
-    devices is not ported."""
+    ``speaker_id`` as in :func:`stream_reverse`.  ``data_sharding`` (a
+    ``parallel/mesh.py:DataMesh``) splits each pass's rows over its
+    devices, each on its replica of the params (``device`` is then
+    unused)."""
     _check_mel(cfg, mel)
     if noise not in ("host", "device"):
         raise ValueError(f"noise must be 'host' or 'device', got {noise!r}")
     if pcm16 and noise != "device":
         raise ValueError("pcm16=True requires noise='device'")
-    if data_sharding is not None or batch_multiple > 1:
-        raise NotImplementedError(
-            "time-parallel synthesis over several devices is not ported yet "
-            "(ROADMAP Queue 1 item 8; flowavenet_tpu/synthesis/streaming.py"
-            ":synthesize_time_parallel, data_sharding)")
-    dev = resolve_device(device)
     dt = resolve_compute_dtype(cfg, compute_dtype)
     hop = cfg.audio.hop_size
     t0 = cfg.train.temp if temp is None else float(temp)
@@ -237,7 +234,8 @@ def synthesize_time_parallel(params, cfg: Config, mel: np.ndarray,
     if rows_per_pass <= 0:
         raise ValueError(f"rows_per_pass must be positive, got "
                          f"{rows_per_pass}")
-    rows = rows_per_pass
+    rows = -(-rows_per_pass // batch_multiple) * batch_multiple
+    shards, per = split_rows(params, rows, data_sharding, device)
     n_total = plan.total_frames * hop
     z_full = None
     if noise == "host":
@@ -248,10 +246,11 @@ def synthesize_time_parallel(params, cfg: Config, mel: np.ndarray,
     out = np.empty(n_total, np.int16 if pcm16 else np.float32)
     windows = list(_window_starts(plan))
     temps = np.full((rows,), t0, np.float32)
-    g = _speaker_rows(cfg, speaker_id, rows, dev)
+    gs = [_speaker_rows(cfg, speaker_id, per, d) for d, _ in shards]
 
-    def materialize(dev_wav, geom, offs):
-        wav = (dev_wav if pcm16 else dev_wav.float()).cpu().numpy()
+    def materialize(parts, geom, offs):
+        wav = np.concatenate([(w if pcm16 else w.float()).cpu().numpy()
+                              for w in parts])
         for i, (start, stop, _) in enumerate(geom):
             out[start * hop: stop * hop] = (
                 wav[i, offs[i]: offs[i] + (stop - start) * hop])
@@ -262,29 +261,37 @@ def synthesize_time_parallel(params, cfg: Config, mel: np.ndarray,
         cb = np.zeros((rows, wf, cfg.audio.num_mels), np.float32)
         for i, (_, _, w0) in enumerate(geom):
             cb[i] = mel[w0: w0 + wf]
-        c_t = upload(torch.from_numpy(cb), dt, dev)
         if noise == "device":
             w0s = np.zeros((rows,), np.int64)
             w0s[: len(geom)] = [w for _, _, w in geom]
-            z_t = frame_noise(seed % (2 ** 32), torch.from_numpy(w0s),
-                              torch.from_numpy(temps), wf, hop, device=dev)
         else:
             zb = np.zeros((rows, wf * hop, 1), np.float32)
             for i, (_, _, w0) in enumerate(geom):
                 zb[i, :, 0] = z_full[w0 * hop: (w0 + wf) * hop]
-            z_t = upload(torch.from_numpy(zb), dt, dev)
         # per-row trim start, clamped so the last (over-long) window's
         # slice stays inside the window
         k0s = [min((s - w) * hop, wf * hop - keep) for s, _, w in geom]
         offs = [(s - w) * hop - k0 for (s, _, w), k0 in zip(geom, k0s)]
-        with torch.no_grad():
-            wav = reverse(params, cfg.model, z_t, c_t, g, compute_dtype=dt)
-            wav = torch.stack([wav[i, k0: k0 + keep, 0]
-                               for i, k0 in enumerate(k0s)])
-            if pcm16:
-                wav = pcm16_quantize(wav)
+        parts = []
+        for j, (dev, p) in enumerate(shards):
+            sl = slice(j * per, (j + 1) * per)
+            if not k0s[sl]:              # padding rows only
+                break
+            c_t = upload(torch.from_numpy(cb[sl]), dt, dev)
+            if noise == "device":
+                z_t = frame_noise(seed % (2 ** 32), torch.from_numpy(w0s[sl]),
+                                  torch.from_numpy(temps[sl]), wf, hop,
+                                  device=dev)
+            else:
+                z_t = upload(torch.from_numpy(zb[sl]), dt, dev)
+            with torch.no_grad():
+                wav = reverse(p, cfg.model, z_t, c_t, gs[j],
+                              compute_dtype=dt)
+                wav = torch.stack([wav[i, k0: k0 + keep, 0]
+                                   for i, k0 in enumerate(k0s[sl])])
+                parts.append(pcm16_quantize(wav) if pcm16 else wav)
         if pending is not None:  # overlap host assembly with device work
             materialize(*pending)
-        pending = (wav, geom, offs)
+        pending = (parts, geom, offs)
     materialize(*pending)
     return out

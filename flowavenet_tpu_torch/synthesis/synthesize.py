@@ -92,6 +92,20 @@ def pcm16_quantize(wav: torch.Tensor) -> torch.Tensor:
                        ).to(torch.int16)
 
 
+def split_rows(params, rows: int, data_sharding=None,
+               device: str | torch.device = "cuda"):
+    """``([(device, params)], rows per device)`` of a synthesis call of
+    ``rows`` rows: ``device`` alone, or every device of a data mesh with
+    its replica of the params, each taking whole rows (else it raises)."""
+    if data_sharding is None:
+        return [(resolve_device(device), params)], rows
+    shards = list(zip(data_sharding.devices, data_sharding.replicas(params)))
+    if rows % len(shards):
+        raise ValueError(f"{rows} rows do not split over {len(shards)} "
+                         f"devices; pass batch_multiple={len(shards)}")
+    return shards, rows // len(shards)
+
+
 def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
                   seed: int | list[int] = 0, speaker_ids=None,
                   compute_dtype=None,
@@ -112,19 +126,23 @@ def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
     uploading host RandomState noise; ``pcm16`` (device noise only)
     quantizes to int16 on the device.  ``speaker_ids`` (one per mel) select
     each row's speaker on a global-conditioning model; padding rows take
-    speaker 0.  A gin model without them raises, as in the JAX package."""
+    speaker 0.  A gin model without them raises, as in the JAX package.
+
+    ``data_sharding`` (a ``parallel/mesh.py:DataMesh``) splits the rows
+    over its devices, each running its rows on its replica of the params
+    (``device`` is then unused), and ``wav`` is the list of the devices'
+    rows; ``batch_multiple`` rounds the (possibly pow2-padded) row count
+    up to a multiple, so that every device gets whole rows."""
     if noise not in ("host", "device"):
         raise ValueError(f"noise must be 'host' or 'device', got {noise!r}")
     if pcm16 and noise != "device":
         raise ValueError("pcm16=True requires noise='device'")
-    if data_sharding is not None or batch_multiple > 1:
-        raise NotImplementedError(
-            "sharded synthesis is not ported yet (ROADMAP Queue 1 item 8; "
-            "flowavenet_tpu/synthesis/synthesize.py:dispatch_mels, "
-            "data_sharding)")
-    dev = resolve_device(device)
-    dt = resolve_compute_dtype(cfg, compute_dtype)
     n = len(mels)
+    n_rows = 1 << (n - 1).bit_length() if pad_batch else n
+    if batch_multiple > 1:
+        n_rows = -(-n_rows // batch_multiple) * batch_multiple
+    shards, per = split_rows(params, n_rows, data_sharding, device)
+    dt = resolve_compute_dtype(cfg, compute_dtype)
     seeds = [seed + i for i in range(n)] if isinstance(seed, int) else seed
     if temp is None or isinstance(temp, (int, float)):
         temps = [cfg.train.temp if temp is None else float(temp)] * n
@@ -137,44 +155,56 @@ def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
     hop = cfg.audio.hop_size
     frames = [_usable_frames(m.shape[0], cfg) for m in mels]
     pad_frames = padded_frames(max(frames), cfg, bucket_frames)
-    n_rows = 1 << (n - 1).bit_length() if pad_batch else n
     batch = np.zeros((n_rows, pad_frames, cfg.audio.num_mels), np.float32)
     for i, m in enumerate(mels):
         batch[i, : frames[i]] = m[: frames[i]]
-    # cast on the host first: rounding to bf16 is the same on either side
-    # and halves the upload
-    c_t = upload(torch.from_numpy(batch), dt, dev)
     if noise == "device":
         s_arr = np.zeros((n_rows,), np.int64)
         t_arr = np.zeros((n_rows,), np.float32)
         s_arr[:n] = [s % (2 ** 32) for s in seeds]
         t_arr[:n] = temps
-        z_t = row_noise(s_arr, t_arr, pad_frames * hop, dev)
     else:
         z = np.zeros((n_rows, pad_frames * hop, 1), np.float32)
         for i, (s, t) in enumerate(zip(seeds, temps)):
             z[i, :, 0] = np.random.RandomState(s % (2 ** 32)).randn(
                 pad_frames * hop) * t
-        z_t = upload(torch.from_numpy(z), dt, dev)
-    g = None
+    ids = None
     if cfg.model.gin_channels > 0 and speaker_ids is not None:
         ids = np.zeros((n_rows,), np.int64)
         ids[:n] = np.asarray(speaker_ids, np.int64)
-        g = torch.from_numpy(ids).to(dev)
-    wav = reverse(params, cfg.model, z_t, c_t, g, compute_dtype=dt)
-    if pcm16:
-        wav = pcm16_quantize(wav)
-    return wav, frames
+
+    def run(dev, p, rows: slice) -> torch.Tensor:
+        # cast on the host first: rounding to bf16 is the same on either
+        # side and halves the upload
+        c_t = upload(torch.from_numpy(batch[rows]), dt, dev)
+        if noise == "device":
+            z_t = row_noise(s_arr[rows], t_arr[rows], pad_frames * hop, dev)
+        else:
+            z_t = upload(torch.from_numpy(z[rows]), dt, dev)
+        g = torch.from_numpy(ids[rows]).to(dev) if ids is not None else None
+        wav = reverse(p, cfg.model, z_t, c_t, g, compute_dtype=dt)
+        return pcm16_quantize(wav) if pcm16 else wav
+
+    wavs = [run(dev, p, slice(i * per, (i + 1) * per))
+            for i, (dev, p) in enumerate(shards)]
+    return (wavs[0] if data_sharding is None else wavs), frames
 
 
-def materialize_wavs(wav: torch.Tensor, frames, cfg: Config
-                     ) -> list[np.ndarray]:
+def materialize_wavs(wav, frames, cfg: Config) -> list[np.ndarray]:
     """Bring a :func:`dispatch_mels` result to the host and crop each row to
     its true length: float32 rows, or int16 when it was dispatched with
-    ``pcm16``.  Padding rows are dropped on the device first."""
+    ``pcm16``.  Padding rows are dropped on the device first (over a data
+    mesh, the devices that hold only padding rows are not read)."""
     hop = cfg.audio.hop_size
-    wav = wav[: len(frames)]
-    w = (wav if wav.dtype == torch.int16 else wav.float()).cpu().numpy()
+
+    def host(t):
+        return (t if t.dtype == torch.int16 else t.float()).cpu().numpy()
+
+    if isinstance(wav, list):
+        keep = -(-len(frames) // wav[0].shape[0])
+        w = np.concatenate([host(p) for p in wav[:keep]])
+    else:
+        w = host(wav[: len(frames)])
     return [w[i, : frames[i] * hop, 0] for i in range(len(frames))]
 
 
@@ -193,6 +223,21 @@ def synthesize_mels(params, cfg: Config, mels: list[np.ndarray],
         compute_dtype=compute_dtype, temp=temp, bucket_frames=bucket_frames,
         pad_batch=pad_batch, noise=noise, pcm16=pcm16, device=device)
     return materialize_wavs(wav, frames, cfg)
+
+
+def local_data_mesh(n: int, device: str | torch.device = "cuda"):
+    """The data mesh of ``n`` local devices of ``device``'s type (-1: every
+    card; one CPU replica on the CPU), as ``--time_parallel`` and the
+    server's ``--data_parallel`` build it."""
+    from ..parallel.mesh import make_data_mesh
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return make_data_mesh([dev] * max(1, n))
+    count = torch.cuda.device_count()
+    n = count if n < 0 else n
+    if n > count:
+        raise ValueError(f"{n} devices asked for, {count} cards present")
+    return make_data_mesh([torch.device("cuda", i) for i in range(n)])
 
 
 def main(argv=None):
@@ -218,20 +263,15 @@ def main(argv=None):
                              "in mel frames")
     parser.add_argument("--time_parallel", type=int, default=0,
                         help="batch each utterance's halo windows through "
-                             "one reverse (1, or -1 for every device; "
-                             "several devices are not ported yet)")
+                             "one reverse and split them over N devices "
+                             "(-1: every local card; on the CPU, N CPU "
+                             "replicas); exact vs --stream")
     args = parser.parse_args(argv)
     if args.stream and args.time_parallel:
         parser.error("--stream and --time_parallel are exclusive")
+    mesh = None
     if args.time_parallel:
-        n_dev = (torch.cuda.device_count() if args.time_parallel < 0
-                 and resolve_device(args.device).type == "cuda"
-                 else abs(args.time_parallel))
-        if n_dev > 1:
-            raise NotImplementedError(
-                "time-parallel synthesis over several devices is not ported "
-                "yet (ROADMAP Queue 1 item 8; flowavenet_tpu/synthesis/"
-                "synthesize.py:main, --time_parallel)")
+        mesh = local_data_mesh(args.time_parallel, args.device)
 
     cfg = get_config(args.config)
     params, _ = load_params(args.saved_dir, cfg, device=args.device)
@@ -252,9 +292,12 @@ def main(argv=None):
                                     synthesize_time_parallel)
             run = (synthesize_streaming if args.stream
                    else synthesize_time_parallel)
+            kw = (dict(data_sharding=mesh, batch_multiple=mesh.size)
+                  if mesh is not None and mesh.size > 1 else {})
             wavs = [run(params, cfg, m.astype(np.float32),
                         seed=args.seed + i + j, temp=args.temp,
-                        chunk_frames=args.chunk_frames, device=args.device)
+                        chunk_frames=args.chunk_frames, device=args.device,
+                        **kw)
                     for j, m in enumerate(mels)]
         else:
             wavs = synthesize_mels(params, cfg, mels, seed=args.seed + i,

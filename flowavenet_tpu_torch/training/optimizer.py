@@ -53,17 +53,30 @@ def lr_schedule(cfg: TrainConfig):
     return schedule
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf (fp32)."""
-    return torch.sqrt(sum((l.float() * l.float()).sum() for l in leaves(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf (fp32).  With a mesh, the
+    leaves that ``specs`` split on the model axis are this rank's shards:
+    their squares are summed over the model group."""
+    sq = [(l.float() * l.float()).sum() for l in leaves(tree)]
+    split = ([any(a is not None for a in s) for s in leaves(specs)]
+             if mesh is not None and mesh.n_model > 1 else [])
+    if not any(split):
+        return torch.sqrt(sum(sq))
+    from ..parallel.multihost import model_sum_
+    part = sum(q for q, s in zip(sq, split) if s)
+    model_sum_(part, mesh)
+    return torch.sqrt(sum(q for q, s in zip(sq, split) if not s) + part)
 
 
 class Optimizer:
-    """The chain clip -> Adam -> LR, with optax's ``init``/``update``."""
+    """The chain clip -> Adam -> LR, with optax's ``init``/``update``.
+    ``mesh`` and ``specs`` (the params' shardings) make the clip's norm
+    span every shard; Adam is elementwise on each."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, mesh=None, specs=None):
         self.cfg = cfg
         self.schedule = lr_schedule(cfg)
+        self.norm = lambda tree: global_norm(tree, specs, mesh)
 
     def init(self, params) -> tuple:
         dev = leaves(params)[0].device
@@ -79,7 +92,7 @@ class Optimizer:
         cfg = self.cfg
         _, adam, sched = state
         # clip_by_global_norm
-        g_norm = global_norm(grads)
+        g_norm = self.norm(grads)
         trigger = g_norm < cfg.grad_clip_norm
         grads = tree_map(lambda t: torch.where(
             trigger, t, (t / g_norm.to(t.dtype)) * cfg.grad_clip_norm), grads)
@@ -104,8 +117,8 @@ class Optimizer:
                          ScaleByScheduleState(sched.count + 1))
 
 
-def make_optimizer(cfg: TrainConfig) -> Optimizer:
-    return Optimizer(cfg)
+def make_optimizer(cfg: TrainConfig, mesh=None, specs=None) -> Optimizer:
+    return Optimizer(cfg, mesh, specs)
 
 
 def apply_updates(params, updates):

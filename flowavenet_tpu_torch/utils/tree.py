@@ -32,3 +32,19 @@ def rebuild(template: Any, new_leaves) -> Any:
     it = iter(new_leaves)
     return tree_map(lambda _: next(it), template)
 
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``tree_map`` of ``fn(path, leaf)``, with each leaf's path in
+    ``jax.tree_util.keystr`` form (``['key']``, ``[i]``, ``.field``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}['{k}']")
+                for k, v in tree.items()}
+    if hasattr(tree, "_fields"):              # NamedTuple
+        return type(tree)(*[tree_map_with_path(fn, getattr(tree, n),
+                                               f"{prefix}.{n}")
+                            for n in tree._fields])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, t, f"{prefix}[{i}]")
+                          for i, t in enumerate(tree))
+    return fn(prefix, tree)

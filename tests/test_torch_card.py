@@ -1109,3 +1109,99 @@ def test_odd_width_models_train_on_the_kernel_route(cuda, monkeypatch,
     assert (abs(l_k - l_p) <= 1e-3 * abs(l_p)
             or abs(l_k - l32) <= abs(l_p - l32))
     assert _cos(g_k, g32) >= _cos(g_p, g32) - 0.01
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_one_step_is_bit_identical(cuda, monkeypatch):
+    """The production scale-out path at world size 1: NCCL, a (1, 1) mesh,
+    the state placed with put_tree, lj22k's widths cut to 4 blocks in bf16
+    on FWN_TRAIN_KERNEL=1 (block 0) and FWN_FWD_KERNEL=1 (blocks 1-3), the
+    guards off, as that route needs.  Two steps give the metrics and every
+    leaf of the state of the one-device steps bit for bit, and the pair
+    kernels run."""
+    import socket
+
+    import torch.distributed as dist
+
+    from flowavenet_tpu_torch.parallel.mesh import make_mesh
+    from flowavenet_tpu_torch.parallel.multihost import (
+        initialize_distributed, put_tree, shutdown)
+    from flowavenet_tpu_torch.training import train_state as tts
+    from flowavenet_tpu_torch.training.train import state_sharding
+    from flowavenet_tpu_torch.utils.tree import leaves
+    monkeypatch.setattr(fwn, "TRAIN_KERNEL", True)
+    monkeypatch.setattr(fwn, "PAIR_KERNEL_FWD", True)
+    cfg = lj22k()
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, n_block=4),
+        train=dataclasses.replace(cfg.train, compute_dtype="bfloat16",
+                                  logs_hinge=0.0, logs_l2=0.0))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    batch = {"audio": 0.1 * torch.randn(2, 16 * 256, 1, generator=g,
+                                        device=cuda),
+             "mel": torch.rand(2, 16, 80, generator=g, device=cuda)}
+    state0 = tts.ddi_initialize(tts.create_state(
+        torch.Generator(device=cuda).manual_seed(0), cfg), cfg, batch)
+
+    def run(step, state):
+        for _ in range(2):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        return state, m
+
+    want, wm = run(tts.make_train_step(cfg), state0)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert initialize_distributed(f"localhost:{port}", 1, 0, device="cuda",
+                                  backend="nccl") is False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(cfg.mesh, cuda)
+        assert mesh.distributed and mesh.shape == {"data": 1, "model": 1}
+        specs = state_sharding(state0, mesh, cfg.mesh)
+        n0 = dict(pf.LAUNCHES)
+        got, gm = run(tts.make_train_step(cfg, mesh, specs.params),
+                      put_tree(state0, mesh, specs))
+        assert pf.LAUNCHES["pair_train_bwd"] > n0["pair_train_bwd"]
+        assert pf.LAUNCHES["pair_fwd"] > n0["pair_fwd"]
+    finally:
+        shutdown()
+    assert set(gm) == set(wm)
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k
+    for a, b in zip(leaves(got), leaves(want)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "FWN_INT8=0"])
+def test_two_replica_dispatch_rows_are_bit_identical(cuda, monkeypatch,
+                                                     int8):
+    """dispatch_mels over a data mesh of two replicas on the one card
+    (cuda:0 twice): 3 mels pow2-padded to 4 rows, 2 per replica, each row
+    bit-identical to the one-device call's (synthesis rows do not follow
+    their companions on the card, PERF.md section 2); the kernels run on
+    both shards."""
+    from flowavenet_tpu_torch.parallel.mesh import make_data_mesh
+    from flowavenet_tpu_torch.synthesis import synthesize as tsyn
+    monkeypatch.setattr(fwn, "PAIR_KERNEL_INT8", int8)
+    cfg = lj22k()
+    gen = torch.Generator().manual_seed(11)
+    params = tree_map(lambda l: l.to(cuda, torch.bfloat16),
+                      fwn.init_flowavenet(gen, cfg.model))
+    rs = np.random.RandomState(2)
+    mels = [rs.rand(n, 80).astype(np.float32) for n in (60, 45, 52)]
+    kw = dict(seed=[1, 2, 3], pad_batch=True, noise="device",
+              compute_dtype=torch.bfloat16)
+    one = tsyn.synthesize_mels(params, cfg, mels, device=cuda, **kw)
+    mesh = make_data_mesh(["cuda:0", "cuda:0"])
+    name = "pair_flow_i8" if int8 else "pair_flow_wino"
+    n0 = pf.LAUNCHES[name]
+    wav, frames = tsyn.dispatch_mels(params, cfg, mels, data_sharding=mesh,
+                                     batch_multiple=2, **kw)
+    two = tsyn.materialize_wavs(wav, frames, cfg)
+    assert pf.LAUNCHES[name] - n0 == 2 * (15 if int8 else 9)
+    for a, b in zip(one, two):
+        assert np.array_equal(a, b)

@@ -20,6 +20,7 @@ from flowavenet_tpu.models.flowavenet import init_flowavenet as jinit
 from flowavenet_tpu.synthesis import synthesize as jsyn
 from flowavenet_tpu_torch.checkpoint.bridge import to_torch
 from flowavenet_tpu_torch.config import tiny
+from flowavenet_tpu_torch.parallel.mesh import make_data_mesh
 from flowavenet_tpu_torch.serving import server as tsrv
 from flowavenet_tpu_torch.synthesis import streaming as tst
 
@@ -195,7 +196,8 @@ def test_synthesize_stream_and_long_mel_routing(server, model):
 
 def test_close_rejects_and_fails_fast(model):
     """After close(): new submits raise at once, and a queued request that
-    was never dispatched fails instead of sitting out its timeout."""
+    was never dispatched fails instead of sitting out its timeout; a
+    service over a data mesh serves and closes the same way."""
     _, cfg, _, tp = model
     svc = tsrv.SynthesisService(tp, cfg, max_batch=2, batch_window_ms=5.0,
                                 device="cpu")
@@ -210,8 +212,14 @@ def test_close_rejects_and_fails_fast(model):
     svc._q.put(ghost)
     svc.close()
     assert ghost.done.is_set() and ghost.error == "service closed"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tsrv.SynthesisService(tp, cfg, mesh=object(), device="cpu")
+    # a data-parallel service (two CPU replicas) closes the same way
+    msvc = tsrv.SynthesisService(tp, cfg, max_batch=2, batch_window_ms=5.0,
+                                 mesh=make_data_mesh(["cpu", "cpu"]))
+    assert msvc.submit(mel).dtype == np.int16
+    assert msvc.stats["data_parallel"] == 2
+    msvc.close()
+    with pytest.raises(RuntimeError, match="service closed"):
+        msvc.submit(mel)
 
 
 def test_service_audio_matches_jax_dispatch(model):

@@ -17,6 +17,7 @@ from flowavenet_tpu.models.flowavenet import init_flowavenet as jinit
 from flowavenet_tpu.synthesis import streaming as jst
 from flowavenet_tpu_torch.checkpoint.bridge import to_torch
 from flowavenet_tpu_torch.config import lj22k, tiny
+from flowavenet_tpu_torch.parallel.mesh import make_data_mesh
 from flowavenet_tpu_torch.synthesis import noise as tnoise
 from flowavenet_tpu_torch.synthesis import streaming as tst
 from flowavenet_tpu_torch.synthesis import synthesize as tsyn
@@ -144,7 +145,8 @@ def test_device_noise_paths_match_jax(setup):
 def test_pcm16_equals_host_quantization(setup):
     """pcm16 (on the device the audio was made on) is exactly the WAV
     layer's host quantization of the same float audio: round-half-even of
-    x * 32768, clipped; on both device-noise paths."""
+    x * 32768, clipped; on both device-noise paths, and time-parallel over a
+    data mesh."""
     _, cfg, _, tp, mel = setup
     f = tsyn.synthesize_mels(tp, cfg, [mel], seed=2, noise="device",
                              device="cpu")[0]
@@ -163,9 +165,15 @@ def test_pcm16_equals_host_quantization(setup):
     assert tsyn.pcm16_quantize(x).tolist() == [0, 2, -2, 32767, -32768]
     with pytest.raises(ValueError, match="noise='device'"):
         tst.synthesize_time_parallel(tp, cfg, mel, pcm16=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tst.synthesize_time_parallel(tp, cfg, mel, batch_multiple=2,
-                                     device="cpu")
+    # over a data mesh of two CPU replicas too
+    mesh = make_data_mesh(["cpu", "cpu"])
+    mf = tst.synthesize_time_parallel(tp, cfg, mel, seed=2, noise="device",
+                                      data_sharding=mesh, batch_multiple=2)
+    mq = tst.synthesize_time_parallel(tp, cfg, mel, seed=2, noise="device",
+                                      pcm16=True, data_sharding=mesh,
+                                      batch_multiple=2)
+    np.testing.assert_array_equal(
+        mq, np.clip(np.rint(mf * 32768.0), -32768, 32767).astype(np.int16))
 
 
 def test_cli_stream_and_time_parallel_write_wavs(setup, tmp_path):

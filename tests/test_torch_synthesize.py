@@ -139,22 +139,55 @@ def test_cli_writes_wavs_on_cpu(setup, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(noise="device", data_sharding=object()),
+    dict(noise="device", data_sharding=("cpu", "cpu")),
     dict(noise="device", pcm16=True, batch_multiple=2)],
     ids=["kw0-device noise", "kw1-pcm16"])
 def test_later_slices_raise(setup, kw):
-    """Device noise and pcm16 are ported; sharded dispatch (a mesh's
-    data_sharding or batch_multiple) stays with scale-out and raises,
-    naming the ROADMAP item."""
+    """Sharded dispatch (scale-out): over a data mesh of two CPU replicas
+    (its data_sharding, one row each) the device-noise rows are the
+    one-device call's (atol 1e-6: on the CPU a row's bits follow the batch
+    size by <= 3e-8); batch_multiple=2 on the two mels leaves the rows,
+    and the pcm16 audio, as they are."""
     _, cfg, _, tp, mels = setup
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tsyn.dispatch_mels(tp, cfg, mels, device="cpu", **kw)
+    kw = dict(kw)
+    one = tsyn.synthesize_mels(tp, cfg, mels, device="cpu",
+                               **{k: v for k, v in kw.items()
+                                  if k not in ("data_sharding",
+                                               "batch_multiple")})
+    if "data_sharding" in kw:
+        from flowavenet_tpu_torch.parallel.mesh import make_data_mesh
+        kw["data_sharding"] = make_data_mesh(list(kw["data_sharding"]))
+    wav, frames = tsyn.dispatch_mels(tp, cfg, mels, device="cpu", **kw)
+    got = tsyn.materialize_wavs(wav, frames, cfg)
+    for a, b in zip(one, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if kw.get("pcm16"):
+            np.testing.assert_array_equal(b, a)
+        else:
+            np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
 
 
-def test_cli_stream_raises():
+def test_cli_stream_raises(setup, tmp_path):
     """--stream and --time_parallel exclude each other (as in the JAX
-    CLI); several time-parallel devices are scale-out, not ported."""
+    CLI); --time_parallel 2 on the CPU splits each pass's windows over two
+    CPU replicas and writes the wavs of --time_parallel 1 (within one PCM
+    step: a row's bits follow the batch size by <= 3e-8 on the CPU)."""
     with pytest.raises(SystemExit):
         tsyn.main(["--stream", "--time_parallel", "1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tsyn.main(["--time_parallel", "2", "--device", "cpu"])
+    _, _, params, _, mels = setup
+    ck, md = tmp_path / "ck", tmp_path / "mels"
+    save_checkpoint(str(ck), 1, params)
+    md.mkdir()
+    np.save(md / "m.npy", np.concatenate(mels * 3))
+    pcm = []
+    for n in ("1", "2"):
+        od = tmp_path / f"out{n}"
+        tsyn.main(["--saved_dir", str(ck), "--mels_dir", str(md),
+                   "--output_dir", str(od), "--config", "tiny",
+                   "--time_parallel", n, "--chunk_frames", "8",
+                   "--device", "cpu"])
+        with wave.open(str(od / "m.wav")) as w:
+            pcm.append(np.frombuffer(w.readframes(w.getnframes()),
+                                     "<i2").astype(np.int32))
+    assert len(pcm[0]) == len(pcm[1]) > 0
+    assert np.abs(pcm[0] - pcm[1]).max() <= 1
