@@ -116,7 +116,14 @@
    blocks 5-7, a TP checkpoint restored in one process, gloo's step time
    (``gloo_phase``); data-parallel synthesis and serving over
    ``make_data_mesh`` (``data_parallel_phase``: rows bit-identical).
-7. Prints a JSON line of main-path numbers, one JSON line of per-kernel
+8. The route-quality gate (``quality_gate_phase``, the port's
+   ``quality_gate.py``): tiny trained on the card for ``GATE_STEPS`` steps
+   on the four 22.05 kHz wavs of ``docs/runs/`` (the NLL must fall), every
+   route of ``ROUTES`` and the plain route scored over ``GATE_SEEDS`` noise
+   draws with each route's launches checked; the default int8 route must
+   pass the JAX gate.  Then one bf16 FWN_TRAIN_KERNEL=1 step of tiny (the
+   training pair at R = 32), its launches against their plain versions.
+9. Prints a JSON line of main-path numbers, one JSON line of per-kernel
    numbers (per reverse for the reverse pairs, per train step for the
    training pair, per eval step for the forward pair: the sum over the
    routed blocks, 3 pairs each; each with its ``design``, tensor cores or
@@ -130,7 +137,6 @@ It exits non-zero too when CUDA is unavailable.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -139,6 +145,9 @@ import sys
 import time
 
 import numpy as np
+
+from flowavenet_tpu_torch.synthesis.routes import (
+    ROUTES, patched as _patched, route_patches as _route_patches)
 
 FRAMES = (180, 262, 301, 345)       # ~2.1-4.0 s of 22.05 kHz audio
 SEED = 1234
@@ -1285,29 +1294,11 @@ def _timed_steps(step_fn, state0, batches, patches: dict,
                 "step_peak_gb": peak[k]} for k in names}
 
 
-# Routes of phase 3: (name, model switches, launches per reverse)
-ROUTES = (
-    ("int8", {}, {"pair_flow_i8": 15}),
-    ("FWN_INT8=0", {"PAIR_KERNEL_INT8": False},
-     {"pair_flow_wino": 9, "pair_flow": 3}),
-    ("FWN_INT8=0 FWN_WINO4=1", {"PAIR_KERNEL_INT8": False,
-                                "PAIR_KERNEL_WINO4": True},
-     {"pair_flow_wino4": 9, "pair_flow": 3}),
-    ("FWN_INT8=0 FWN_HOISTED=1", {"PAIR_KERNEL_INT8": False,
-                                  "PAIR_KERNEL_HOISTED": True},
-     {"pair_flow_wino": 9, "pair_flow": 3, "pair_flow_hoisted": 12}),
-    ("FWN_HOISTED=1", {"PAIR_KERNEL_HOISTED": True},
-     {"pair_flow_i8": 15, "pair_flow_hoisted_i8": 9}),
-    ("FWN_INT8_RS=1", {"INT8_RS": True}, {"pair_flow_i8rs": 15}),
-)
-
-
 def main_path(params, cfg, dev, frames):
     """Phase 3: synthesize_mels through the user-facing entry points, on
     every route of ``ROUTES`` and the plain route."""
     import torch
     from flowavenet_tpu_torch.checkpoint.bridge import save_params
-    from flowavenet_tpu_torch.models import flowavenet as fwn
     from flowavenet_tpu_torch.ops import pair_flow as pf
     from flowavenet_tpu_torch.synthesis.synthesize import (load_params,
                                                            padded_frames,
@@ -1358,15 +1349,9 @@ def main_path(params, cfg, dev, frames):
     off = dataclasses.replace(cfg.model, use_pallas=False)
     out = {"routes": {}}
     routes = {}
-    for name, switches, expect in ROUTES:
-        saved = {k: getattr(fwn, k) for k in switches}
-        try:
-            for k, val in switches.items():
-                setattr(fwn, k, val)
+    for name, _, expect in ROUTES:
+        with _patched(_route_patches(name)):
             wavs_r, wall, walls, counts = run(name, on, expect)
-        finally:
-            for k, val in saved.items():
-                setattr(fwn, k, val)
         routes[name] = wavs_r
         out["routes"][name] = {"ms": wall, "walls_ms": walls,
                                "launches": {k: v for k, v in counts.items()
@@ -1389,20 +1374,6 @@ def main_path(params, cfg, dev, frames):
     out["khz_per_s_i8"] = samples / out["routes"]["int8"]["ms"]
     out["loaded"] = loaded
     return out
-
-
-@contextlib.contextmanager
-def _patched(patches):
-    """Each (object, attribute, value) of ``patches`` set for the body, the
-    old values put back after it."""
-    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
-    try:
-        for o, a, v in patches:
-            setattr(o, a, v)
-        yield
-    finally:
-        for o, a, v in reversed(saved):
-            setattr(o, a, v)
 
 
 def _path_patches(path: str) -> list:
@@ -1461,14 +1432,6 @@ def _path_patches(path: str) -> list:
         return out.reshape(*c.shape[:-1], -1).to(c.dtype)
     return [(conv, "dilated_conv1d", conv_), (modules, "dilated_conv1d", conv_),
             (modules, "conv1x1", one_), (pf, "hoist_cond", hoist_)]
-
-
-def _route_patches(route: str) -> list:
-    """The model switches of a route of ``ROUTES`` as patches; ``plain`` has
-    none (its config sets use_pallas=False)."""
-    from flowavenet_tpu_torch.models import flowavenet as fwn
-    switches = dict((r[0], r[1]) for r in ROUTES).get(route, {})
-    return [(fwn, k, v) for k, v in switches.items()]
 
 
 def _op_split(run, n: int) -> dict:
@@ -1794,7 +1757,6 @@ def odd_width_phase(dev):
     the bar of phase 3 (rel < 0.08, corr > 0.998)."""
     import torch
     from flowavenet_tpu_torch.config import lj22k
-    from flowavenet_tpu_torch.models import flowavenet as fwn
     from flowavenet_tpu_torch.synthesis.synthesize import synthesize_mels
     from flowavenet_tpu_torch.utils.tree import tree_map
 
@@ -1817,20 +1779,14 @@ def odd_width_phase(dev):
                 params, cfg.replace(model=model_cfg), mels, seed=SEED,
                 compute_dtype=torch.bfloat16, device=dev))
         want = synth(dataclasses.replace(cfg.model, use_pallas=False))
-        for name, switches, expect in (r for r in ROUTES
-                                       if r[0] in ODD_ROUTES[mname]):
-            saved = {k: getattr(fwn, k) for k in switches}
-            try:
-                for k, val in switches.items():
-                    setattr(fwn, k, val)
+        for name, _, expect in (r for r in ROUTES
+                                if r[0] in ODD_ROUTES[mname]):
+            with _patched(_route_patches(name)):
                 torch.cuda.synchronize()
                 _reset_counts()
                 got = synth(cfg.model)
                 torch.cuda.synchronize()
                 counts = _counts()
-            finally:
-                for k, val in saved.items():
-                    setattr(fwn, k, val)
             check(counts == expect, (mname, name, "launches", counts))
             _, rel, corr = _errors(got, want)
             print(f"{mname} {name} route vs plain route: rel {rel:.4e} "
@@ -2600,6 +2556,165 @@ def bench_phase(dev) -> dict:
             "launches": counts}
 
 
+GATE_STEPS = 400                    # tiny training steps of the gate
+GATE_SEEDS = 2                      # noise draws per route
+# launches per tiny reverse (2 blocks x 1 pair) on each route of ROUTES
+GATE_LAUNCHES = {"int8": {"pair_flow_i8": 2},
+                 "FWN_INT8=0": {"pair_flow_wino": 2},
+                 "FWN_INT8=0 FWN_WINO4=1": {"pair_flow_wino4": 2},
+                 "FWN_INT8=0 FWN_HOISTED=1": {"pair_flow_wino": 2},
+                 "FWN_HOISTED=1": {"pair_flow_i8": 2},
+                 "FWN_INT8_RS=1": {"pair_flow_i8rs": 2}}
+
+
+def quality_gate_phase(dev, tmpdir: str) -> dict:
+    """Phase 8, the route-quality gate (``flowavenet_tpu_torch/
+    quality_gate.py``): tiny trained on the card by the port's trainer
+    (its preset's float32) for ``GATE_STEPS`` steps on the four 22.05 kHz
+    wavs of ``docs/runs/``; the first and last logged NLL (it must fall);
+    every route of ``ROUTES`` and the plain route scored over
+    ``GATE_SEEDS`` noise draws, each route's launches per reverse checked
+    against ``GATE_LAUNCHES``; the default int8 route must pass the JAX
+    gate (a FAIL of an opt-in route is printed, not fatal).  Then one bf16
+    FWN_TRAIN_KERNEL=1 step of tiny from the trained params (block 0's
+    pair on pair_train_fwd / pair_train_bwd at R = 32): each launch
+    against its plain version on the inputs the step gave it at phase 4's
+    bf16 bars (outputs rel <= 1e-2 and corr >= 0.999, statistics rel <=
+    1e-2, gradient cosine >= 0.999), the step against the plain bf16
+    route (loss rel <= 1e-2; the gradient's cosine to the fp32 plain
+    route's no more than 0.01 below the plain bf16 route's, phase 5's
+    bar: the two routes round to bf16 at other points), then one
+    make_train_step step on that route, finite."""
+    import torch
+    from flowavenet_tpu_torch import quality_gate as qg
+    from flowavenet_tpu_torch.config import tiny
+    from flowavenet_tpu_torch.data.dataset import CropDataset
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    from flowavenet_tpu_torch.synthesis.synthesize import load_params
+    from flowavenet_tpu_torch.training.train import to_device
+    from flowavenet_tpu_torch.training.train_state import (create_state,
+                                                           make_train_step)
+    from flowavenet_tpu_torch.utils.tree import leaves, tree_map
+
+    cfg = tiny()
+    work = os.path.join(tmpdir, "gate")
+    t0 = time.perf_counter()
+    ckpt_dir, data_dir = qg.train_model(cfg, work, list(qg.DEFAULT_WAVS),
+                                        GATE_STEPS, None, dev)
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(work, "logs", "train", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    nll = [(r["step"], r["loss"]) for r in recs]
+    print(f"quality gate: tiny trained {GATE_STEPS} steps in {train_s:.1f} s"
+          f" (with preprocessing and DDI); NLL step {nll[0][0]} "
+          f"{nll[0][1]:.4f} -> step {nll[-1][0]} {nll[-1][1]:.4f}",
+          flush=True)
+    check(nll[-1][1] < nll[0][1], ("gate NLL did not fall", nll))
+    t0 = time.perf_counter()
+    gate = qg.run_gate(cfg, ckpt_dir, data_dir, seeds=GATE_SEEDS,
+                       frames=200, device=dev,
+                       log=lambda m: print(m, flush=True))
+    gate_s = time.perf_counter() - t0
+    for r, v in gate["routes"].items():
+        check(v["launches"] == GATE_LAUNCHES.get(r, {}),
+              ("gate launches", r, v["launches"]))
+    check(gate["routes"]["int8"]["verdict"] == "PASS",
+          ("the default int8 route fails the gate", gate["routes"]["int8"]))
+
+    # one bf16 step of tiny on FWN_TRAIN_KERNEL=1: its training pair
+    # launches against their plain versions on the inputs they were given,
+    # the step against the plain route
+    params, _ = load_params(ckpt_dir, cfg, compute_dtype=torch.float32,
+                            device=dev)
+    bcfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, compute_dtype="bfloat16"))
+    ds = CropDataset(os.path.join(data_dir, "train.fwrec"),
+                     hop_size=cfg.audio.hop_size,
+                     max_time_steps=cfg.data.max_time_steps,
+                     batch_size=cfg.data.batch_size, seed=cfg.train.seed)
+    batch = to_device(ds.batch_at(0), dev)
+    seen = {}
+
+    def keep(name, fn):
+        def run(*args):
+            out = fn(*args)
+            seen[name] = (args, out)
+            return out
+        return run
+
+    def loss_and_grad(on, dt=torch.bfloat16):
+        fwn.TRAIN_KERNEL = on
+        p = tree_map(lambda l: l.detach().requires_grad_(), params)
+        total, _ = fwn.loss_fn(p, cfg.model, batch["audio"], batch["mel"],
+                               compute_dtype=dt)
+        flat = leaves(p)
+        gs = torch.autograd.grad(total, flat, allow_unused=True)
+        return float(total.detach()), torch.cat([
+            (torch.zeros_like(q) if g is None else g).flatten()
+            for g, q in zip(gs, flat)])
+
+    saved = fwn.TRAIN_KERNEL
+    try:
+        _reset_counts()
+        with _patched([(pft, k, keep(k, getattr(pft, k))) for k in
+                      ("fused_pair_train_fwd", "fused_pair_train_bwd")]):
+            l_k, g_k = loss_and_grad(True)
+        torch.cuda.synchronize()
+        step_counts = _counts()
+        l_p, g_p = loss_and_grad(False)
+        l32, g32 = loss_and_grad(False, torch.float32)
+        fwn.TRAIN_KERNEL = True
+        state = create_state(torch.Generator(dev).manual_seed(SEED), bcfg)
+        state = state._replace(params=tree_map(lambda l: l.clone(), params))
+        state, m = make_train_step(bcfg)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        fwn.TRAIN_KERNEL = saved
+    check(step_counts == {"pair_train_fwd": 1, "pair_train_bwd": 1},
+          ("tiny kernel-route launches", step_counts))
+    # phase 4's bf16 bars on the step's own launches
+    args, got = seen["fused_pair_train_fwd"]
+    with torch.no_grad():
+        want = pft.pair_train_fwd_ref(*args)
+    f_err = [_errors(a.detach(), b) for a, b in zip(got[:2], want[:2])]
+    st_rel = max(abs(float(a) - float(b)) / max(1e-6, abs(float(b)))
+                 for a, b in zip(got[2:], want[2:]))
+    args, d = seen["fused_pair_train_bwd"]
+    dref = pft.pair_train_bwd_ref(*args)
+    b_cos = min(_cos(a, b) for a, b in zip(list(d[0]) + list(d[1:]),
+                                            list(dref[0]) + list(dref[1:]))
+                if float(b.float().abs().max()) > 0)
+    rel, corr = max(e[1] for e in f_err), min(e[2] for e in f_err)
+    # phase 5's bars on the step: the loss and gradient against the plain
+    # bf16 route, both measured from the fp32 plain route
+    cos_k, cos_p = _cos(g_k, g32), _cos(g_p, g32)
+    l_rel = abs(l_k - l_p) / max(1e-12, abs(l_p))
+    print(f"quality gate: tiny bf16 FWN_TRAIN_KERNEL=1 step (launches "
+          f"{step_counts}): pair_train_fwd vs plain rel {rel:.3e} corr "
+          f"{corr:.6f} statistics rel {st_rel:.3e}; pair_train_bwd vs "
+          f"plain worst gradient cosine {b_cos:.6f}; loss {l_k:.6f}, plain "
+          f"route {l_p:.6f} (rel {l_rel:.3e}), fp32 {l32:.6f}; gradient "
+          f"cosine to fp32 {cos_k:.6f}, plain route's {cos_p:.6f}; a "
+          f"make_train_step step: loss {float(m['loss']):.6f}", flush=True)
+    check(rel <= 1e-2 and corr >= 0.999 and st_rel <= 1e-2
+          and b_cos >= 0.999, ("tiny bf16 training pair", rel, corr, st_rel,
+                               b_cos))
+    check(np.isfinite(l_k) and bool(torch.isfinite(g_k).all())
+          and l_rel <= 1e-2 and cos_k >= cos_p - 0.01,
+          ("tiny bf16 step", l_rel, cos_k, cos_p))
+    check(all(np.isfinite(float(v)) for v in m.values())
+          and all(bool(torch.isfinite(l).all()) for l in
+                  leaves(state.params)), "tiny bf16 step not finite")
+    return {"train_s": train_s, "gate_s": gate_s, "steps": GATE_STEPS,
+            "nll_first": nll[0], "nll_last": nll[-1], "gate": gate,
+            "tiny_bf16_kernel_step": {
+                "launches": step_counts, "fwd_rel": rel, "fwd_corr": corr,
+                "fwd_stats_rel": st_rel, "bwd_worst_grad_cos": b_cos,
+                "loss_rel_to_plain": l_rel, "grad_cos_to_fp32": cos_k,
+                "plain_grad_cos_to_fp32": cos_p}}
+
+
 def trainer_phase(cfg, dev, data_dir: str, tmpdir: str) -> dict:
     """The trainer's entry point, ``training/train.py:train``, on the
     frontend's corpus on the FWN_TRAIN_KERNEL=1 route: DDI and 4 steps
@@ -3297,6 +3412,9 @@ def main() -> int:
         gloo = gloo_phase(cfg, dev, front["data_dir"], tmp)
         # phase 7: lj8k_gin, global conditioning end to end
         gin = gin_phase(dev, tmp)
+        # phase 8: the route-quality gate on tiny trained on the card, and
+        # one bf16 FWN_TRAIN_KERNEL=1 step of tiny (R = 32)
+        gate = quality_gate_phase(dev, tmp)
 
     def entry(name, mode, src_line, launches, blks):
         sel = [r for r in rows if r["mode"] == mode and r["block"] in blks]
@@ -3460,6 +3578,17 @@ def main() -> int:
         k["pct_of_bound"] = 100.0 * k["bound_ms"] / k["ms"]
     check(all(k["launches"] > 0 for k in kernels),
           ("a kernel of the main paths was never launched", kernels))
+    # phase 8's launches by kernel: per tiny reverse of each gate route,
+    # and the bf16 FWN_TRAIN_KERNEL=1 step of tiny
+    gate_launches = {}
+    for r, v in gate["gate"]["routes"].items():
+        for name, n in v["launches"].items():
+            gate_launches.setdefault(name, {})[r] = n
+    for name, n in gate["tiny_bf16_kernel_step"]["launches"].items():
+        gate_launches.setdefault(name, {})["tiny bf16 step"] = n
+    for k in kernels:
+        if k["name"] in gate_launches:
+            k["quality_gate_launches"] = gate_launches[k["name"]]
     rk, rp = tr["routes"]["kernel"], tr["routes"]["plain"]
     routes = main_out["routes"]
     print(json.dumps({"main_path": {
@@ -3505,6 +3634,7 @@ def main() -> int:
         "trainer": trainer,
         "hoisted_i8_batch_tiles": brows,
         "gin": gin,
+        "quality_gate": gate,
         "scale_out": {"native_loader": native, "nccl_world_size_1": nccl,
                       "gloo_two_ranks": gloo, "data_parallel": dp_out},
         "seconds": time.perf_counter() - t_start}}))

@@ -989,9 +989,10 @@ __device__ void pair_bwd_cc(const Args& p) {
 // cotangent region [a, e), at most L - 20 = TT + 20, with 16-byte row
 // pads): P0 holds dpre2, then dfg1, then dfg0 ([rows][2R+8]); P1 dsk, then
 // dpre0; P2 dg1, then dh1 * sqrt(.5); P3 the activation rows of the
-// current weight-gradient product, the conditioning columns (80 at a time)
-// and dg0; plus the fp32 dnet rows.  At TT = 64 that is 226 KB, the
-// recompute 221 KB (R = 256, R_in = 8), so one CTA per SM, 16 warps.
+// current weight-gradient product, the conditioning columns (tc_cond_cols
+// at a time) and dg0; plus the fp32 dnet rows.  At TT = 64 that is 226
+// KB, the recompute 221 KB (R = 256, R_in = 8), so one CTA per SM, 16
+// warps.
 // Everything else of the window lives in the workspace: bf16 activations
 // and fp32 pre-activations of both nets (1.5 MB per CTA at TT = 64, R =
 // 256), read back with coalesced loads.
@@ -999,6 +1000,15 @@ __device__ void pair_bwd_cc(const Args& p) {
 using bf = __nv_bfloat16;
 constexpr int TNT = pf::NT;          // threads of the tensor-core instances
 constexpr int CCH = 80;              // conditioning columns staged at once
+
+// Conditioning columns the backward stages at once for its cond weight
+// gradient (TT rows at the row stride tc_cond_cols + 8, in P3): CCH, or R
+// where R is narrower, so that the staging never needs more of P3 than
+// its activation rows (TT + 20 at the stride R + 8).  A multiple of 16 at
+// every R the tensor-core instances take (multiples of 32).
+__host__ __device__ inline int tc_cond_cols(int R) {
+  return R < CCH ? R : CCH;
+}
 
 // Transposed weights packed in fragment order (pack_tc_weights of W^T):
 // kfg [2 layers][3 taps][2R/16][R/8][32], cond [2][2R/16][Cc/8][32], res
@@ -1061,14 +1071,16 @@ __host__ __device__ inline TcWs tc_ws(int R, int Rin, int Cc, int L) {
 
 // Shared memory of the backward phases (bytes, 16-aligned offsets): P0,
 // P1, P2, P3, the fp32 dnet rows, a zero row; the last entry is the size.
+// P3 holds the larger of n activation rows and the conditioning staging.
 __host__ __device__ inline void tc_bwd_layout(int R, int Rin, int TT,
                                               size_t off[7]) {
   const size_t n = TT + 20, ldr = R + 8, ldf = 2 * R + 8;
+  const size_t p3 = n * ldr, cs = (size_t)TT * (tc_cond_cols(R) + 8);
   size_t o = 0;
   off[0] = o; o = pf::align16(o + 2 * n * ldf);
   off[1] = o; o = pf::align16(o + 2 * n * ldr);
   off[2] = o; o = pf::align16(o + 2 * n * ldr);
-  off[3] = o; o = pf::align16(o + 2 * n * ldr);
+  off[3] = o; o = pf::align16(o + 2 * (p3 > cs ? p3 : cs));
   off[4] = o; o = pf::align16(o + 4 * n * 2 * Rin);
   off[5] = o; o = pf::align16(o + 16);
   off[6] = o;
@@ -1604,11 +1616,13 @@ __device__ void net_bwd_tc(const pf::Flow& f, const FlowT& ft,
     });
   }
   __syncthreads();
-  // d cond_w1 = c^T dfg1 over the tile, CCH columns of c at a time
+  // d cond_w1 = c^T dfg1 over the tile, tc_cond_cols(R) columns of c at a
+  // time
   auto cond_wgrad = [&](int layer) {
-    for (int c0 = 0; c0 < Cc; c0 += CCH) {
-      const int cw = min(CCH, Cc - c0);
-      const SBuf Cs{sm.p3, CCH + 8, s0};
+    const int cch = tc_cond_cols(R);
+    for (int c0 = 0; c0 < Cc; c0 += cch) {
+      const int cw = min(cch, Cc - c0);
+      const SBuf Cs{sm.p3, cch + 8, s0};
       for (int i = threadIdx.x; i < (s1 - s0) * (cw / 8); i += TNT) {
         const int r = s0 + i / (cw / 8), c = (i % (cw / 8)) * 8;
         *reinterpret_cast<uint4*>(Cs.row(r) + c) =

@@ -1111,14 +1111,484 @@ def test_odd_width_models_train_on_the_kernel_route(cuda, monkeypatch,
     assert _cos(g_k, g32) >= _cos(g_p, g32) - 0.01
 
 
+def _tiny_train_pair(dev, dt=torch.bfloat16, T: int = 1024, B: int = 2):
+    """tiny's block-0 training pair (R 32, R_in 1, Cc 80) with 0.05-scale
+    zero conv and ActNorm noise, and seeded inputs of B rows of T_k = T,
+    as in tiny's training step (batch 2 x 2048 samples, squeezed once)."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    cfg = tiny().model
+    gen = torch.Generator().manual_seed(32)
+    block = fwn.init_block(gen, 1, cfg.num_mels, cfg)
+    fl = block["flows"]
+    for leaf in (fl["coupling"]["zero"]["w"], fl["actnorm"]["b"],
+                 fl["actnorm"]["logs"]):
+        leaf.normal_(0, 0.05, generator=gen)
+    pair = tree_map(lambda l: l.to(dev), fwn._index(fwn._pair_params(block),
+                                                    0))
+    ops = pf.pair_forward_operands(pair, dt)
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = [torch.randn(B, T, 1, generator=g, device=dev).to(dt)
+         for _ in range(4)]
+    c = [torch.rand(B, T, cfg.num_mels, generator=g, device=dev).to(dt)
+         for _ in range(2)]
+    scal = [torch.tensor(s, device=dev) for s in (0.7, 0.11, 1.3)]
+    return pft, ops, x, c, scal
+
+
+# tiles of the tensor-core backward at R = 32: 16 (the last whose 88-column
+# conditioning staging fitted in P3 before the repair), 17 (the first that
+# overran it), the tile rule's pick at tiny's geometry (72) and between
+TINY_BWD_TILES = (16, 17, 24, 32, 48, 64, 72)
+
+
 @pytest.mark.cuda
-def test_nccl_world_size_one_step_is_bit_identical(cuda, monkeypatch):
+def test_train_bwd_at_tiny_block0_matches_plain(cuda, monkeypatch):
+    """pair_train_bwd in bf16 at tiny's block-0 widths (R 32, R_in 1, Cc
+    80, T_k 1024, B 2), the launch that stopped with cudaError 700 while
+    the conditioning staging of the cond weight gradient (80 columns at
+    the row stride 88) overran P3 (laid out at R + 8 = 40): on the tile
+    rule's tile (72 rows here) and on every tile of ``TINY_BWD_TILES``,
+    each launch against pair_train_bwd_ref at phase 4's bf16 bar (cosine
+    >= 0.999 per gradient), two launches bit-identical."""
+    pft, ops, (u, v, gu, gv), (ca, cb), scal = _tiny_train_pair(cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pft.train_tc_t_tile(2, 1024, 32, 1, True, n_sm) == 72
+    dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops)
+    pick = pft.train_tc_t_tile
+    for tt in (None,) + TINY_BWD_TILES:
+        if tt is not None:
+            monkeypatch.setattr(pft, "train_tc_t_tile", lambda *a, tt=tt: tt)
+        n0 = pf.LAUNCHES["pair_train_bwd"]
+        d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
+        d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
+        torch.cuda.synchronize()
+        monkeypatch.setattr(pft, "train_tc_t_tile", pick)
+        assert pf.LAUNCHES["pair_train_bwd"] == n0 + 2
+        assert pft.LAST_LAUNCH["pair_train_bwd"]["t_tile"] == (tt or 72)
+        for a, a2, b in zip(list(d[0]) + list(d[1:]), list(d2[0]) +
+                            list(d2[1:]), list(dref[0]) + list(dref[1:])):
+            assert torch.equal(a, a2)
+            assert bool(torch.isfinite(a.float()).all())
+            if float(b.float().abs().max()) > 0:
+                assert _cos(a, b) >= 0.999, (tt, a.shape)
+
+
+@pytest.mark.cuda
+def test_tiny_trains_in_bf16_on_the_kernel_route(cuda, monkeypatch):
+    """tiny in bf16 on FWN_TRAIN_KERNEL=1 (block 0's pair on
+    pair_train_fwd / pair_train_bwd at R = 32): one make_train_step step
+    runs and gives finite metrics and parameters, and the first loss and
+    gradient against the plain route meet chip_smoke.py phase 5's bars
+    (loss within rel 1e-3 or no farther from the fp32 loss than the
+    plain route's; the gradient's cosine to the fp32 plain gradient no
+    more than 0.01 below the plain bf16 route's)."""
+    from flowavenet_tpu_torch.training import train_state as tts
+    from flowavenet_tpu_torch.utils.tree import leaves
+    cfg = tiny()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                compute_dtype="bfloat16"))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    batch = {"audio": 0.1 * torch.randn(2, 2048, 1, generator=g,
+                                        device=cuda),
+             "mel": torch.rand(2, 8, 80, generator=g, device=cuda)}
+    state = tts.ddi_initialize(tts.create_state(
+        torch.Generator(device=cuda).manual_seed(0), cfg), cfg, batch)
+    params = state.params
+
+    def loss_and_grad(on, dt):
+        monkeypatch.setattr(fwn, "TRAIN_KERNEL", on)
+        p = tree_map(lambda l: l.detach().requires_grad_(), params)
+        total, _ = fwn.loss_fn(p, cfg.model, batch["audio"], batch["mel"],
+                               compute_dtype=dt)
+        flat = leaves(p)
+        gs = torch.autograd.grad(total, flat, allow_unused=True)
+        return float(total.detach()), torch.cat([
+            (torch.zeros_like(q) if gq is None else gq).flatten()
+            for gq, q in zip(gs, flat)])
+
+    n0 = dict(pf.LAUNCHES)
+    l_k, g_k = loss_and_grad(True, torch.bfloat16)
+    torch.cuda.synchronize()
+    for k in ("pair_train_fwd", "pair_train_bwd"):
+        assert pf.LAUNCHES[k] == n0[k] + 1
+    l_p, g_p = loss_and_grad(False, torch.bfloat16)
+    l32, g32 = loss_and_grad(False, torch.float32)
+    assert np.isfinite(l_k) and bool(torch.isfinite(g_k).all())
+    assert (abs(l_k - l_p) <= 1e-3 * abs(l_p)
+            or abs(l_k - l32) <= abs(l_p - l32))
+    assert _cos(g_k, g32) >= _cos(g_p, g32) - 0.01
+    monkeypatch.setattr(fwn, "TRAIN_KERNEL", True)
+    n0 = pf.LAUNCHES["pair_train_bwd"]
+    state, m = tts.make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["pair_train_bwd"] == n0 + 1
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert all(bool(torch.isfinite(l).all()) for l in leaves(state.params))
+
+
+# The width sweep: every launch site of the pair and ResBlock kernels at
+# R 32-512, two conditioning widths and two R_in (the ResBlocks: two
+# dilations), in fp32 (CUDA cores) and bf16 (tensor cores), each launch
+# against its plain version at chip_smoke.py's bars (phases 2-4), or
+# refused with ValueError before any launch where its shared memory does
+# not fit.
+SWEEP_SITES = ("pair_flow", "pair_flow_i8", "pair_flow_i8rs",
+               "pair_flow_hoisted", "pair_flow_hoisted_i8", "pair_flow_wino",
+               "pair_flow_wino4", "pair_flow_wino_hoisted",
+               "pair_flow_wino4_hoisted", "pair_fwd", "pair_train_fwd",
+               "pair_train_bwd", "resblock", "resblock_v2")
+SWEEP_R = (32, 64, 128, 256, 512)
+SWEEP_T = 310           # a ragged last tile at every tile below
+R_SEED = 5              # inputs' seed, plus R_in and Cc
+SWEEP_OPTIONS = {"pair_flow": {}, "pair_flow_i8": dict(int8=True),
+                 "pair_flow_i8rs": dict(int8=True, rs=True),
+                 "pair_flow_hoisted": dict(hoisted=True),
+                 "pair_flow_hoisted_i8": dict(int8=True, hoisted=True),
+                 "pair_flow_wino": dict(phases=6),
+                 "pair_flow_wino4": dict(phases=12),
+                 "pair_flow_wino_hoisted": dict(phases=6, hoisted=True),
+                 "pair_flow_wino4_hoisted": dict(phases=12, hoisted=True)}
+
+
+def _sweep_pair(R: int, r_in: int, cc: int, dev):
+    """A seeded pair of widths (R_in, Cc, R) with 0.05-scale zero conv and
+    ActNorm noise (two layers, as lj22k's)."""
+    cfg = dataclasses.replace(lj22k().model, filter_size=R)
+    gen = torch.Generator().manual_seed(R + 7 * r_in + cc)
+    block = fwn.init_block(gen, r_in, cc, cfg)
+    fl = block["flows"]
+    for leaf in (fl["coupling"]["zero"]["w"], fl["actnorm"]["b"],
+                 fl["actnorm"]["logs"]):
+        leaf.normal_(0, 0.05, generator=gen)
+    return tree_map(lambda l: l.to(dev), fwn._index(fwn._pair_params(block),
+                                                    0))
+
+
+def _sweep_reverse(name, pair, r_in, cc, dt, dev):
+    """(kernel(), plain(tile), passthru(tile), bars) of a reverse pair site:
+    the plain version at the tile of the kernel's launch; bars (rel, corr)
+    of phase 2 / 2b (fp32 1e-4; bf16 1e-2 and 0.999; int8 1e-2 and
+    0.9999)."""
+    o = SWEEP_OPTIONS[name]
+    int8, rs, hoisted = o.get("int8", False), o.get("rs", False), \
+        o.get("hoisted", False)
+    P = o.get("phases", 0)
+    g = torch.Generator(device=dev).manual_seed(R_SEED + r_in + cc)
+    u, v = (torch.randn(2, SWEEP_T, r_in, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    c = [torch.rand(2, SWEEP_T, cc, generator=g, device=dev).to(dt)
+         for _ in range(2)]
+    crs = None
+    if P:
+        ops = (pf.pair_reverse_operands_wino(pair, dt) if P == 6
+               else pf.pair_reverse_operands_wino4(pair, dt))
+        if hoisted:
+            ops, (we, wo) = pf.pop_cond_w(ops)
+            c = [pf.hoist_cond(c[0], we), pf.hoist_cond(c[1], wo)]
+
+        def kern():
+            return pf.fused_pair_reverse_wino(u, v, *c, ops, hoisted=hoisted)
+
+        def plain(tt, ops=ops):
+            return pf.pair_reverse_wino_ref(u, v, *c, ops, t_tile=10 * P,
+                                            hoisted=hoisted)
+    else:
+        if hoisted:
+            make = (pf.pair_reverse_operands_hoisted_int8 if int8
+                    else pf.pair_reverse_operands_hoisted)
+            ops, (we, wo) = make(pair, dt)
+            c = [pf.hoist_cond(c[0], we), pf.hoist_cond(c[1], wo)]
+        elif int8:
+            q = [quantize_act(x, per_row=True) for x in c]
+            c = [q[0][0], q[1][0]]
+            crs = torch.cat([q[0][1].reshape(-1, 1), q[1][1].reshape(-1, 1)],
+                            1)
+            ops = pf.pair_reverse_operands_int8(pair, dt, rs=rs)
+        else:
+            ops = pf.pair_reverse_operands(pair, dt)
+
+        def kern():
+            return pf.fused_pair_reverse(u, v, *c, ops, int8=int8,
+                                         c_row_scales=crs, hoisted=hoisted)
+
+        def plain(tt, ops=ops):
+            return pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt, int8=int8,
+                                       c_row_scales=crs, hoisted=hoisted)
+    # zw = zb = 0: the pass-through (ActNorm only)
+    zero = (10, 11) if hoisted else (11, 12)
+    ops_pass = tuple(torch.zeros_like(x) if i in zero else x
+                     for i, x in enumerate(ops))
+    bars = ((1e-2, 0.9999) if int8 else
+            (1e-4, None) if dt == torch.float32 else (1e-2, 0.999))
+    return kern, plain, lambda tt: plain(tt, ops=ops_pass), bars
+
+
+
+def _sweep_smem(name, dt, R, r_in, cc, tt, dil=1):
+    """Dynamic shared memory of site ``name`` at a tile (0: static only),
+    from its launcher's own formula."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    dcode, tc = int(dt == torch.bfloat16), int(dt == torch.bfloat16)
+    if name in SWEEP_OPTIONS:
+        o = SWEEP_OPTIONS[name]
+        if o.get("phases"):
+            return pf._library("pair_flow_wino").pair_wino_smem_bytes(
+                dcode, o["phases"], tc, R, r_in, tt)
+        variant = pf._VARIANTS[o.get("int8", False), o.get("rs", False),
+                               o.get("hoisted", False)][0]
+        return pf._library("pair_flow").pair_reverse_smem_bytes(
+            dcode, variant, tc, R, r_in, tt)
+    if name in pft.TRAIN_KERNELS:
+        return pft._library().pair_train_smem_bytes(
+            int(name == "pair_train_bwd"), tc, R, r_in, tt)
+    return rb._library().resblock_smem_bytes(
+        dcode, int(name == "resblock_v2"), R, cc, tt, dil)
+
+
+def _sweep_tiles(name, dt, R, r_in, cc, dil):
+    """[(tile, patches)] of a sweep point: the tile rule's sites (the
+    hoisted and training tensor-core pairs, the tensor-core ResBlocks, the
+    fp32 training pairs) at their shortest and longest tile that fits,
+    forced through the rule's function; every other site at the one tile
+    its wrapper takes (``None``).  ``[(None, [])]`` also where no tile of
+    a rule fits (the wrapper must then refuse)."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    bf16 = dt == torch.bfloat16
+    hoisted_tc = bf16 and name in ("pair_flow_hoisted",
+                                   "pair_flow_hoisted_i8")
+    if name in pft.TRAIN_KERNELS and not bf16:
+        return [(tt, [(pft, "train_t_tile", lambda *a, tt=tt: tt)])
+                for tt in (32, 256)]
+    if hoisted_tc:
+        target = (pf, "_hoisted_tile")
+    elif bf16 and name in pft.TRAIN_KERNELS:
+        target = (pft, "train_tc_t_tile")
+    elif bf16 and name.startswith("resblock"):
+        target = (rb, "_tc_tile")
+    else:
+        return [(None, [])]
+    fit = [tt for tt in range(16, 73)
+           if 0 < _sweep_smem(name, dt, R, r_in, cc, tt, dil)
+           <= pft.SMEM_MAX]
+    if not fit:
+        return [(None, [])]
+    return [(tt, [(*target, lambda *a, tt=tt: tt)])
+            for tt in sorted({fit[0], fit[-1]})]
+
+
+def _sweep_fixed_smem(name, dt, R, r_in, cc, dil):
+    """Shared memory of a site at the tile its wrapper takes unforced
+    (the fixed tiles; 0 for the fp32 training pairs, static only)."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    if name in pft.TRAIN_KERNELS:
+        return 0 if dt == torch.float32 else -1
+    if name.startswith("resblock"):
+        if dt == torch.bfloat16:
+            return -1
+        tt = rb._plan_tiles(SWEEP_T, rb.KERNEL_T_TILE)[0]
+    else:
+        o = SWEEP_OPTIONS[name]
+        tt = (pf.wino_t_tile(dt, o["phases"]) if o.get("phases")
+              else -1 if o.get("hoisted") and dt == torch.bfloat16
+              else pf.kernel_t_tile(dt, r_in))
+    return _sweep_smem(name, dt, R, r_in, cc, tt, dil)
+
+
+def _sweep_point(name, R, r_in, cc, dt, dev, monkeypatch):
+    """Runs one width-sweep point over its tiles; returns the outcomes
+    ("ok <tile>" or "refused")."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    dil = r_in if name.startswith("resblock") else 1
+    out = []
+    for tt, patches in _sweep_tiles(name, dt, R, r_in, cc, dil):
+        smem = (_sweep_fixed_smem(name, dt, R, r_in, cc, dil) if tt is None
+                else _sweep_smem(name, dt, R, r_in, cc, tt, dil))
+        fits = smem == 0 or 0 < smem <= pft.SMEM_MAX
+        n0 = dict(pf.LAUNCHES, **rb.LAUNCHES)
+        with monkeypatch.context() as mp:
+            for obj, attr, val in patches:
+                mp.setattr(obj, attr, val)
+            try:
+                n_launch = _sweep_launch(name, R, r_in, cc, dt, dev, dil, mp)
+            except ValueError:
+                torch.cuda.synchronize()
+                assert dict(pf.LAUNCHES, **rb.LAUNCHES) == n0
+                assert not fits, (name, R, r_in, cc, dt, tt, smem)
+                out.append("refused")
+                continue
+            except AssertionError as e:
+                # a mismatch is recorded, so that one run lists them all
+                out.append(f"FAIL {tt}: {str(e).split(chr(10) + 'assert')[0]}")
+                continue
+        torch.cuda.synchronize()
+        launched = {k: v - n0[k] for k, v in
+                    dict(pf.LAUNCHES, **rb.LAUNCHES).items() if v != n0[k]}
+        assert launched == {name: n_launch}, launched
+        assert fits
+        out.append(f"ok {tt}")
+    return out
+
+
+def _sweep_launch(name, R, r_in, cc, dt, dev, dil, mp):
+    """One launch of site ``name`` against its plain version (raises
+    ValueError where the wrapper refuses the geometry); returns the
+    launches made (2 where an fp32 backward was re-run with shifted front
+    conv biases)."""
+    from flowavenet_tpu_torch.ops import pair_flow_train as pft
+    if name in SWEEP_OPTIONS:
+        pair = _sweep_pair(R, r_in, cc, dev)
+        kern, plain, passthru, (bar, corr) = _sweep_reverse(
+            name, pair, r_in, cc, dt, dev)
+        got = kern()
+        torch.cuda.synchronize()
+        tt = pf.LAST_LAUNCH[name]["t_tile"]
+        _check(got, plain(tt), passthru(tt), bar, corr)
+        return 1
+    if name.startswith("resblock"):
+        v2 = name == "resblock_v2"
+        args = _resblock_args(dev, dt, v2, cc, T=SWEEP_T, R=R)
+        fn = rb.fused_gated_resblock_v2 if v2 else rb.fused_gated_resblock
+        ref = rb.resblock_v2_ref if v2 else rb.resblock_ref
+        got = fn(*args, dilation=dil, causal=False)
+        torch.cuda.synchronize()
+        want = ref(*args, dilation=dil, causal=False)
+        pairs = zip(got, want)
+        grads = []
+    else:
+        pair = _sweep_pair(R, r_in, cc, dev)
+        ops = pf.pair_forward_operands(pair, dt)
+        g = torch.Generator(device=dev).manual_seed(R_SEED + r_in + cc)
+        u, v, gu, gv = (torch.randn(2, SWEEP_T, r_in, generator=g,
+                                    device=dev).to(dt) for _ in range(4))
+        ca, cb = (torch.rand(2, SWEEP_T, cc, generator=g, device=dev).to(dt)
+                  for _ in range(2))
+        scal = [torch.tensor(s, device=dev) for s in (0.7, 0.11, 1.3)]
+        mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
+        mp.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
+        want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
+        grads = []
+        if name == "pair_fwd":
+            got = pf.fused_pair_forward(u, v, ca, cb, ops)
+        elif name == "pair_train_fwd":
+            got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
+        else:
+            d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
+            dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops)
+            grads = list(zip(list(d[0]) + list(d[1:]),
+                             list(dref[0]) + list(dref[1:])))
+            got = want
+            # the fp64 plain version, to tell a kernel's error from the
+            # plain version's own on a failure
+            x64 = [t.double() for t in (u, v, ca, cb, gu, gv)]
+            d64 = pft.pair_train_bwd_ref(
+                *x64, *scal, pf.pair_forward_operands(pair, torch.float64))
+            grads = [(a, b, c) for (a, b), c in zip(
+                grads, list(d64[0]) + list(d64[1:]))]
+        torch.cuda.synchronize()
+        pairs = list(zip(got[:2], want[:2]))
+        for a, b in zip(got[2:], want[2:]):
+            bar = 1e-4 if dt == torch.float32 else 1e-2
+            assert abs(float(a) - float(b)) <= bar * abs(float(b)) + 1e-6
+    for i, (a, b) in enumerate(pairs):
+        a, b = a.detach().float(), b.float()
+        assert bool(torch.isfinite(a).all()), ("output", i, "not finite")
+        rel = float((a - b).abs().max() / b.abs().max())
+        cos = _cos(a - a.mean(), b - b.mean())
+        assert rel <= (1e-4 if dt == torch.float32 else 1e-2), \
+            ("output", i, "rel", rel)
+        assert dt == torch.float32 or cos >= 0.999, ("output", i, "cos", cos)
+    def rel_to(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            1e-30, float(b.double().abs().max()))
+
+    bad = []
+    for i, (a, b, b64) in enumerate(grads):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), \
+            f"gradient {i} {tuple(a.shape)}: shape or not finite"
+        if dt == torch.float32 and rel_to(a, b) > 1e-4:
+            # where the entries past the bar lie: (flow, last-axis index)
+            far = ((a - b).abs() > 1e-4 * b.abs().max()).nonzero()
+            where = sorted({(int(x[0]), int(x[-1])) for x in far})[:4]
+            bad.append(f"gradient {i} {tuple(a.shape)}: rel "
+                       f"{rel_to(a, b):.3e} (kernel vs fp64 "
+                       f"{rel_to(a, b64):.3e}, plain vs fp64 "
+                       f"{rel_to(b, b64):.3e}), {len(far)} entries at "
+                       f"{where}")
+        elif (dt == torch.bfloat16 and float(b.abs().max()) > 0
+              and _cos(a, b) < 0.999):
+            # where the bf16 plain version is itself farther than phase 4's
+            # bar from the fp64 one (R = 512: bf16 rounding of 2R-deep
+            # products), the kernel is held to fp64 as closely as it
+            c64, p64 = _cos(a, b64), _cos(b, b64)
+            if p64 >= 0.999 or c64 < p64 - 1e-3:
+                bad.append(f"gradient {i} {tuple(a.shape)}: cos "
+                           f"{_cos(a, b):.6f} (kernel vs fp64 {c64:.6f}, "
+                           f"plain vs fp64 {p64:.6f})")
+    if bad and dt == torch.float32:
+        # a ReLU whose fp32 pre-activation sits within rounding of zero can
+        # take the other branch in the kernel than in the plain version,
+        # which moves the gradient entries of its channel by a whole term:
+        # the same pair with every front conv bias 1e-5 higher (no
+        # pre-activation that close to zero then) must meet the bar, which
+        # a fault would not
+        ops2 = list(ops)
+        ops2[1] = ops[1] + 1e-5
+        d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops2)
+        r2 = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops2)
+        worst = max(rel_to(a, b) for a, b in zip(
+            list(d2[0]) + list(d2[1:]), list(r2[0]) + list(r2[1:])))
+        print(f"{name} R={R} R_in={r_in} Cc={cc} fp32: "
+              + "; ".join(bad) + f"; front conv biases + 1e-5: worst "
+              f"gradient rel {worst:.3e}")
+        bad = [] if worst <= 1e-4 else bad + [
+            f"front conv biases + 1e-5: worst gradient rel {worst:.3e}"]
+        assert not bad, "; ".join(bad)
+        return 2
+    assert not bad, "; ".join(bad)
+    return 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", SWEEP_R)
+@pytest.mark.parametrize("site", SWEEP_SITES)
+def test_width_sweep_matches_plain_or_refuses(cuda, monkeypatch, site, R):
+    """Every launch site at R (32-512), Cc 16 and 80, R_in 1 and 4 (the
+    ResBlocks: dilations 1 and 4), fp32 on CUDA cores and bf16 on the
+    tensor cores, T = 310 (ragged last tiles), at the tile rule's shortest
+    and longest tile where a rule picks it (else the wrapper's one tile):
+    each launch matches its plain version at chip_smoke.py's bars (phases
+    2-4), or, where its shared memory does not fit, the wrapper raises
+    ValueError before any launch.  No geometry faults.  A bf16 gradient
+    whose plain version is itself below phase 4's cosine bar against the
+    fp64 plain version is held to fp64 instead: no more than 1e-3 below
+    the plain version's cosine.  Where fp32 gradients miss the bar, a ReLU
+    pre-activation within rounding of zero may have taken the other
+    branch (at R 256, R_in 4, Cc 16: one channel of flow 0's front conv);
+    the same pair with its front conv biases 1e-5 higher must then meet
+    the bar."""
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for cc in (16, 80):
+            for r_in in (1, 4):
+                results[f"{str(dt)[6:]} Cc={cc} R_in={r_in}"] = _sweep_point(
+                    site, R, r_in, cc, dt, cuda, monkeypatch)
+    print(json.dumps({"site": site, "R": R, "points": results}))
+    bad = {k: v for k, v in results.items()
+           if any(o.startswith("FAIL") for o in v)}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["lj22k_4_blocks", "tiny"])
+def test_nccl_world_size_one_step_is_bit_identical(cuda, monkeypatch, model):
     """The production scale-out path at world size 1: NCCL, a (1, 1) mesh,
-    the state placed with put_tree, lj22k's widths cut to 4 blocks in bf16
-    on FWN_TRAIN_KERNEL=1 (block 0) and FWN_FWD_KERNEL=1 (blocks 1-3), the
-    guards off, as that route needs.  Two steps give the metrics and every
-    leaf of the state of the one-device steps bit for bit, and the pair
-    kernels run."""
+    the state placed with put_tree, in bf16 on FWN_TRAIN_KERNEL=1 (block
+    0) and FWN_FWD_KERNEL=1 (the blocks after it), the guards off, as that
+    route needs: lj22k's widths cut to 4 blocks, and tiny (R 32, where
+    pair_train_bwd's conditioning staging once overran its shared
+    memory).  Two steps give the metrics and every leaf of the state of
+    the one-device steps bit for bit, and the pair kernels run."""
     import socket
 
     import torch.distributed as dist
@@ -1131,9 +1601,10 @@ def test_nccl_world_size_one_step_is_bit_identical(cuda, monkeypatch):
     from flowavenet_tpu_torch.utils.tree import leaves
     monkeypatch.setattr(fwn, "TRAIN_KERNEL", True)
     monkeypatch.setattr(fwn, "PAIR_KERNEL_FWD", True)
-    cfg = lj22k()
+    cfg = lj22k() if model.startswith("lj22k") else tiny()
     cfg = cfg.replace(
-        model=dataclasses.replace(cfg.model, n_block=4),
+        model=dataclasses.replace(cfg.model,
+                                  n_block=min(4, cfg.model.n_block)),
         train=dataclasses.replace(cfg.train, compute_dtype="bfloat16",
                                   logs_hinge=0.0, logs_l2=0.0))
     g = torch.Generator(device=cuda).manual_seed(3)

@@ -11,6 +11,12 @@ tree or two in turns.  No JAX.  Run from the repository root on a machine with a
     python tools/train_pair_ab.py --fwd-tiles    # only pair_fwd of this
                                                  # tree at blocks 0-3 over
                                                  # several tiles
+    python tools/train_pair_ab.py --parent DIR --grads  # only the bf16
+                                                 # pair_train_bwd outputs'
+                                                 # hashes of each tree
+    python tools/train_pair_ab.py --parent DIR --r32    # only the bf16
+                                                 # pair_train_bwd at R = 32
+                                                 # over R32_TILES, per tree
 
 Times are CUDA events over repeated launches of ``fused_pair_train_fwd``
 and ``fused_pair_train_bwd`` in bf16 at the training geometry of lj22k
@@ -24,6 +30,17 @@ with each tile of ``FWD_TILES`` that fits, one CTA per tile: ``ms`` is the
 wrapper call's time on the card's timeline (CUDA events, as chip_smoke.py
 times kernels), ``kernel_ms`` the kernel's own device time per launch from
 a ``torch.profiler`` trace (0 if the trace has none).
+
+``--grads`` runs ``fused_pair_train_bwd`` in bf16 at lj22k blocks 0-3 (the
+``time`` case's inputs at T_k 3200 >> b) and at a filter_size 48 block 0
+(R padded to 64) in each tree and prints a SHA-256 of every output, so
+two trees' gradients compare bit for bit.  ``--r32`` runs it at tiny's
+block-0 widths (R 32, R_in 1, Cc 80, batch 2 x 1024) on each tile of
+``R32_TILES`` (forced through ``train_tc_t_tile``), each tile in its own
+process, since a fault ends the process's CUDA context: per tile, the
+launch's outcome (a cudaError, or the worst gradient cosine to
+``pair_train_bwd_ref``) beside where the backward's conditioning staging
+ends against its shared-memory layout (``staging_extent``).
 """
 
 from __future__ import annotations
@@ -35,6 +52,28 @@ import subprocess
 import sys
 
 FWD_TILES = (16, 20, 25, 32, 40, 48, 56, 64, 72)
+# tiles of --r32: 16 (the 88-column staging still inside P3), 17 (past
+# P3's end into the fp32 dnet rows), 21 (onto the zero row), 29 and up
+# (past the dynamic allocation), as staging_extent reads them at R = 32
+R32_TILES = (16, 17, 20, 21, 24, 28, 29, 32, 48, 72)
+
+
+def staging_extent(TT: int, R: int = 32, Rin: int = 1, cols: int = 80):
+    """Byte offsets of the tensor-core backward's shared memory at a tile
+    (``tc_bwd_layout`` in csrc/pair_flow_train.cu: P0-P3, the fp32 dnet
+    rows, the zero row) and where the conditioning staging of the cond
+    weight gradient ends when it stages ``cols`` columns at the row stride
+    cols + 8 from P3 (80 before the repair; tc_cond_cols(R) after)."""
+    def a16(x):
+        return (x + 15) & ~15
+    n, ldr, ldf = TT + 20, R + 8, 2 * R + 8
+    off = [0]
+    for size in (2 * n * ldf, 2 * n * ldr, 2 * n * ldr, 2 * n * ldr,
+                 4 * n * 2 * Rin, 16):
+        off.append(a16(off[-1] + size))
+    names = ("p0", "p1", "p2", "p3", "dnet", "zero", "end")
+    return {**dict(zip(names, off)),
+            "staging_end": off[3] + 2 * TT * (cols + 8)}
 
 
 def _case(bi: int = 0):
@@ -97,6 +136,74 @@ def _kernel_ms(fn, reps: int, name: str) -> float:
     return us / 1e3 / reps
 
 
+def _tiny_case():
+    """tiny's block-0 training pair (R 32, R_in 1, Cc 80; 0.05-scale zero
+    conv and ActNorm noise, seeded), bf16 inputs and cotangents at batch
+    2 x 1024, as tests/test_torch_card.py's ``_tiny_train_pair``."""
+    import torch
+    from flowavenet_tpu_torch.config import tiny
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.utils.tree import tree_map
+    dev = torch.device("cuda", 0)
+    cfg = tiny().model
+    gen = torch.Generator().manual_seed(32)
+    block = fwn.init_block(gen, 1, cfg.num_mels, cfg)
+    fl = block["flows"]
+    for leaf in (fl["coupling"]["zero"]["w"], fl["actnorm"]["b"],
+                 fl["actnorm"]["logs"]):
+        leaf.normal_(0, 0.05, generator=gen)
+    pair = tree_map(lambda l: l.to(dev), fwn._index(fwn._pair_params(block),
+                                                    0))
+    ops = pf.pair_forward_operands(pair, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = [torch.randn(2, 1024, 1, generator=g, device=dev).bfloat16()
+         for _ in range(4)]
+    c = [torch.rand(2, 1024, cfg.num_mels, generator=g, device=dev)
+         .bfloat16() for _ in range(2)]
+    scal = [torch.tensor(s, device=dev) for s in (0.7, 0.11, 1.3)]
+    return ops, x, c, scal
+
+
+def _fs48_case():
+    """A filter_size 48 block 0 (R padded to 64 on the tensor cores) at the
+    ``time`` case's batch and length."""
+    import dataclasses
+
+    import torch
+    from flowavenet_tpu_torch.config import lj22k
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.utils.tree import tree_map
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(lj22k().model, filter_size=48)
+    gen = torch.Generator().manual_seed(48)
+    block = fwn.init_block(gen, 1, cfg.num_mels, cfg)
+    fl = block["flows"]
+    for leaf in (fl["coupling"]["zero"]["w"], fl["actnorm"]["b"],
+                 fl["actnorm"]["logs"]):
+        leaf.normal_(0, 0.05, generator=gen)
+    pair = tree_map(lambda l: l.to(dev), fwn._index(fwn._pair_params(block),
+                                                    0))
+    ops = pf.pair_forward_operands(pair, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(48)
+    x = [torch.randn(8, 3200, 1, generator=g, device=dev).bfloat16()
+         for _ in range(4)]
+    c = [torch.rand(8, 3200, cfg.num_mels, generator=g, device=dev)
+         .bfloat16() for _ in range(2)]
+    scal = [torch.tensor(s, device=dev) for s in (0.7, 0.11, 1.3)]
+    return ops, x, c, scal
+
+
+def _sha(t) -> str:
+    """SHA-256 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
 def child(mode: str) -> dict:
     """Runs inside one tree: builds, times (and checks) its kernels."""
     import torch
@@ -107,6 +214,49 @@ def child(mode: str) -> dict:
     if mode == "build":
         _build.build("pair_flow_train")
         return {}
+    if mode == "grads":
+        out = {}
+        cases = [(f"lj22k block {bi}", lambda bi=bi: _case(bi))
+                 for bi in range(4)] + [("filter_size 48 block 0",
+                                         _fs48_case)]
+        for name, make in cases:
+            ops, (u, v, gu, gv), (ca, cb), scal = make()
+            d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
+            torch.cuda.synchronize()
+            out[name] = {"t_tile": pft.LAST_LAUNCH["pair_train_bwd"]
+                         ["t_tile"],
+                         "sha256": [_sha(t) for t in list(d[0]) +
+                                    list(d[1:])]}
+        return {"grads": out}
+    if mode.startswith("r32:"):
+        tt = int(mode[4:])
+        ops, (u, v, gu, gv), (ca, cb), scal = _tiny_case()
+        # the dynamic shared memory the launch sets: the larger of the
+        # recompute's layout and the backward phases'
+        res = {"tile": tt, "smem_bytes": pft._library().pair_train_smem_bytes(
+            1, 1, 32, 1, tt)}
+        pick = pft.train_tc_t_tile
+        pft.train_tc_t_tile = lambda *a: tt
+        try:
+            d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            res["error"] = str(e).splitlines()[0]
+            return res
+        finally:
+            pft.train_tc_t_tile = pick
+        dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal, ops)
+        cos = []
+        for a, b in zip(list(d[0]) + list(d[1:]),
+                        list(dref[0]) + list(dref[1:])):
+            a, b = a.double().flatten(), b.double().flatten()
+            if float(b.abs().max()) > 0:
+                cos.append(float((a @ b) / (a.norm() * b.norm())
+                                 .clamp_min(1e-30)))
+        res.update(min_cos=min(cos), finite=all(
+            bool(torch.isfinite(t.float()).all())
+            for t in list(d[0]) + list(d[1:])))
+        return res
     if mode == "phase4":
         import chip_smoke as cs
         from flowavenet_tpu_torch.config import lj22k
@@ -164,6 +314,10 @@ def main() -> int:
                     help="also chip_smoke.py's phase 4 rows of each tree")
     ap.add_argument("--fwd-tiles", action="store_true",
                     help="only pair_fwd of this tree over several tiles")
+    ap.add_argument("--grads", action="store_true",
+                    help="only the pair_train_bwd outputs' hashes per tree")
+    ap.add_argument("--r32", action="store_true",
+                    help="only pair_train_bwd at R = 32 over R32_TILES")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
@@ -184,6 +338,34 @@ def main() -> int:
     if a.fwd_tiles:
         for row in _run_tree(here, "fwd_tiles")["fwd_tiles"]:
             print("fwd_tiles: " + json.dumps(row), flush=True)
+        return 0
+    if a.grads or a.r32:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(len(trees)) as pool:
+            list(pool.map(lambda t: _run_tree(t, "build"), trees.values()))
+    if a.grads:
+        got = {name: _run_tree(tree, "grads")["grads"]
+               for name, tree in trees.items()}
+        for case, res in got["this"].items():
+            same = all(g[case]["sha256"] == res["sha256"]
+                       for g in got.values())
+            print(f"grads {case}: tile {res['t_tile']}, "
+                  f"{len(res['sha256'])} outputs, "
+                  + ("bit-identical across trees" if same else
+                     "DIFFER: " + json.dumps({n: g[case] for n, g in
+                                              got.items()})), flush=True)
+        return 0
+    if a.r32:
+        for tt in R32_TILES:
+            at = staging_extent(tt)
+            print(f"r32 tile {tt}: layout {json.dumps(at)}; the 80-column "
+                  f"staging ends {at['staging_end'] - at['dnet']} bytes "
+                  f"past P3's end, the 32-column one at "
+                  f"{staging_extent(tt, cols=32)['staging_end']}",
+                  flush=True)
+            for name, tree in trees.items():
+                print(f"r32 {name}: " + json.dumps(
+                    _run_tree(tree, f"r32:{tt}")), flush=True)
         return 0
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(len(trees)) as pool:
