@@ -2339,11 +2339,23 @@ def trace_split(prof, wall_ms: float, what: str, top: int = 12,
     (first to last event), the number of device ops, busy time (the union
     of device intervals) and idle share, the top device ops by total time
     with calls, the time per op class, and the longest idle gaps
-    (with the kernels around them).  Returns None when the trace holds no
-    device time."""
+    (with the kernels around them and the innermost program span,
+    ``utils/profiling.py:span``, open on the host at the gap's middle).
+    A program span's projection onto the device timeline is no device
+    work and is left out.  Returns None when the trace holds no device
+    time."""
     from torch.autograd import DeviceType
     evs = list(prof.events())
-    dev_evs = [e for e in evs if e.device_type == DeviceType.CUDA]
+    dev_evs = [e for e in evs if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("fwn.")]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in evs
+             if e.device_type != DeviceType.CUDA
+             and e.name.startswith("fwn.")]
+
+    def open_span(t: float) -> str:
+        inner = max(((s, n) for s, e, n in spans if s <= t < e),
+                    default=(0.0, "-"))
+        return inner[1]
     if not dev_evs:
         print(f"profile split, {what}: the trace holds no device time; see "
               f"the CUDA-event times", flush=True)
@@ -2388,7 +2400,8 @@ def trace_split(prof, wall_ms: float, what: str, top: int = 12,
            "top_ops": [{"name": k[:120], "ms": t / 1e3, "calls": n}
                        for k, (t, n) in ops],
            "idle_gaps": [{"ms": g / 1e3, "at_ms": (at - t0) / 1e3,
-                          "after": a[:80], "before": b[:80]}
+                          "after": a[:80], "before": b[:80],
+                          "span": open_span(at + g / 2)}
                          for g, at, a, b in holes]}
     print(f"profile split, {what}: wall {wall_ms:.1f} ms (host clock); "
           f"{len(dev_evs)} device ops; "
@@ -2401,8 +2414,9 @@ def trace_split(prof, wall_ms: float, what: str, top: int = 12,
     for r in out["top_ops"]:
         print(f"  op {r['ms']:.3f} ms x{r['calls']}: {r['name']}", flush=True)
     for r in out["idle_gaps"]:
-        print(f"  idle gap {r['ms']:.3f} ms at {r['at_ms']:.1f} ms, after "
-              f"{r['after']} before {r['before']}", flush=True)
+        print(f"  idle gap {r['ms']:.3f} ms at {r['at_ms']:.1f} ms in "
+              f"{r['span']}, after {r['after']} before {r['before']}",
+              flush=True)
     return out
 
 

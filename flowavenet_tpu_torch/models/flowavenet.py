@@ -66,6 +66,7 @@ from ..ops.squeeze import (change_order, squeeze, squeeze_level_cond_perm,
                            squeeze_to_level, unsqueeze)
 from ..utils import flags as _flags
 from ..utils.device import constant
+from ..utils.profiling import span, spanned
 from ..utils.tree import leaves, rebuild, tree_map
 from .modules import apply_wavenet, init_wavenet
 from .upsample import apply_upsample, init_upsample
@@ -400,6 +401,7 @@ def _flow_step_ddi(cfg: ModelConfig, fp: dict, x, c, g):
     return change_order(x), change_order(c), _change_order_g(g), an
 
 
+@spanned("fwn.fold.cond_perm")
 def _permute_cond_rows(flows: dict, perm) -> dict:
     """Permute the conditioning convs' input rows (the weight-norm sum is
     over those rows, so the fold is unchanged); pairs with the free reshape
@@ -590,6 +592,7 @@ def _check_shapes(cfg: ModelConfig, z: torch.Tensor, c: torch.Tensor
             f"{c.shape[1]}*{hop}={c.shape[1] * hop}")
 
 
+@spanned("fwn.model.upsample")
 def _prepare_cond(params: dict, cfg: ModelConfig, c: torch.Tensor, g,
                   compute_dtype):
     """Mel upsampling and the speaker-embedding lookup: (c [B, T, mels],
@@ -610,6 +613,7 @@ def _prepare_cond(params: dict, cfg: ModelConfig, c: torch.Tensor, g,
     return c, emb[:, None, :].expand(emb.shape[0], c.shape[1], emb.shape[1])
 
 
+@spanned("fwn.model.reverse")
 @torch.no_grad()
 def reverse(params: dict, cfg: ModelConfig, z: torch.Tensor,
             c: torch.Tensor, g=None, compute_dtype=torch.float32
@@ -635,8 +639,9 @@ def reverse(params: dict, cfg: ModelConfig, z: torch.Tensor,
         for bi in reversed(range(cfg.n_block)):
             k = bi + 1
             g_k = squeeze_to_level(g_emb, k) if g_emb is not None else None
-            x = block_reverse(params["blocks"][bi], cfg, x,
-                              c=squeeze_to_level(c, k), g=g_k)
+            with span("fwn.model.block", block=bi):
+                x = block_reverse(params["blocks"][bi], cfg, x,
+                                  c=squeeze_to_level(c, k), g=g_k)
         return x
     c_lo, c_hi = (h.contiguous() for h in torch.chunk(c, 2, dim=2))
     q8 = None
@@ -647,11 +652,12 @@ def reverse(params: dict, cfg: ModelConfig, z: torch.Tensor,
     for bi in reversed(range(cfg.n_block)):
         k = bi + 1
         if g_emb is not None:
-            x = block_reverse(
-                params["blocks"][bi], cfg, x,
-                (squeeze_to_level(c_lo, k), squeeze_to_level(c_hi, k)),
-                g_halves=tuple(squeeze_to_level(h, k)
-                               for h in torch.chunk(g_emb, 2, dim=2)))
+            with span("fwn.model.block", block=bi):
+                x = block_reverse(
+                    params["blocks"][bi], cfg, x,
+                    (squeeze_to_level(c_lo, k), squeeze_to_level(c_hi, k)),
+                    g_halves=tuple(squeeze_to_level(h, k)
+                                   for h in torch.chunk(g_emb, 2, dim=2)))
             continue
         cc_half = (cfg.num_mels << k) // 2
         mode = (_pair_kernel_mode(cfg, cc_half) if cfg.n_flow % 2 == 0
@@ -668,9 +674,10 @@ def reverse(params: dict, cfg: ModelConfig, z: torch.Tensor,
             c_halves = ((lvl(q8[0][0]), q8[0][1]), (lvl(q8[1][0]), q8[1][1]))
         else:
             c_halves = (lvl(c_lo), lvl(c_hi))
-        x = block_reverse(params["blocks"][bi], cfg, x, c_halves,
-                          cond_perm=squeeze_level_cond_perm(k, C0),
-                          c_scales=c_scales)
+        with span("fwn.model.block", block=bi):
+            x = block_reverse(params["blocks"][bi], cfg, x, c_halves,
+                              cond_perm=squeeze_level_cond_perm(k, C0),
+                              c_scales=c_scales)
     return x
 
 

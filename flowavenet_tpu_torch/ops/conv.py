@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count, span
+
 _WN_EPS = 1e-12  # tf.nn.l2_normalize epsilon
 
 
@@ -54,13 +56,17 @@ def wn_kernel(p: dict, group=None) -> torch.Tensor:
     shard of a tensor-parallel kernel (``parallel/tp.py``); the sum of
     squares runs over every shard of the model group, and the replicated
     scale and gain enter the shard's product through ``copy_to_model``."""
-    v = p["v"].float()
-    sq = torch.sum(v * v, dim=(0, 1), keepdim=True)
-    if group is None:
-        return v * torch.rsqrt(torch.clamp(sq, min=_WN_EPS)) * p["g"].float()
-    from ..parallel.tp import copy_to_model, reduce_from_model
-    r = torch.rsqrt(torch.clamp(reduce_from_model(sq, group), min=_WN_EPS))
-    return v * copy_to_model(r, group) * copy_to_model(p["g"].float(), group)
+    with span("fwn.fold.wn"):
+        v = p["v"].float()
+        sq = torch.sum(v * v, dim=(0, 1), keepdim=True)
+        if group is None:
+            return (v * torch.rsqrt(torch.clamp(sq, min=_WN_EPS))
+                    * p["g"].float())
+        from ..parallel.tp import copy_to_model, reduce_from_model
+        r = torch.rsqrt(torch.clamp(reduce_from_model(sq, group),
+                                    min=_WN_EPS))
+        return (v * copy_to_model(r, group)
+                * copy_to_model(p["g"].float(), group))
 
 
 def dilated_conv1d(x: torch.Tensor, kernel: torch.Tensor,
@@ -104,10 +110,13 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
     by the number of rows (measured: PERF.md §6)."""
     w = (kernel[0] if kernel.dim() == 3 else kernel).to(x.dtype)
     if per_row and x.shape[0] > 1:
-        out = torch.cat([torch.matmul(x[b:b + 1], w)
-                         for b in range(x.shape[0])])
+        B = x.shape[0]
+        with span("fwn.conv.per_row", rows=B):
+            out = torch.cat([torch.matmul(x[b:b + 1], w) for b in range(B)])
+        count("fwn.conv.matmuls", B)
     else:
         out = torch.matmul(x, w)
+        count("fwn.conv.matmuls")
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out
@@ -153,6 +162,7 @@ def conv1x1_int8(x_q: torch.Tensor, x_scale: torch.Tensor,
         w_q = F.pad(w_q, (0, pn, 0, pk))
     # column-major B operand: [N, K] contiguous, passed transposed
     acc = torch._int_mm(x2, w_q.t().contiguous().t())
+    count("fwn.conv.matmuls")
     acc = acc[:M, :N].reshape(B, T, N)
     out = (acc.float() * x_scale.float() * w_scale[None, None, :]
            ).to(out_dtype)

@@ -28,6 +28,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span, spanned
 from ..utils.tree import tree_map
 from .conv import wn_kernel
 
@@ -123,6 +124,7 @@ def _pair_operands(pair: dict, dtype, an_sign: float) -> tuple:
                              torch.stack([an_e[1], an_o[1]]))
 
 
+@spanned("fwn.fold.pair", kind="plain")
 def pair_reverse_operands(pair: dict, dtype=torch.bfloat16) -> tuple:
     """Operands for one flow pair (leaves lead with axis [2]: even=0,
     odd=1).  Returns 15 tensors, each stacking the two flows:
@@ -153,6 +155,7 @@ def _quant_w(w: torch.Tensor, reduce_dims: tuple):
     return wq, scale
 
 
+@spanned("fwn.fold.pair", kind="int8")
 def pair_reverse_operands_int8(pair: dict, dtype=torch.bfloat16,
                                rs: bool = False) -> tuple:
     """Operands for the int8 kernel: the 15 of :func:`pair_reverse_operands`
@@ -184,12 +187,14 @@ def pop_cond_w(operands) -> tuple:
     return tuple(ops), (hoist[0], hoist[1])
 
 
+@spanned("fwn.fold.pair", kind="hoisted")
 def pair_reverse_operands_hoisted(pair: dict, dtype=torch.bfloat16):
     """Operands for the hoisted-conditioning pair (``_pair_kernel_hoisted``):
     :func:`pop_cond_w` of :func:`pair_reverse_operands`."""
     return pop_cond_w(pair_reverse_operands(pair, dtype))
 
 
+@spanned("fwn.fold.pair", kind="hoisted_int8")
 def pair_reverse_operands_hoisted_int8(pair: dict, dtype=torch.bfloat16):
     """Hoisted operands with int8 fg convs only (``_pair_kernel_hoisted_i8``):
     kfg quantized per (flow, layer, out-channel) and kfg_scale appended
@@ -245,6 +250,7 @@ def _wino4_weights(w: torch.Tensor) -> torch.Tensor:
 _WEIGHT_OPERANDS = (0, 2, 3, 5, 7, 9, 11)
 
 
+@spanned("fwn.fold.pair", kind="wino")
 def pair_reverse_operands_wino(pair: dict, dtype=torch.bfloat16) -> tuple:
     """Like :func:`pair_reverse_operands` with the fg conv kernels
     G-transformed for F(2,3): kfg becomes [2, n_layer, 4, R, 2R].  The
@@ -256,6 +262,7 @@ def pair_reverse_operands_wino(pair: dict, dtype=torch.bfloat16) -> tuple:
                  for i, o in enumerate(ops))
 
 
+@spanned("fwn.fold.pair", kind="wino4")
 def pair_reverse_operands_wino4(pair: dict, dtype=torch.bfloat16,
                                 hoisted: bool = False):
     """F(4,3) operands: kfg becomes [2, n_layer, 6, R, 2R] (G-transform in
@@ -992,9 +999,10 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
     # tensor cores too where R_in allows (front_zero_tc)
     ftc = tc and hoisted and not phases and front_zero_tc(r_in)
     packed = _TC_WEIGHTS + (("front_w", "zw") if ftc else ())
-    ops = {k: (pack_tc_weights(o) if tc and k in packed else
-               _pack_int8(o) if k in int8_w else o).contiguous()
-           for k, o in ops.items()}
+    with span("fwn.fold.pack"):
+        ops = {k: (pack_tc_weights(o) if tc and k in packed else
+                   _pack_int8(o) if k in int8_w else o).contiguous()
+               for k, o in ops.items()}
     crs = None
     if int8 and not hoisted:
         if c_row_scales is None:

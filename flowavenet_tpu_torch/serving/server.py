@@ -27,7 +27,12 @@ API:
                        whose first bytes follow one window's synthesis
                        (synthesis/streaming.py).
   GET  /healthz        liveness + model/config info (JSON)
-  GET  /stats          serving counters (JSON)
+  GET  /stats          serving counters (JSON): requests, batches,
+                       streams, dispatches, audio_seconds, busy_seconds
+                       (the worker's host time per micro-batch, less
+                       backpressure), backpressure_seconds and
+                       queue_wait_seconds (each drained request's wait
+                       from submit until the worker took it)
 
 ``python -m flowavenet_tpu_torch.serving.server --device cuda --saved_dir
 <dir> --config lj22k`` serves a checkpoint on the card; ``--device cpu``
@@ -56,6 +61,7 @@ from ..synthesis.streaming import plan_chunks, stream_reverse
 from ..synthesis.synthesize import (_usable_frames, dispatch_mels,
                                     materialize_wavs, padded_frames,
                                     resolve_device)
+from ..utils.profiling import span
 
 
 @dataclass
@@ -65,6 +71,7 @@ class _Request:
     speaker_id: Optional[int]
     temp: Optional[float]
     done: threading.Event = field(default_factory=threading.Event)
+    submitted: float = field(default_factory=time.perf_counter)
     wav: Optional[np.ndarray] = None
     error: Optional[str] = None
 
@@ -124,7 +131,8 @@ class SynthesisService:
                       "requests": 0, "batches": 0, "streams": 0,
                       "dispatches": 0, "max_dispatch_rows_seen": 0,
                       "audio_seconds": 0.0, "busy_seconds": 0.0,
-                      "backpressure_seconds": 0.0}
+                      "backpressure_seconds": 0.0,
+                      "queue_wait_seconds": 0.0}
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
         self._completer = threading.Thread(target=self._complete,
@@ -230,6 +238,9 @@ class SynthesisService:
             if not batch:
                 continue
             self._inflight = batch  # close() fails these if we outlive it
+            taken = time.perf_counter()
+            self.stats["queue_wait_seconds"] += sum(
+                taken - r.submitted for r in batch)
             t0 = time.time()
             bp0 = self.stats["backpressure_seconds"]
             # one group per bucketed length: within a group the padded
@@ -249,34 +260,35 @@ class SynthesisService:
             self._inflight = []
 
     def _dispatch_group(self, group: list) -> None:
-        self.stats["dispatches"] += 1
-        self.stats["max_dispatch_rows_seen"] = max(
-            self.stats["max_dispatch_rows_seen"], len(group))
-        try:
-            # a gin model's request without X-Speaker-Id is speaker 0
-            sids = ([r.speaker_id if r.speaker_id is not None else 0
-                     for r in group] if self.cfg.model.gin_channels > 0
-                    else None)
-            wav, frames = dispatch_mels(
-                self.params, self.cfg, [r.mel for r in group],
-                seed=[r.seed for r in group], speaker_ids=sids,
-                temp=[r.temp for r in group],
-                bucket_frames=self.bucket_frames,
-                # group sizes follow the load: pow2 rows keep the set of
-                # batch shapes (and each row's arithmetic) small
-                pad_batch=True, noise=self.noise, pcm16=self.pcm16,
-                data_sharding=self.mesh,
-                batch_multiple=self._batch_multiple, device=self.device)
-            # hand the queued result to the completion thread; blocks only
-            # when the bounded hand-off is full (readback-bound waiting,
-            # kept out of busy_seconds)
-            tq = time.time()
-            self._done_q.put((group, wav, frames))
-            self.stats["backpressure_seconds"] += time.time() - tq
-        except Exception as e:  # surface errors to every waiter
-            for r in group:
-                r.error = f"{type(e).__name__}: {e}"
-                r.done.set()
+        with span("fwn.serve.dispatch", requests=len(group)):
+            self.stats["dispatches"] += 1
+            self.stats["max_dispatch_rows_seen"] = max(
+                self.stats["max_dispatch_rows_seen"], len(group))
+            try:
+                # a gin model's request without X-Speaker-Id is speaker 0
+                sids = ([r.speaker_id if r.speaker_id is not None else 0
+                         for r in group] if self.cfg.model.gin_channels > 0
+                        else None)
+                wav, frames = dispatch_mels(
+                    self.params, self.cfg, [r.mel for r in group],
+                    seed=[r.seed for r in group], speaker_ids=sids,
+                    temp=[r.temp for r in group],
+                    bucket_frames=self.bucket_frames,
+                    # group sizes follow the load: pow2 rows keep the set of
+                    # batch shapes (and each row's arithmetic) small
+                    pad_batch=True, noise=self.noise, pcm16=self.pcm16,
+                    data_sharding=self.mesh,
+                    batch_multiple=self._batch_multiple, device=self.device)
+                # hand the queued result to the completion thread; blocks only
+                # when the bounded hand-off is full (readback-bound waiting,
+                # kept out of busy_seconds)
+                tq = time.time()
+                self._done_q.put((group, wav, frames))
+                self.stats["backpressure_seconds"] += time.time() - tq
+            except Exception as e:  # surface errors to every waiter
+                for r in group:
+                    r.error = f"{type(e).__name__}: {e}"
+                    r.done.set()
 
     def _complete(self) -> None:
         while True:

@@ -25,6 +25,7 @@ from ..checkpoint.bridge import latest_checkpoint, load_params_npz, to_torch
 from ..config import Config, get_config
 from ..models.flowavenet import reverse
 from ..utils.device import upload
+from ..utils.profiling import counters, span, spanned
 from .noise import row_noise
 
 
@@ -85,6 +86,7 @@ def padded_frames(frames: int, cfg: Config, bucket_frames: int = 60) -> int:
     return pad
 
 
+@spanned("fwn.synth.pcm16")
 def pcm16_quantize(wav: torch.Tensor) -> torch.Tensor:
     """float audio -> int16 PCM on its device: clip(round(x * 32768),
     -32768, 32767) with round-half-even (the WAV layer's quantization)."""
@@ -104,6 +106,13 @@ def split_rows(params, rows: int, data_sharding=None,
         raise ValueError(f"{rows} rows do not split over {len(shards)} "
                          f"devices; pass batch_multiple={len(shards)}")
     return shards, rows // len(shards)
+
+
+def _cuda_frees(shards) -> int:
+    """``cudaFree`` calls the caching allocator has made so far on the
+    cards of ``shards`` (0 off the card)."""
+    return sum(torch.cuda.memory_stats(d).get("num_device_free", 0)
+               for d in {d for d, _ in shards if d.type == "cuda"})
 
 
 def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
@@ -133,61 +142,75 @@ def dispatch_mels(params, cfg: Config, mels: list[np.ndarray],
     (``device`` is then unused), and ``wav`` is the list of the devices'
     rows; ``batch_multiple`` rounds the (possibly pow2-padded) row count
     up to a multiple, so that every device gets whole rows."""
-    if noise not in ("host", "device"):
-        raise ValueError(f"noise must be 'host' or 'device', got {noise!r}")
-    if pcm16 and noise != "device":
-        raise ValueError("pcm16=True requires noise='device'")
-    n = len(mels)
-    n_rows = 1 << (n - 1).bit_length() if pad_batch else n
-    if batch_multiple > 1:
-        n_rows = -(-n_rows // batch_multiple) * batch_multiple
-    shards, per = split_rows(params, n_rows, data_sharding, device)
-    dt = resolve_compute_dtype(cfg, compute_dtype)
-    seeds = [seed + i for i in range(n)] if isinstance(seed, int) else seed
-    if temp is None or isinstance(temp, (int, float)):
-        temps = [cfg.train.temp if temp is None else float(temp)] * n
-    else:
-        temps = [cfg.train.temp if t is None else float(t) for t in temp]
-    if len(seeds) != n or len(temps) != n:
-        raise ValueError(f"need {n} seeds/temps, got {len(seeds)}/"
-                         f"{len(temps)}")
-
-    hop = cfg.audio.hop_size
-    frames = [_usable_frames(m.shape[0], cfg) for m in mels]
-    pad_frames = padded_frames(max(frames), cfg, bucket_frames)
-    batch = np.zeros((n_rows, pad_frames, cfg.audio.num_mels), np.float32)
-    for i, m in enumerate(mels):
-        batch[i, : frames[i]] = m[: frames[i]]
-    if noise == "device":
-        s_arr = np.zeros((n_rows,), np.int64)
-        t_arr = np.zeros((n_rows,), np.float32)
-        s_arr[:n] = [s % (2 ** 32) for s in seeds]
-        t_arr[:n] = temps
-    else:
-        z = np.zeros((n_rows, pad_frames * hop, 1), np.float32)
-        for i, (s, t) in enumerate(zip(seeds, temps)):
-            z[i, :, 0] = np.random.RandomState(s % (2 ** 32)).randn(
-                pad_frames * hop) * t
-    ids = None
-    if cfg.model.gin_channels > 0 and speaker_ids is not None:
-        ids = np.zeros((n_rows,), np.int64)
-        ids[:n] = np.asarray(speaker_ids, np.int64)
-
-    def run(dev, p, rows: slice) -> torch.Tensor:
-        # cast on the host first: rounding to bf16 is the same on either
-        # side and halves the upload
-        c_t = upload(torch.from_numpy(batch[rows]), dt, dev)
-        if noise == "device":
-            z_t = row_noise(s_arr[rows], t_arr[rows], pad_frames * hop, dev)
+    with span("fwn.synth.dispatch") as attrs:
+        matmuls0 = counters().get("fwn.conv.matmuls", 0)
+        if noise not in ("host", "device"):
+            raise ValueError(
+                f"noise must be 'host' or 'device', got {noise!r}")
+        if pcm16 and noise != "device":
+            raise ValueError("pcm16=True requires noise='device'")
+        n = len(mels)
+        n_rows = 1 << (n - 1).bit_length() if pad_batch else n
+        if batch_multiple > 1:
+            n_rows = -(-n_rows // batch_multiple) * batch_multiple
+        shards, per = split_rows(params, n_rows, data_sharding, device)
+        frees0 = _cuda_frees(shards)
+        dt = resolve_compute_dtype(cfg, compute_dtype)
+        seeds = [seed + i for i in range(n)] if isinstance(seed, int) else seed
+        if temp is None or isinstance(temp, (int, float)):
+            temps = [cfg.train.temp if temp is None else float(temp)] * n
         else:
-            z_t = upload(torch.from_numpy(z[rows]), dt, dev)
-        g = torch.from_numpy(ids[rows]).to(dev) if ids is not None else None
-        wav = reverse(p, cfg.model, z_t, c_t, g, compute_dtype=dt)
-        return pcm16_quantize(wav) if pcm16 else wav
+            temps = [cfg.train.temp if t is None else float(t) for t in temp]
+        if len(seeds) != n or len(temps) != n:
+            raise ValueError(f"need {n} seeds/temps, got {len(seeds)}/"
+                             f"{len(temps)}")
 
-    wavs = [run(dev, p, slice(i * per, (i + 1) * per))
-            for i, (dev, p) in enumerate(shards)]
-    return (wavs[0] if data_sharding is None else wavs), frames
+        hop = cfg.audio.hop_size
+        frames = [_usable_frames(m.shape[0], cfg) for m in mels]
+        pad_frames = padded_frames(max(frames), cfg, bucket_frames)
+        attrs.update(rows=n_rows, pad_frames=pad_frames,
+                     requested_samples=sum(frames) * hop)
+        with span("fwn.synth.pack"):
+            batch = np.zeros((n_rows, pad_frames, cfg.audio.num_mels),
+                             np.float32)
+            for i, m in enumerate(mels):
+                batch[i, : frames[i]] = m[: frames[i]]
+            if noise == "device":
+                s_arr = np.zeros((n_rows,), np.int64)
+                t_arr = np.zeros((n_rows,), np.float32)
+                s_arr[:n] = [s % (2 ** 32) for s in seeds]
+                t_arr[:n] = temps
+            else:
+                z = np.zeros((n_rows, pad_frames * hop, 1), np.float32)
+                for i, (s, t) in enumerate(zip(seeds, temps)):
+                    z[i, :, 0] = np.random.RandomState(s % (2 ** 32)).randn(
+                        pad_frames * hop) * t
+            ids = None
+            if cfg.model.gin_channels > 0 and speaker_ids is not None:
+                ids = np.zeros((n_rows,), np.int64)
+                ids[:n] = np.asarray(speaker_ids, np.int64)
+
+        def run(dev, p, rows: slice) -> torch.Tensor:
+            with span("fwn.synth.upload"):
+                # cast on the host first: rounding to bf16 is the same on
+                # either side and halves the upload
+                c_t = upload(torch.from_numpy(batch[rows]), dt, dev)
+                z_t = (upload(torch.from_numpy(z[rows]), dt, dev)
+                       if noise == "host" else None)
+                g = (torch.from_numpy(ids[rows]).to(dev) if ids is not None
+                     else None)
+            if noise == "device":
+                with span("fwn.synth.noise"):
+                    z_t = row_noise(s_arr[rows], t_arr[rows],
+                                    pad_frames * hop, dev)
+            wav = reverse(p, cfg.model, z_t, c_t, g, compute_dtype=dt)
+            return pcm16_quantize(wav) if pcm16 else wav
+
+        wavs = [run(dev, p, slice(i * per, (i + 1) * per))
+                for i, (dev, p) in enumerate(shards)]
+        attrs["matmuls"] = counters().get("fwn.conv.matmuls", 0) - matmuls0
+        attrs["cuda_frees"] = _cuda_frees(shards) - frees0
+        return (wavs[0] if data_sharding is None else wavs), frames
 
 
 def materialize_wavs(wav, frames, cfg: Config) -> list[np.ndarray]:

@@ -293,6 +293,35 @@ def test_chip_smoke_trace_split_reads_busy_idle_and_gaps():
     assert cs.trace_split(NS(events=lambda: evs[:1]), 1.0, "none") is None
 
 
+def test_chip_smoke_trace_split_names_gaps_by_program_span():
+    """The same scripted trace with program spans: ``fwn.synth.dispatch``
+    over [0, 90] us and ``fwn.model.reverse`` inside it over [35, 60], each
+    also projected onto the device timeline over [10, 80].  The gap
+    between 40 and 70 us (middle 55) is named by the innermost span open
+    there, the one over [0, 10] by the dispatch span; the projections are
+    not counted as device work."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+    cs = _chip_smoke()
+
+    def ev(name, s, e, dev=DeviceType.CUDA):
+        return NS(name=name, device_type=dev,
+                  time_range=NS(start=float(s), end=float(e)))
+    evs = [ev("aten::mm", 0, 100, DeviceType.CPU),
+           ev("fwn.synth.dispatch", 0, 90, DeviceType.CPU),
+           ev("fwn.model.reverse", 35, 60, DeviceType.CPU),
+           ev("fwn.synth.dispatch", 10, 80), ev("fwn.model.reverse", 10, 80),
+           ev("nvjet_gemm", 10, 30), ev("nvjet_gemm", 20, 40),
+           ev("void pair_reverse_kernel<x>", 70, 80)]
+    out = cs.trace_split(NS(events=lambda: evs), 5.0, "scripted")
+    assert out["device_ops"] == 3
+    assert out["busy_ms"] == pytest.approx(0.04)
+    gaps = {round(g["ms"] * 1e3): g["span"] for g in out["idle_gaps"]}
+    assert gaps == {30: "fwn.model.reverse", 10: "fwn.synth.dispatch",
+                    20: "-"}
+
+
 def _tiny_reverse(seed: int, B: int = 3):
     """A plain-route tiny reverse in fp64 on the CPU: (run, n_block)."""
     import dataclasses

@@ -157,6 +157,31 @@ def test_batch_composition_invariance(model):
                for x, f in zip(first, (17, 20, 22, 24)))
 
 
+def test_queue_wait_and_dispatch_spans(model):
+    """N requests posted at once: each waits in the queue until the worker
+    drains it (``queue_wait_seconds`` > 0), and the worker's
+    ``fwn.serve.dispatch`` spans hold all N requests between them."""
+    from flowavenet_tpu_torch.utils import profiling
+    _, cfg, _, tp = model
+    seq0 = max((s.seq for s in profiling.spans()), default=0)
+    httpd = _start(tp, cfg, max_batch=2, batch_window_ms=20.0)
+    svc = httpd.service
+    n = 5
+    try:
+        _post_many(httpd, [(_mel(9 + i, 40 + i), 300 + i) for i in range(n)])
+    finally:
+        _stop(httpd)
+    assert svc.stats["requests"] == n
+    assert svc.stats["queue_wait_seconds"] > 0
+    spans = [s for s in profiling.spans()
+             if s.seq > seq0 and s.name == "fwn.serve.dispatch"]
+    assert len(spans) == svc.stats["dispatches"]
+    assert sum(s.attrs["requests"] for s in spans) == n
+    inner = [s for s in profiling.spans() if s.seq > seq0
+             and s.name == "fwn.synth.dispatch"]
+    assert {s.parent for s in inner} == {s.seq for s in spans}
+
+
 def test_per_request_seed_and_temp(server):
     """X-Seed picks the noise (different seeds, different audio; the same
     seed, the same bytes); X-Temp scales it (temp 0: the audio no longer
