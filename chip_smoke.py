@@ -20,12 +20,16 @@
    add: the RMS of kernel minus plain over the RMS of plain minus the
    pass-through (the same pair with its zero convs zeroed, i.e. ActNorm
    only).  Prints the errors, the kernel's and the plain version's ms,
-   and the H100 bound.  Phase 2b (``variant_checks``) does the same for
-   the Winograd pairs (F(2,3), F(4,3), also with hoisted conditioning;
-   blocks 0-2, fp32 and bf16), the hoisted pairs (blocks 4-7 fp32/bf16;
-   int8 blocks 5-7, with the hoist matmul's ms; the plain version at the
-   tile the launch recorded; the tensor-core rows with their tile, CTAs
-   and the profiler's kernel ms) and the int8 res/skip pair (blocks 0-4);
+   and the H100 bound; each int8 line also the instance's registers and
+   local bytes (0 required).  ``i8_batch_shape`` then times
+   ``pair_flow_i8`` on block 0 at the offline benchmark's batch shape (128
+   rows of 900 frames) beside its bound.  Phase 2b (``variant_checks``)
+   does the same for the Winograd pairs (F(2,3), F(4,3), also with hoisted
+   conditioning; blocks 0-2, fp32 and bf16), the hoisted pairs (blocks 4-7
+   fp32/bf16; int8 blocks 5-7, with the hoist matmul's ms; the plain
+   version at the tile the launch recorded; the tensor-core rows with
+   their tile, CTAs and the profiler's kernel ms) and the int8 res/skip
+   pair (blocks 0-4);
    the bf16 Winograd rows print their instance's registers and local bytes,
    and each block's hoisted Winograd time is printed beside its dense
    twin's.
@@ -336,11 +340,53 @@ def kernel_checks(params, cfg, B: int, T: int, blocks, dev):
                 check(rel <= 1e-2 and corr >= 0.9999 and upd <= 1e-2,
                       f"int8 kernel vs plain: rel {rel} corr {corr} "
                       f"update {upd}")
+                regs, local = pf.kernel_attrs(dt, int8=True)
+                print(f"pair_flow_i8 block {bi}: numRegs {regs}, "
+                      f"localSizeBytes {local}", flush=True)
+                check(local == 0, ("pair_flow_i8 spills", regs, local))
             rows.append({"block": bi, "mode": mode, "max_abs_err": err,
                          "update_err": upd,
                          "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound[0], "bound_by": bound[1]})
     return rows
+
+
+def i8_batch_shape(params, cfg, dev, rows: int = 128, frames: int = 900):
+    """``pair_flow_i8`` on lj22k block 0 at the offline benchmark's batch
+    shape (128 rows of 900 padded frames): CUDA-event and profiler ms per
+    launch beside ``pair_bound_ms``."""
+    import torch
+    from flowavenet_tpu_torch.models import flowavenet as fwn
+    from flowavenet_tpu_torch.ops import pair_flow as pf
+    from flowavenet_tpu_torch.ops.conv import quantize_act
+    from flowavenet_tpu_torch.utils.tree import tree_map
+
+    dt, cc = torch.bfloat16, cfg.model.num_mels
+    tk = frames * cfg.audio.hop_size // 2
+    pair = tree_map(lambda l: l.to(dev),
+                    fwn._index(fwn._pair_params(params["blocks"][0]), 0))
+    ops = pf.pair_reverse_operands_int8(pair, dtype=dt)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u, v = (torch.randn(rows, tk, 1, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    (qa, sa), (qb, sb) = (
+        quantize_act(torch.rand(rows, tk, cc, generator=g, device=dev
+                                ).to(dt), per_row=True) for _ in range(2))
+    crs = torch.cat([sa.reshape(-1, 1), sb.reshape(-1, 1)], 1)
+
+    def kern():
+        return pf.fused_pair_reverse(u, v, qa, qb, ops, int8=True,
+                                     c_row_scales=crs)
+    ms, kernel_ms = _time_ms(kern, 3), _kernel_ms(kern, 3)
+    bound, by = pf.pair_bound_ms(rows, tk, 1, cc, int8=True)
+    launch = dict(pf.LAST_LAUNCH["pair_flow_i8"])
+    print(f"pair_flow_i8 block 0 at the benchmark's batch ({rows} x "
+          f"{frames} frames, T_k={tk}): kernel={ms:.3f} ms profiler_kernel="
+          f"{kernel_ms:.3f} ms bound={bound:.3f} ms ({by}), "
+          f"{100 * bound / kernel_ms:.2f} % of bound; tile "
+          f"{launch['t_tile']}, {launch['ctas']} CTAs", flush=True)
+    return {"rows": rows, "frames": frames, "T_k": tk, "ms": ms,
+            "kernel_ms": kernel_ms, "bound_ms": bound, **launch}
 
 
 # The other reverse-pair kernels: name -> (blocks, modes)
@@ -3379,6 +3425,7 @@ def main() -> int:
     B, T = len(FRAMES), padded_frames(max(FRAMES), cfg) * cfg.audio.hop_size
     # phase 2: blocks 0-4 take the int8 kernel, blocks 0-3 the bf16 one
     rows = kernel_checks(params, cfg, B, T, range(5), dev)
+    i8_batch = i8_batch_shape(params, cfg, dev)
     # phase 2b: the Winograd, hoisted and int8 res/skip pairs
     vrows = variant_checks(params, cfg, B, T, dev)
     # phase 2d: the hoisted tensor-core pairs over tiles, and with the front
@@ -3533,8 +3580,8 @@ def main() -> int:
 
     kernels = [
         entry("pair_flow", "bf16", 410, launches["pair_flow"], range(3, 4)),
-        entry("pair_flow_i8", "int8", 514, launches["pair_flow_i8"],
-              range(5)),
+        {**entry("pair_flow_i8", "int8", 514, launches["pair_flow_i8"],
+                 range(5)), "batch_shape": i8_batch},
         ventry("pair_flow_i8rs", 546, "int8"),
         ventry("pair_flow_hoisted", 591, "bf16"),
         ventry("pair_flow_hoisted_i8", 575, "int8"),

@@ -24,7 +24,10 @@
 // traffic, pair_flow_common.cuh) and, at the deep blocks' short T, how
 // full the SMs are: the wrapper picks their tile for the fewest waves
 // (ops/pair_flow.py:hoisted_t_tile).  Every fp32 instance runs on CUDA
-// cores (FMAs and __dp4a).
+// cores (FMAs and __dp4a).  The bf16 variant 1 quantizes its activations
+// with quantize_rows_bf2, which spends no integer division per element;
+// what its time on the card goes to is split in pair_flow_common.cuh's
+// header.
 
 #include "pair_flow_common.cuh"
 

@@ -50,7 +50,15 @@
 // fragments at about the same time, through L1.  What bounds the
 // tensor-core kernels then is the L2 weight traffic (each CTA re-reads a
 // pair's weights once per m-tile) and, in the Winograd pair, the input
-// transforms, which run on CUDA cores once per warp A fragment.  The front
+// transforms, which run on CUDA cores once per warp A fragment.  That
+// bound is not the whole story for pair_flow_i8 on the main path: timed at
+// the lj22k blocks with one part of its work removed at a time, its B
+// loads take ~17 % of the kernel, the int8 conditioning product ~12 %, the
+// gate's tanh/exp ~5 %, and its four activation quantizations 18 % before
+// quantize_rows_bf2 (below) roughly halved them; sharing each B fragment
+// across two or three m-tiles of a warp item did not pay, since the
+// accumulators it adds leave too few of the 128 registers a thread of a
+// 512-thread CTA has for the loads in flight that hide L2 latency.  The front
 // conv (K = 3*R_in) and the zero conv (N = 2*R_in) cost 2560*R_in
 // operations per net and row against ~2.1 M for the rest of the net: under
 // 1 % at R_in <= 4, so they stay on CUDA cores in the dense instances, but
@@ -839,6 +847,61 @@ __device__ void direct_layer_tc(const Params& p, const Flow& f,
   }
 }
 
+// ---------------------------------------------------------------------------
+// pair_flow_i8's activation quantization
+// ---------------------------------------------------------------------------
+//
+// quantize_rows walks the rows flat, so in each of its two passes every
+// element costs an integer division and a remainder by R, which is not
+// known at compile time; at the lj22k blocks that made the four
+// quantizations of a pair 18 % of pair_flow_i8's time on the card.
+// quantize_rows_bf2 does the same with no division: R / 2 divides NT, so
+// each thread keeps the two adjacent columns c, c + 1 of every (NT / (R /
+// 2))-th row and reads them as one bf16x2 word.  The max-abs is exact in
+// any order and each code is the same expression of its element, so Q and
+// the scale are quantize_rows' bits.  Only pair_flow_i8 (pair_flow.cu
+// variant 1: bf16, int8 filter|gate convs and conditioning, bf16
+// res/skip) takes it; the other int8 instances keep quantize_rows.
+__device__ inline float quantize_rows_bf2(const __nv_bfloat16* H, int8_t* Q,
+                                          int r0, int r1, int R, int ldh,
+                                          int ldq, float* red) {
+  const int words = R / 2, c = 2 * (threadIdx.x % words);
+  const int j0 = r0 + threadIdx.x / words, step = NT / words;
+  // row j's columns c, c + 1, bf16 -> fp32 (exact)
+  auto load = [&](int j) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        H + (size_t)j * ldh + c));
+  };
+  float m = 0.f;
+  for (int j = j0; j < r1; j += step) {
+    const float2 x = load(j);
+    m = fmaxf(m, fmaxf(fabsf(x.x), fabsf(x.y)));
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float x = threadIdx.x < NT / 32 ? red[threadIdx.x] : 0.f;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
+    if (threadIdx.x == 0) red[0] = x;
+  }
+  __syncthreads();
+  const float scale = fmaxf(red[0], 1e-30f) * (1.0f / 127.0f);
+  for (int j = j0; j < r1; j += step) {
+    const float2 x = load(j);
+    const int8_t q0 = (int8_t)fminf(fmaxf(rintf(x.x / scale), -127.f), 127.f);
+    const int8_t q1 = (int8_t)fminf(fmaxf(rintf(x.y / scale), -127.f), 127.f);
+    *reinterpret_cast<uint16_t*>(Q + (size_t)j * ldq + c) =
+        (uint16_t)((uint8_t)q0 | (uint8_t)q1 << 8);
+  }
+  __syncthreads();
+  return scale;
+}
+
 // The bf16 conditioning 1x1 of one warp item on the tensor cores: this
 // lane's c rows at global positions p_lo / p_hi (A fragment rows lo and
 // hi, already clamped into [0, T)) against the packed cond_w Wc, TW
@@ -1244,6 +1307,8 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   // the direct hoisted tensor-core instances: u/v windows at a padded row
   // stride, front and zero convs on the tensor cores where p.ftc says so
   constexpr bool HT = pad_windows(TC, COND, P);
+  // pair_flow_i8 quantizes its activations with quantize_rows_bf2
+  constexpr bool QBF2 = TC && I8 && COND == COND_I8 && !RS && P == 0;
   const int R = p.R, Rin = p.Rin, ld = s.ldh, ldx = row_ld_h(Rin, HT);
   const int ngrp = NT / R, grp = threadIdx.x / R, n = threadIdx.x % R;
   T* H = static_cast<T*>(s.H);
@@ -1311,7 +1376,10 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   __syncthreads();
   save.rows(ACT_H0, H, o0 - EH0, o1 + EH0);
   float a_scale = 0.f;
-  if constexpr (I8)
+  if constexpr (QBF2)
+    a_scale = quantize_rows_bf2(reinterpret_cast<const __nv_bfloat16*>(H),
+                                s.Q, o0 - EH0, o1 + EH0, R, ld, s.ldq, s.red);
+  else if constexpr (I8)
     a_scale = quantize_rows(H, s.Q, o0 - EH0, o1 + EH0, R, ld, s.ldq, s.red);
 
   // layer 0 (d=1) over [o0-EG0, o1+EG0): gated -> G
@@ -1386,7 +1454,10 @@ __device__ void coupling_net(const Params& p, const Flow& f, const Smem& s,
   }
   __syncthreads();
   save.rows(ACT_H1, H, o0 - EG0, o1 + EG0);
-  if constexpr (I8)
+  if constexpr (QBF2)
+    a_scale = quantize_rows_bf2(reinterpret_cast<const __nv_bfloat16*>(H),
+                                s.Q, o0 - EG0, o1 + EG0, R, ld, s.ldq, s.red);
+  else if constexpr (I8)
     a_scale = quantize_rows(H, s.Q, o0 - EG0, o1 + EG0, R, ld, s.ldq, s.red);
 
   // layer 1 (d=3) over [o0, o1): gated -> G

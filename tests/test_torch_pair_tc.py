@@ -4,7 +4,9 @@ wrapper hands to ``pair_flow``, ``pair_flow_i8``, ``pair_flow_i8rs``,
 ``pair_flow_hoisted``, ``pair_flow_hoisted_i8``, ``pair_flow_wino`` and
 ``pair_flow_wino4``, emulated lane by lane as the
 PTX ISA lays out the mma.sync operands (with ``pair_flow_i8rs``'s int8
-res/skip products on the gate codes), and the wrapper's geometry checks.  No JAX and no card:
+res/skip products on the gate codes), the wrapper's geometry checks, and
+``pair_flow_i8``'s activation quantization (``quantize_rows_bf2``) emulated
+thread by thread.  No JAX and no card:
 the kernels themselves are held against their plain versions by
 tests/test_torch_card.py (``-k tc``) and chip_smoke.py."""
 
@@ -321,3 +323,50 @@ def test_i8rs_gate_codes_through_ldmatrix_give_the_int_dot(R):
         sk1[:, c] = v0[:, c]
         sk1[:, 8 * t0 + 8 * tj:8 * t0 + 16 * tj] = v1[:, c]
     np.testing.assert_array_equal(sk1, pf._int_dot(q, w[2]).numpy())
+
+
+
+def _quantize_rows_bf2(h: np.ndarray, r0: int, r1: int, nt: int = 512):
+    """pair_flow_common.cuh:quantize_rows_bf2 emulated for all threads at
+    once: thread t takes columns 2*(t % (R/2)) + {0, 1} of rows r0 + t //
+    (R/2) + k*(nt // (R/2)) below r1 (R/2 divides nt).  Returns how often
+    each element was touched, the scale and the codes (fp32 division,
+    round half to even, as rintf(x / scale))."""
+    R = h.shape[1]
+    words = R // 2
+    assert nt % words == 0
+    step = nt // words
+    t = np.arange(nt)
+    rows = ((r0 + t // words)[:, None]
+            + step * np.arange(-(-(r1 - r0) // step))[None])
+    rows = np.repeat(rows[:, :, None], 2, axis=2)
+    cols = np.broadcast_to((2 * (t % words))[:, None, None]
+                           + np.arange(2)[None, None], rows.shape)
+    keep = rows < r1
+    J, C = rows[keep], cols[keep]
+    count = np.zeros(h.shape, dtype=np.int64)
+    np.add.at(count, (J, C), 1)
+    m = np.abs(h[J, C]).max()
+    scale = np.float32(max(m, np.float32(1e-30))) * np.float32(1 / 127)
+    q = np.zeros(h.shape, dtype=np.int8)
+    q[J, C] = np.clip(np.rint(h[J, C] / scale), -127, 127)
+    return count, scale, q
+
+
+@pytest.mark.parametrize("R", [32, 128, 256, 512])
+def test_quantize_rows_bf2_covers_each_element_once_with_the_plain_codes(R):
+    """pair_flow_i8's quantize_rows_bf2: every element of rows [r0, r1) is
+    quantized by exactly one thread, and the scale and codes are the plain
+    version's (_quant_act over the same rows), at the lj22k width and the
+    narrowest and widest R a tensor-core instance takes, over the row
+    ranges of h0 (window rows 1-83 and 6-78) and h1 (2-82, 7-77)."""
+    rng = np.random.RandomState(R)
+    h = torch.from_numpy(rng.randn(84, R).astype(np.float32)).bfloat16()
+    hf = h.float().numpy()
+    for r0, r1 in ((1, 83), (2, 82), (6, 78), (7, 77)):
+        count, scale, q = _quantize_rows_bf2(hf, r0, r1)
+        assert (count[r0:r1] == 1).all()
+        assert count.sum() == (r1 - r0) * R
+        want, want_scale = pf._quant_act(h[None, r0:r1].float())
+        assert np.float32(want_scale.item()) == scale
+        assert np.array_equal(q[r0:r1], want[0].numpy().astype(np.int8))
