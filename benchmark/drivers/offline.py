@@ -62,7 +62,7 @@ def execute(run) -> None:
     cfg = port_config(cell.config)
     dev = run.device
     dt = getattr(torch, cell.config["precision"]["serve_weights"])
-    params = weights.make(cell.model, run.seed, dev, dt)
+    params = weights.make(cell.config, run.seed, dev, dt)
     inputs = Inputs(run, cfg)
     hop = cfg.audio.hop_size
 

@@ -187,7 +187,7 @@ def execute(run) -> None:
     cell, t = run.cell, run.cell.traffic
     cfg = port_config(cell.config)
     dt = getattr(torch, cell.config["precision"]["serve_weights"])
-    params = weights.make(cell.model, run.seed, run.device, dt)
+    params = weights.make(cell.config, run.seed, run.device, dt)
     res = serve_window(run, cfg, params, t["rate_per_s"], run.seconds)
     del params
     lat = latencies_ms(res["client"])

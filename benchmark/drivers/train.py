@@ -50,7 +50,19 @@ def corpus(run, cfg) -> list:
     return out
 
 
+def _flowavenet_only(cell) -> None:
+    """Refuse, before set-up, a configuration of another family:
+    ``reference_steps`` passes FloWaveNet's ``logs_hinge`` and
+    ``verify_run`` reads its ``blocks/<n_block - 1>/`` leaves."""
+    if cell.config["reference"] != "flowavenet":
+        raise NotImplementedError(
+            f"{cell.name}: the training driver's reference step is "
+            f"FloWaveNet's, and the configuration's family is "
+            f"{cell.config['reference']!r}")
+
+
 def execute(run) -> None:
+    _flowavenet_only(run.cell)
     from fwbench.cells import port_config
     from flowavenet_tpu_torch.data.dataset import CropDataset
 
@@ -80,7 +92,7 @@ def _train(run, cfg, dev, data, utts) -> None:
                                                            make_train_step)
     from flowavenet_tpu_torch.utils.tree import leaves
     t = run.cell.traffic
-    params = weights.make(run.cell.model, run.seed, dev, torch.float32)
+    params = weights.make(run.cell.config, run.seed, dev, torch.float32)
     opt = make_optimizer(cfg.train)
     state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
                        params, opt.init(params))
@@ -163,7 +175,7 @@ def reference_steps(run, prec=None) -> dict:
             out["speaker"] = torch.from_numpy(b["speaker"]).to(dev)
         return out
 
-    raw = weights.make(model, run.seed, dev, torch.float32)
+    raw = weights.make(cell.config, run.seed, dev, torch.float32)
     b0 = batch(0)
     params = ref.ddi(raw, model, b0["audio"], b0["mel"], b0.get("speaker"))
     del raw
@@ -204,7 +216,7 @@ def verify_run(run, control: bool = False) -> None:
     d_got = [a.float() - b.float() for a, b in zip(got["p3"], got["p0"])]
     d_want = [a - b for a, b in zip(want["p3"], want["p0"])]
     cg = verify.leaf_gaps(d_got, d_want, keep)
-    paths = weights.leaf_paths(run.cell.model)
+    paths = weights.leaf_paths(run.cell.config)
     last = f"blocks/{run.cell.model['n_block'] - 1}/"
     run.check("grad_gap", float(np.median(gg)))
     run.check("change_gap", float(np.median(cg)))

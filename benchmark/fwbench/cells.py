@@ -4,8 +4,11 @@
 configuration is ``configs/<config>.json``, the mix ``traffic/<mix>.json``
 (which names its driver, ``drivers/<driver>.py``), a per-layer metric is
 ``metrics/<metric>.py`` and a cell's correctness limits are
-``limits/<cell>.json``.  Adding a cell, a configuration, a mix or a metric
-adds files and entries; nothing here names one.
+``limits/<cell>.json``.  A configuration's ``reference`` key names its
+model family, ``fwbench/families/<reference>.py``, and its plain
+reference, ``fwbench/references/<reference>.py``.  Adding a cell, a
+configuration, a model family, a mix or a metric adds files and entries;
+nothing here names one.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+
+from . import families
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -55,6 +60,11 @@ class Cell:
     @property
     def model(self) -> dict:
         return self.config["model"]
+
+    @property
+    def family(self):
+        """The configuration's model family (``fwbench/families/``)."""
+        return families.of(self.config)
 
     def driver(self):
         return _module(self.bench / "drivers" / f"{self.traffic['driver']}.py",

@@ -1,14 +1,17 @@
-"""Yardsticks: the model's FLOPs from the configuration's shapes, the work
-and least time of one reverse pair launch (a frozen copy of the program's
+"""Yardsticks: the model's FLOPs from the configuration's shapes (each
+family counts its own, ``fwbench/families/``), the work and least time of
+one reverse pair launch (a frozen copy of the program's
 ``ops/pair_flow.py:pair_cost`` counts), and the card's published peaks.
 
-Counts are FLOPs, two per multiply-add, of what the model asks for: the
-coupling nets' convolutions and 1x1s over the audio's own length (not the
-padding, not a recompute), the upsampler, and the speaker term once per
-row (the speaker embedding is constant over time).
+Counts are FLOPs, two per multiply-add, of what the model asks for: its
+convolutions and 1x1s over the audio's own length (not the padding, not a
+recompute), the upsampler, and a term constant over time, such as the
+speaker's, once per row.
 """
 
 from __future__ import annotations
+
+from . import families
 
 # NVIDIA H100 SXM data sheet, dense (no sparsity), at the 700 W limit
 PEAK_BF16 = 989e12          # FLOP/s
@@ -16,40 +19,11 @@ PEAK_INT8 = 1979e12         # OP/s
 HBM_BYTES_S = 3.35e12       # bytes/s
 
 
-def _net_flops(model: dict, k: int) -> tuple[float, float]:
-    """(FLOPs of one coupling net at block level k per row of that level,
-    FLOPs of its speaker term per utterance)."""
-    R, nl = model["filter_size"], model["n_layer"]
-    r_in = 2 ** (k - 1)                        # half of the level's channels
-    out = 2 * r_in if model["affine"] else r_in
-    cc = model["num_mels"] * 2 ** k // 2
-    per_row = 2 * 3 * r_in * R                 # front conv, 3 taps
-    per_row += nl * (2 * 3 * R * 2 * R         # filter|gate conv, 3 taps
-                     + 2 * cc * 2 * R          # conditioning 1x1
-                     + 2 * R * R)              # skip 1x1
-    per_row += (nl - 1) * 2 * R * R            # res 1x1 (not the last layer)
-    per_row += 2 * R * R + 2 * R * out         # final and zero 1x1s
-    g = 0.0
-    if model["gin_channels"] > 0:
-        cg = model["gin_channels"] * 2 ** k // 2
-        g = nl * 2 * cg * 2 * R
-    return float(per_row), g
-
-
-def model_flops(model: dict, samples: float, rows: float) -> float:
-    """FLOPs of one pass (reverse, or the forward of the likelihood) over
-    ``samples`` audio samples in ``rows`` utterances."""
-    total = 0.0
-    for k in range(1, model["n_block"] + 1):
-        per_row, g = _net_flops(model, k)
-        total += model["n_flow"] * (per_row * samples / 2 ** k + g * rows)
-    # upsampler: a (2s x 3)-tap transposed conv per scale, s/2s of the taps
-    # per output, at each scale's output rate
-    rate = 1.0
-    for s in reversed(model["upsample_scales"]):
-        total += 2 * 2 * 3 * model["num_mels"] * samples / rate
-        rate *= s
-    return total
+def model_flops(config: dict, samples: float, rows: float) -> float:
+    """FLOPs of one pass (reverse, or the forward of the likelihood) of a
+    configuration file's model over ``samples`` audio samples in ``rows``
+    utterances, counted by its family."""
+    return families.of(config).model_flops(config["model"], samples, rows)
 
 
 def pair_cost(B: int, T: int, r_in: int, cc: int, r: int = 256,

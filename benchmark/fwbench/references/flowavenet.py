@@ -2,9 +2,9 @@
 float32 PyTorch: synthesis (``reverse``), the likelihood (``loss``) with
 the training guards, data-dependent ActNorm init (``ddi``) and the
 clip -> Adam step.  It imports nothing of the measured package; the
-parameters come in that package's tree layout (``fwbench/weights.py``),
-and everything derived from them (weight norms, folded operands, noise,
-crops) is worked out here again.
+parameters come in that package's tree layout
+(``fwbench/families/flowavenet.py``), and everything derived from them
+(weight norms, folded operands, noise, crops) is worked out here again.
 
 Tensors are channels-last ``[B, T, C]``; a 1-D kernel is ``[K, Cin, Cout]``
 and a ``K``-tap conv with dilation ``d`` reads ``x[t + (j - (K-1)/2) d]``.

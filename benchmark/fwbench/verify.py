@@ -26,9 +26,9 @@ def pcm16(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x * 32768.0), -32768.0, 32767.0)
 
 
-def reference_params(model: dict, seed: int, device, dtype):
+def reference_params(config: dict, seed: int, device, dtype):
     """The run's weights as the program got them (``dtype``), in fp32."""
-    tree = weights.make(model, seed, device, dtype)
+    tree = weights.make(config, seed, device, dtype)
     return weights.map_leaves(lambda t: t.float(), tree)
 
 
@@ -76,7 +76,7 @@ def check_synthesis(run, items: list, *, control: bool = False) -> dict:
     ref = load_reference(cell.config["reference"])
     ref.no_tf32()
     dt = getattr(torch, cell.config["precision"]["serve_weights"])
-    params = reference_params(model, run.seed, run.device, dt)
+    params = reference_params(cell.config, run.seed, run.device, dt)
     hop = cell.config["audio"]["hop_size"]
     temp = cell.config["train"]["temp"]
     want = synth_rows(ref, params, model, items, temp, hop, run.device)

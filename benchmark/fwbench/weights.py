@@ -1,17 +1,11 @@
 """Seeded random weights in the measured package's parameter layout.
 
-The tree is the one ``init_flowavenet`` builds (nested dicts and lists,
-the flow axis of each block stacked first), laid out here from the
-configuration's sizes alone.  Every leaf is a view into one of two flat
-buffers drawn on the device in two calls (uniform and normal) from a
-``torch.Generator`` seeded by the run's seed, so the same seed gives the
-same weights on either side of a comparison.
-
-Unlike a fresh init, the zero convolutions and the ActNorms are drawn
-non-zero (a trained model's are): with zero convs every coupling would be
-the identity and synthesis a reshuffle of the noise.  The ActNorm scales
-are centred so that 48 flows shrink the noise about tenfold, as a trained
-vocoder's do, which keeps the audio inside 16-bit range.
+A configuration's model family (``fwbench/families/``, named by its
+``reference`` key) lays the tree out from the ``model`` section's sizes.
+Every leaf is a view into one of two flat buffers drawn on the device in
+two calls (uniform and normal) from a ``torch.Generator`` seeded by the
+run's seed, so the same seed gives the same weights on either side of a
+comparison.
 """
 
 from __future__ import annotations
@@ -20,69 +14,13 @@ import math
 
 import torch
 
-# (kind, parameters) of each leaf's distribution:
-#   ("uniform", a): U(-a, a); ("normal", (mean, sd)); ("const", value)
-ZERO_W_SD = 0.01
-ZERO_B_SD = 0.01
-ACTNORM_B_SD = 0.01
-ACTNORM_LOGS = (0.016, 0.01)
+from . import families
 
 
-def _he(fan_in: int) -> tuple:
-    return ("uniform", math.sqrt(6.0 / fan_in))
-
-
-def _wn_conv(nf: int, k: int, cin: int, cout: int) -> dict:
-    """Weight-normalized conv leaves, stacked over ``nf`` flows."""
-    return {"v": ((nf, k, cin, cout), _he(k * cin)),
-            "g": ((nf, cout), ("const", 1.0)),
-            "b": ((nf, cout), _he(cout))}
-
-
-def layout(model: dict) -> dict:
-    """The parameter tree of ``model`` (the config file's ``model``
-    section) as {leaf: (shape, distribution)}."""
-    nf, R, nl = model["n_flow"], model["filter_size"], model["n_layer"]
-    gin = max(model["gin_channels"], 0)
-    tree: dict = {"upsample": [
-        {"v": ((2 * s, 3, 1, 1), _he(2 * s * 3)),
-         "g": ((1,), ("const", 1.0)), "b": ((1,), ("const", 0.0))}
-        for s in model["upsample_scales"]]}
-    if gin:
-        n_sp = model["n_speakers"]
-        tree["speaker_emb"] = ((n_sp, gin),
-                               ("uniform", math.sqrt(6.0 / (n_sp + gin))))
-    blocks = []
-    in_ch, cin_ch, g_ch = 1, model["num_mels"], gin
-    out_ch = 2 * in_ch
-    for _ in range(model["n_block"]):
-        sq = 2 * in_ch
-        out_ch = sq if model["affine"] else sq // 2
-        layers = []
-        for _ in range(nl):
-            layer = {"filter": _wn_conv(nf, 3, R, R),
-                     "gate": _wn_conv(nf, 3, R, R),
-                     "filter_c": _wn_conv(nf, 1, cin_ch, R),
-                     "gate_c": _wn_conv(nf, 1, cin_ch, R),
-                     "res": _wn_conv(nf, 1, R, R),
-                     "skip": _wn_conv(nf, 1, R, R)}
-            if g_ch:
-                layer["filter_g"] = _wn_conv(nf, 1, g_ch, R)
-                layer["gate_g"] = _wn_conv(nf, 1, g_ch, R)
-            layers.append(layer)
-        coupling = {
-            "front": _wn_conv(nf, 3, in_ch, R),
-            "layers": layers,
-            "final": _wn_conv(nf, 1, R, R),
-            "zero": {"w": ((nf, 1, R, out_ch), ("normal", (0.0, ZERO_W_SD))),
-                     "b": ((nf, out_ch), ("normal", (0.0, ZERO_B_SD))),
-                     "scale": ((nf, out_ch), ("const", 0.0))}}
-        actnorm = {"b": ((nf, 1, 1, sq), ("normal", (0.0, ACTNORM_B_SD))),
-                   "logs": ((nf, 1, 1, sq), ("normal", ACTNORM_LOGS))}
-        blocks.append({"flows": {"actnorm": actnorm, "coupling": coupling}})
-        in_ch, cin_ch, g_ch = 2 * in_ch, 2 * cin_ch, 2 * g_ch
-    tree["blocks"] = blocks
-    return tree
+def layout(config: dict) -> dict:
+    """The parameter tree of a configuration file's model as {leaf:
+    (shape, distribution)}, laid out by its family."""
+    return families.of(config).layout(config["model"])
 
 
 def _walk(tree, fn):
@@ -99,10 +37,11 @@ def _leaf_specs(tree) -> list:
     return out
 
 
-def make(model: dict, seed: int, device, dtype=torch.float32) -> dict:
-    """The weights of ``model`` for ``seed`` on ``device``, cast to
-    ``dtype`` (bf16 as synthesis serves them, fp32 for training)."""
-    tree = layout(model)
+def make(config: dict, seed: int, device, dtype=torch.float32) -> dict:
+    """The weights of a configuration file's model for ``seed`` on
+    ``device``, cast to ``dtype`` (bf16 as synthesis serves them, fp32 for
+    training)."""
+    tree = layout(config)
     specs = _leaf_specs(tree)
     n_u = sum(math.prod(s) for s, d in specs if d[0] == "uniform")
     n_n = sum(math.prod(s) for s, d in specs if d[0] == "normal")
@@ -126,15 +65,15 @@ def make(model: dict, seed: int, device, dtype=torch.float32) -> dict:
     return _walk(tree, leaf)
 
 
-def n_params(model: dict) -> int:
-    return sum(math.prod(s) for s, _ in _leaf_specs(layout(model)))
+def n_params(config: dict) -> int:
+    return sum(math.prod(s) for s, _ in _leaf_specs(layout(config)))
 
 
 def map_leaves(fn, tree):
     return _walk(tree, fn)
 
 
-def leaf_paths(model: dict) -> list:
+def leaf_paths(config: dict) -> list:
     """Each leaf's path in the tree, in leaf order."""
     out: list = []
 
@@ -147,5 +86,5 @@ def leaf_paths(model: dict) -> list:
                 walk(v, f"{path}/{i}")
         else:
             out.append(path[1:])
-    walk(layout(model), "")
+    walk(layout(config), "")
     return out

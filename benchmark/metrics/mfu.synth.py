@@ -10,6 +10,6 @@ def read(run):
     samples = run.counters.get("synth.requested_samples")
     if not samples or not run.window_s:
         return None
-    f = flops.model_flops(run.cell.model, samples,
+    f = flops.model_flops(run.cell.config, samples,
                           run.counters["synth.rows"])
     return 100.0 * f / run.window_s / flops.PEAK_BF16

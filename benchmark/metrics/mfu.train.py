@@ -11,5 +11,5 @@ def read(run):
     if not samples or not run.window_s:
         return None
     rows = run.counters["train.steps"] * run.cell.traffic["batch"]
-    f = 3.0 * flops.model_flops(run.cell.model, samples, rows)
+    f = 3.0 * flops.model_flops(run.cell.config, samples, rows)
     return 100.0 * f / run.window_s / flops.PEAK_BF16

@@ -43,7 +43,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cfg = cells.port_config(cell.config)
     dt = getattr(torch, cell.config["precision"]["serve_weights"])
-    params = weights.make(cell.model, args.seed, dev, dt)
+    params = weights.make(cell.config, args.seed, dev, dt)
     for k, rate in enumerate(float(r) for r in args.rates.split(",")):
         run = cells.Run(cell, args.seed, args.seconds, False, time.time(),
                         dev)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from fwbench import flops, noise, weights
+from fwbench.families import flowavenet as family
 from fwbench.references import flowavenet as ref
 from flowavenet_tpu_torch.config import get_config
 from flowavenet_tpu_torch.models import flowavenet as fwn
@@ -18,12 +19,17 @@ from flowavenet_tpu_torch.training.train_state import actnorm_hinge_penalty
 from flowavenet_tpu_torch.utils.tree import leaves, tree_map
 
 
+def _config(model: dict) -> dict:
+    """A configuration file's sections that the yardsticks read."""
+    return {"reference": "flowavenet", "model": model}
+
+
 @pytest.fixture(params=["tiny", "tiny_gin"])
 def setup(request, monkeypatch):
     cfg = get_config(request.param)
     m32 = dataclasses.replace(cfg.model, use_pallas=False)
     model = dataclasses.asdict(cfg.model)
-    params = weights.make(model, 7, "cpu")
+    params = weights.make(_config(model), 7, "cpu")
     g = torch.Generator().manual_seed(1)
     frames = 16
     z = torch.randn(2, frames * cfg.audio.hop_size, generator=g) * 0.7
@@ -38,7 +44,8 @@ def test_layout_matches_the_package(setup):
     pkg = fwn.init_flowavenet(torch.Generator().manual_seed(0), m32)
     assert [tuple(x.shape) for x in leaves(params)] == \
         [tuple(x.shape) for x in leaves(pkg)]
-    assert weights.n_params(model) == sum(x.numel() for x in leaves(pkg))
+    assert weights.n_params(_config(model)) == \
+        sum(x.numel() for x in leaves(pkg))
 
 
 def test_reverse_matches_the_package(setup):
@@ -104,7 +111,7 @@ def test_flops_of_one_flow_by_hand():
             + 2 * 2 * R * R                  # skip, two layers
             + 2 * R * R                      # res, first layer
             + 2 * R * R + 2 * R * 2)         # final, zero
-    per_row, g = flops._net_flops(model, 1)
+    per_row, g = family._net_flops(model, 1)
     assert per_row == hand and g == 0
-    total = flops.model_flops(model, 1.0, 0.0)
+    total = flops.model_flops(_config(model), 1.0, 0.0)
     assert 16.4e6 < total < 16.6e6
