@@ -5,9 +5,17 @@ A family module gives the yardsticks that depend on the model's shapes:
 
 - ``layout(model) -> {leaf: (shape, distribution)}``: the measured
   package's parameter tree for the configuration's ``model`` section, in
-  leaf order (nested dicts and lists), each leaf's distribution as
-  ``("uniform", a)`` for U(-a, a), ``("normal", (mean, sd))`` or
-  ``("const", value)``; ``fwbench/weights.py`` draws it from the seed.
+  leaf order (nested dicts and lists), each leaf's distribution one of
+  four kinds, which ``fwbench/weights.py`` draws from the seed:
+
+  - ``("uniform", a)``: U(-a, a);
+  - ``("normal", (mean, sd))``: N(mean, sd²);
+  - ``("orthogonal", None)``: for a leaf of shape ``(..., n, n)``, each
+    trailing n x n matrix the Q of a QR of a standard-normal one, with
+    det +1 (as ``glow.py``'s invertible 1x1 convolutions start);
+  - ``("const", value)``: every element ``value``.
+
+  Any other kind raises ``ValueError`` naming the leaf.
 - ``model_flops(model, samples, rows) -> float``: the FLOPs of one pass
   over ``samples`` audio samples in ``rows`` utterances, by the counting
   rules at the top of ``fwbench/flops.py``.

@@ -2,10 +2,12 @@
 
 A configuration's model family (``fwbench/families/``, named by its
 ``reference`` key) lays the tree out from the ``model`` section's sizes.
-Every leaf is a view into one of two flat buffers drawn on the device in
-two calls (uniform and normal) from a ``torch.Generator`` seeded by the
-run's seed, so the same seed gives the same weights on either side of a
-comparison.
+Every drawn leaf is a view into one of two flat buffers drawn on the
+device in two calls (uniform and normal) from a ``torch.Generator`` seeded
+by the run's seed, so the same seed gives the same weights on either side
+of a comparison. An orthogonal leaf takes its values from the normal
+buffer in leaf order, as a normal leaf does, and turns each trailing n x n
+matrix into the Q of its QR.
 """
 
 from __future__ import annotations
@@ -37,14 +39,41 @@ def _leaf_specs(tree) -> list:
     return out
 
 
+# each kind of leaf and the flat buffer it draws from (None: no draw)
+KINDS = {"uniform": "uniform", "normal": "normal", "orthogonal": "normal",
+         "const": None}
+
+
+def _orthogonal(a: torch.Tensor, dtype) -> torch.Tensor:
+    """The Q of a QR of each trailing n x n matrix of ``a``, with column 0
+    negated where det(Q) < 0 (``glow.py``'s ``Invertible1x1Conv``), so det
+    is +1. Worked in float64 on the CPU, so Q follows from the drawn values
+    alone and not from the device's solver; cast to ``dtype`` there."""
+    q, _ = torch.linalg.qr(a.to("cpu", torch.float64))
+    flip = torch.where(torch.linalg.det(q) < 0, -1.0, 1.0)
+    q[..., 0] *= flip[..., None]
+    return q.to(dtype).to(a.device)
+
+
+def _check(paths: list, specs: list) -> None:
+    for path, (shape, (kind, _)) in zip(paths, specs):
+        if kind not in KINDS:
+            raise ValueError(f"leaf {path}: unknown distribution kind "
+                             f"{kind!r}; the kinds are {sorted(KINDS)}")
+        if kind == "orthogonal" and (len(shape) < 2 or shape[-1] != shape[-2]):
+            raise ValueError(f"leaf {path}: an orthogonal leaf has shape "
+                             f"(..., n, n), not {tuple(shape)}")
+
+
 def make(config: dict, seed: int, device, dtype=torch.float32) -> dict:
     """The weights of a configuration file's model for ``seed`` on
     ``device``, cast to ``dtype`` (bf16 as synthesis serves them, fp32 for
     training)."""
     tree = layout(config)
     specs = _leaf_specs(tree)
-    n_u = sum(math.prod(s) for s, d in specs if d[0] == "uniform")
-    n_n = sum(math.prod(s) for s, d in specs if d[0] == "normal")
+    _check(_paths(tree), specs)
+    n_u = sum(math.prod(s) for s, d in specs if KINDS[d[0]] == "uniform")
+    n_n = sum(math.prod(s) for s, d in specs if KINDS[d[0]] == "normal")
     gen = torch.Generator(device).manual_seed(int(seed))
     uni = torch.rand(n_u, generator=gen, device=device) * 2.0 - 1.0
     nrm = torch.randn(n_n, generator=gen, device=device)
@@ -53,12 +82,15 @@ def make(config: dict, seed: int, device, dtype=torch.float32) -> dict:
     def leaf(spec):
         shape, (kind, arg) = spec
         n = math.prod(shape)
-        if kind == "const":
+        buf = KINDS[kind]
+        if buf is None:
             t = torch.full(shape, float(arg), device=device)
         else:
-            src = uni if kind == "uniform" else nrm
-            t = src[pos[kind]: pos[kind] + n].view(shape)
-            pos[kind] += n
+            src = uni if buf == "uniform" else nrm
+            t = src[pos[buf]: pos[buf] + n].view(shape)
+            pos[buf] += n
+            if kind == "orthogonal":
+                return _orthogonal(t, dtype)
             t = t * arg if kind == "uniform" else t * arg[1] + arg[0]
         return t.to(dtype)
 
@@ -73,8 +105,7 @@ def map_leaves(fn, tree):
     return _walk(tree, fn)
 
 
-def leaf_paths(config: dict) -> list:
-    """Each leaf's path in the tree, in leaf order."""
+def _paths(tree) -> list:
     out: list = []
 
     def walk(t, path):
@@ -86,5 +117,10 @@ def leaf_paths(config: dict) -> list:
                 walk(v, f"{path}/{i}")
         else:
             out.append(path[1:])
-    walk(layout(config), "")
+    walk(tree, "")
     return out
+
+
+def leaf_paths(config: dict) -> list:
+    """Each leaf's path in the tree, in leaf order."""
+    return _paths(layout(config))
