@@ -169,7 +169,7 @@ def test_gate_runs_end_to_end_without_jax(tmp_path):
         " in ('jax', 'flowavenet_tpu'))))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert proc.stdout.count("GATE ") == 2 * (len(qg.GATE_ROUTES) - 1)

@@ -145,8 +145,9 @@ def test_service_over_data_mesh(model):
             ts = [threading.Thread(target=go, args=(i,)) for i in range(3)]
             for t in ts:
                 t.start()
-            for t in ts:
-                t.join()
+            for i, t in enumerate(ts):
+                t.join(timeout=120)
+                assert not t.is_alive(), f"submit of MELS[{i}] still waiting"
             s.out = out
         for a, b in zip(ref.out, svc.out):
             np.testing.assert_allclose(b, a, rtol=0, atol=ATOL)

@@ -105,8 +105,9 @@ def _post_many(httpd, reqs):
           for i, (m, s) in enumerate(reqs)]
     for t in ts:
         t.start()
-    for t in ts:
-        t.join()
+    for i, t in enumerate(ts):
+        t.join(timeout=150)  # past _post's 120 s socket timeout
+        assert not t.is_alive(), f"POST /synthesize request {i} still open"
     assert all(o[0] == 200 for o in out), [o[0] for o in out]
     return [o[2] for o in out]
 
@@ -269,8 +270,9 @@ def test_service_audio_matches_jax_dispatch(model):
     ts = [threading.Thread(target=go, args=(i,)) for i in range(3)]
     for t in ts:
         t.start()
-    for t in ts:
-        t.join()
+    for i, t in enumerate(ts):
+        t.join(timeout=120)
+        assert not t.is_alive(), f"submit of mel {i} still waiting"
     got.close()
     assert got.stats["dispatches"] == 1
     for g, w in zip(out, want):

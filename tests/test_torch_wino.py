@@ -7,6 +7,7 @@ is held against the plain version on the card (tests/test_torch_card.py,
 chip_smoke.py)."""
 
 import dataclasses
+import functools
 import itertools
 
 import jax
@@ -45,51 +46,49 @@ def params():
 
 @pytest.fixture(scope="module")
 def jax_runs(params):
-    """One JAX interpret-mode call per variant (the slow part): block 0's
-    pair, B = 2, T = 100.  F(2,3) in fp32 runs on three JAX tiles of 48
-    (the tile shrunk as test_wino_multi_tile does), the others on one.
-    The hoisted variants (``_pair_kernel_wino_hoisted``) get the
-    conditioning pre-activations c_half @ hoist_w, rounded once to the
-    storage type, which the port's runs are handed as they are."""
+    """One JAX interpret-mode call per variant (the slow part), made when a
+    test first asks for it: block 0's pair, B = 2, T = 100.  F(2,3) in fp32
+    runs on three JAX tiles of 48 (the tile shrunk as test_wino_multi_tile
+    does), the others on one.  The hoisted variants
+    (``_pair_kernel_wino_hoisted``) get the conditioning pre-activations
+    c_half @ hoist_w, rounded once to the storage type, which the port's
+    runs are handed as they are."""
     jp_all, tp_all = params
     jp = jax.tree.map(lambda l: l[0], jfwn._pair_params(jp_all["blocks"][0]))
     tpair = tfwn._index(tfwn._pair_params(tp_all["blocks"][0]), 0)
     rng = np.random.RandomState(0)
     x = [rng.randn(2, T, 1).astype(np.float32) for _ in range(2)]
     x += [rng.randn(2, T, CFG.num_mels).astype(np.float32) for _ in range(2)]
-    out, hoist = {}, {}
+    return tpair, x, functools.cache(lambda name: _jax_run(jp, x, name))
+
+
+def _jax_run(jp, x, name):
+    """The variant's outputs, and its hoisted pre-activations or None."""
+    P = 12 if name.startswith("f43") else 6
+    jdt = jnp.bfloat16 if "bf16" in name else jnp.float32
+    hoisted = name.endswith("hoisted")
+    hoist = None
     saved = jpf.WINO_T_TILE
     try:
-        for name, P, jdt in (("f23_fp32", 6, jnp.float32),
-                             ("f43_fp32", 12, jnp.float32),
-                             ("f23_bf16", 6, jnp.bfloat16),
-                             ("f23_fp32_hoisted", 6, jnp.float32),
-                             ("f43_fp32_hoisted", 12, jnp.float32),
-                             ("f23_bf16_hoisted", 6, jnp.bfloat16),
-                             ("f43_bf16_hoisted", 12, jnp.bfloat16)):
-            jpf.WINO_T_TILE = 48 if name == "f23_fp32" else saved
-            make = (jpf.pair_reverse_operands_wino4 if P == 12
-                    else jpf.pair_reverse_operands_wino)
-            args = [jnp.asarray(a, jdt) for a in x]
-            ops = make(jp, dtype=jdt)
-            hoisted = name.endswith("hoisted")
-            if hoisted:
-                # pop cond_w; the hoist matmul sums in fp32 and rounds once
-                ops = list(ops)
-                cond_w = ops.pop(3)
-                w = jnp.concatenate([cond_w[:, l] for l in range(2)], -1)
-                args[2:] = [jnp.dot(args[2 + f], w[f],
-                                    preferred_element_type=jnp.float32
-                                    ).astype(jdt) for f in range(2)]
-                hoist[name] = [np.array(a.astype(jnp.float32))
-                               for a in args[2:]]
-            got = jpf.fused_pair_reverse_wino(
-                *args, tuple(ops), interpret=True, phases=P,
-                hoisted=hoisted)
-            out[name] = [np.asarray(g.astype(jnp.float32)) for g in got]
+        jpf.WINO_T_TILE = 48 if name == "f23_fp32" else saved
+        make = (jpf.pair_reverse_operands_wino4 if P == 12
+                else jpf.pair_reverse_operands_wino)
+        args = [jnp.asarray(a, jdt) for a in x]
+        ops = make(jp, dtype=jdt)
+        if hoisted:
+            # pop cond_w; the hoist matmul sums in fp32 and rounds once
+            ops = list(ops)
+            cond_w = ops.pop(3)
+            w = jnp.concatenate([cond_w[:, l] for l in range(2)], -1)
+            args[2:] = [jnp.dot(args[2 + f], w[f],
+                                preferred_element_type=jnp.float32
+                                ).astype(jdt) for f in range(2)]
+            hoist = [np.array(a.astype(jnp.float32)) for a in args[2:]]
+        got = jpf.fused_pair_reverse_wino(
+            *args, tuple(ops), interpret=True, phases=P, hoisted=hoisted)
     finally:
         jpf.WINO_T_TILE = saved
-    return tpair, x, out, hoist
+    return [np.asarray(g.astype(jnp.float32)) for g in got], hoist
 
 
 @pytest.mark.parametrize("name", ["f23_fp32", "f43_fp32", "f23_bf16"])
@@ -99,7 +98,8 @@ def test_plain_wino_matches_jax_kernel(jax_runs, name):
     2e-7: summation order).  bf16: the same rounding points (the input
     transforms round each operation in bf16); measured bit-identical,
     asserted at one bf16 ulp of the largest output (2^-7)."""
-    tpair, x, out, _ = jax_runs
+    tpair, x, run = jax_runs
+    out, _ = run(name)
     P = 12 if name.startswith("f43") else 6
     dt = torch.bfloat16 if name.endswith("bf16") else torch.float32
     make = (tpf.pair_reverse_operands_wino4 if P == 12
@@ -110,7 +110,7 @@ def test_plain_wino_matches_jax_kernel(jax_runs, name):
     for tile in (2 * P, 5 * P):
         got = tpf.pair_reverse_wino_ref(
             *[torch.from_numpy(a).to(dt) for a in x], ops, t_tile=tile)
-        for g, w in zip(got, out[name]):
+        for g, w in zip(got, out):
             g = g.float().numpy()
             assert np.all(np.isfinite(g))
             assert np.abs(g - w).max() <= bar * np.abs(w).max(), (name, tile)
@@ -123,8 +123,9 @@ def test_plain_wino_hoisted_matches_jax_kernel(jax_runs, name):
     own tiles vs the JAX kernel on the same pre-activations, with the
     operands of pop_cond_w (F(2,3)) and pair_reverse_operands_wino4(
     hoisted=True) (F(4,3)), bars as the Winograd pair's above."""
-    tpair, x, out, hoist = jax_runs
+    tpair, x, run = jax_runs
     name = name + "_hoisted"
+    out, hoist = run(name)
     P = 12 if name.startswith("f43") else 6
     dt = torch.bfloat16 if "bf16" in name else torch.float32
     if P == 12:
@@ -138,19 +139,19 @@ def test_plain_wino_hoisted_matches_jax_kernel(jax_runs, name):
     # the port's hoist of the same mel halves agrees with JAX's
     ce = tpf.hoist_cond(torch.from_numpy(x[2]).to(dt), w_e).float().numpy()
     bar = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
-    assert np.abs(ce - hoist[name][0]).max() <= bar * np.abs(ce).max()
-    args = [torch.from_numpy(a).to(dt) for a in x[:2] + hoist[name]]
+    assert np.abs(ce - hoist[0]).max() <= bar * np.abs(ce).max()
+    args = [torch.from_numpy(a).to(dt) for a in x[:2] + hoist]
     for tile in (2 * P, 5 * P):
         got = tpf.pair_reverse_wino_ref(*args, ops, t_tile=tile,
                                         hoisted=True)
-        for g, w in zip(got, out[name]):
+        for g, w in zip(got, out):
             g = g.float().numpy()
             assert np.all(np.isfinite(g))
             assert np.abs(g - w).max() <= bar * np.abs(w).max(), (name, tile)
     n0 = dict(tpf.LAUNCHES)
     got = tpf.fused_pair_reverse_wino(*args, ops, hoisted=True)
     assert tpf.LAUNCHES == n0                  # CPU: the plain version
-    for g, w in zip(got, out[name]):
+    for g, w in zip(got, out):
         assert np.abs(g.float().numpy() - w).max() <= bar * np.abs(w).max()
 
 
