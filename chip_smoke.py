@@ -83,7 +83,7 @@
    same bits, and prints kernel, plain and bound ms.  In bf16 all three
    run on the tensor cores; their design, registers and local bytes per
    thread and the tile, CTAs, workspace and gradient-slab bytes that the
-   bf16 launches at lj22k block 0 used (``pair_flow_train.LAST_LAUNCH``;
+   bf16 launches at lj22k block 0 used (``launch.LAST_LAUNCH``;
    for ``pair_fwd``, which runs on blocks 0-3, those of every block) are
    printed and put in the kernel line.
 5. The audio frontend (``frontend_phase``): 12 speech-like utterances of
@@ -150,6 +150,9 @@ import time
 
 import numpy as np
 
+from flowavenet_tpu_torch.ops.launch import (LAST_LAUNCH, LAUNCHES,
+                                             SMEM_MAX, kernel_attrs,
+                                             library, uses_tensor_cores)
 from flowavenet_tpu_torch.synthesis.routes import (
     ROUTES, patched as _patched, route_patches as _route_patches)
 
@@ -189,20 +192,14 @@ def _update_err(got, want, passthru) -> float:
 
 def _reset_counts() -> None:
     """Set every kernel's launch count to 0."""
-    from flowavenet_tpu_torch.ops import pair_flow as pf
-    from flowavenet_tpu_torch.ops import resblock as rb
-    for counts in (pf.LAUNCHES, rb.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _counts(nonzero: bool = True) -> dict:
     """The launches of every kernel since the last reset, by name (those
     launched at least once, unless ``nonzero`` is False)."""
-    from flowavenet_tpu_torch.ops import pair_flow as pf
-    from flowavenet_tpu_torch.ops import resblock as rb
-    return {k: v for k, v in {**pf.LAUNCHES, **rb.LAUNCHES}.items()
-            if v or not nonzero}
+    return {k: v for k, v in LAUNCHES.items() if v or not nonzero}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -340,7 +337,7 @@ def kernel_checks(params, cfg, B: int, T: int, blocks, dev):
                 check(rel <= 1e-2 and corr >= 0.9999 and upd <= 1e-2,
                       f"int8 kernel vs plain: rel {rel} corr {corr} "
                       f"update {upd}")
-                regs, local = pf.kernel_attrs(dt, int8=True)
+                regs, local = kernel_attrs("pair_flow_i8", dt)
                 print(f"pair_flow_i8 block {bi}: numRegs {regs}, "
                       f"localSizeBytes {local}", flush=True)
                 check(local == 0, ("pair_flow_i8 spills", regs, local))
@@ -379,7 +376,7 @@ def i8_batch_shape(params, cfg, dev, rows: int = 128, frames: int = 900):
                                      c_row_scales=crs)
     ms, kernel_ms = _time_ms(kern, 3), _kernel_ms(kern, 3)
     bound, by = pf.pair_bound_ms(rows, tk, 1, cc, int8=True)
-    launch = dict(pf.LAST_LAUNCH["pair_flow_i8"])
+    launch = dict(LAST_LAUNCH["pair_flow_i8"])
     print(f"pair_flow_i8 block 0 at the benchmark's batch ({rows} x "
           f"{frames} frames, T_k={tk}): kernel={ms:.3f} ms profiler_kernel="
           f"{kernel_ms:.3f} ms bound={bound:.3f} ms ({by}), "
@@ -422,9 +419,7 @@ def variant_checks(params, cfg, B: int, T: int, dev):
     for name, (blocks, modes) in VARIANTS.items():
         attrs = ""
         if name.startswith("pair_flow_wino"):
-            regs, local = pf.kernel_attrs(
-                torch.bfloat16, phases=12 if "wino4" in name else 6,
-                hoisted=name.endswith("hoisted"))
+            regs, local = kernel_attrs(name, torch.bfloat16)
             attrs = f" numRegs={regs} localSizeBytes={local}"
         for bi in blocks:
             r_in, cc, tk = 1 << bi, 80 << bi, T >> (bi + 1)
@@ -503,7 +498,7 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                         # scales follow it
                         return pf.pair_reverse_ref(
                             u, v, *c, ops,
-                            t_tile=pf.LAST_LAUNCH[name]["t_tile"], **kw)
+                            t_tile=LAST_LAUNCH[name]["t_tile"], **kw)
                 torch.cuda.synchronize()
                 _reset_counts()
                 uk, vk = kern()
@@ -521,7 +516,7 @@ def variant_checks(params, cfg, B: int, T: int, dev):
                 upd = _update_err((uk, vk), (ur, vr), passthru)
                 ms = _time_ms(kern, 3)
                 plain_ms = _time_ms(plain, 1)
-                launch = dict(pf.LAST_LAUNCH[name])
+                launch = dict(LAST_LAUNCH[name])
                 # the hoisted tensor-core pairs' launches are short enough
                 # that the events also time the wrapper: their kernel time
                 # comes from the profiler
@@ -615,14 +610,14 @@ def hoisted_i8_batch_tiles(params, T: int, dev):
     from flowavenet_tpu_torch.ops import pair_flow as pf
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    lib, pick = pf._library(), pf._hoisted_tile
+    lib, pick = library("pair_flow"), pf._hoisted_tile
     rows = []
     for B in (1, 4, 8):
         for bi in range(5, 8):
             r_in, tk = 1 << bi, T >> (bi + 1)
             kern, plain = _hoisted_case(params, bi, B, T, dev, True)
             kern()
-            fixed = pf.LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"]
+            fixed = LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"]
             batch = pf.hoisted_t_tile(
                 B, tk, n_sm, lambda tt, r_in=r_in: lib.pair_reverse_smem_bytes(
                     1, 4, 1, 256, r_in, tt))
@@ -679,11 +674,11 @@ def hoisted_sweep(params, cfg, B: int, T: int, dev):
             r_in, tk = 1 << bi, T >> (bi + 1)
             kern, plain = _hoisted_case(params, bi, B, T, dev, int8)
             kern()
-            rule = pf.LAST_LAUNCH[name]["t_tile"]
-            smem = pf._library().pair_reverse_smem_bytes
+            rule = LAST_LAUNCH[name]["t_tile"]
+            smem = library("pair_flow").pair_reverse_smem_bytes
             points = [(tt, True) for tt in sorted(set(SWEEP_TILES) | {rule})
                       if 0 < smem(1, 4 if int8 else 3, 1, 256, r_in, tt)
-                      <= 232448]
+                      <= SMEM_MAX]
             if front(r_in):
                 points.append((rule, False))
             for tt, fz in points:
@@ -769,14 +764,14 @@ def train_kernel_checks(params, cfg, B: int, T: int, blocks, dev):
             try:
                 want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
                 got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
-                fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
+                fwd = pft.fused_pair_forward(u, v, ca, cb, ops)
                 d1 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal,
                                               ops)
                 d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal,
                                               ops)
                 torch.cuda.synchronize()
                 # tile, CTAs and allocations of these launches
-                launch = {k: dict(pft.LAST_LAUNCH[k])
+                launch = {k: dict(LAST_LAUNCH[k])
                           for k in pft.TRAIN_KERNELS}
                 dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, *scal,
                                               ops)
@@ -825,7 +820,7 @@ def train_kernel_checks(params, cfg, B: int, T: int, blocks, dev):
                 fwd_ms = _time_ms(
                     lambda: pft.fused_pair_train_fwd(u, v, ca, cb, ops), 5)
                 pfw_ms = _time_ms(
-                    lambda: pf.fused_pair_forward(u, v, ca, cb, ops), 5)
+                    lambda: pft.fused_pair_forward(u, v, ca, cb, ops), 5)
                 bwd_ms = _time_ms(lambda: pft.fused_pair_train_bwd(
                     u, v, ca, cb, gu, gv, *scal, ops), 3)
                 fwd_plain = _time_ms(
@@ -958,7 +953,7 @@ def resblock_checks(params, cfg, B: int, T: int, dev):
             with torch.no_grad():
                 kms = _kernel_ms(lambda: real[name](*a, **akw), 5,
                                  "resblock")
-            launch = dict(rb.LAST_LAUNCH[name])
+            launch = dict(LAST_LAUNCH[name])
             err = max(e[0] for e in errs)
             rel = max(e[1] for e in errs)
             corr = min(e[2] for e in errs)
@@ -967,9 +962,9 @@ def resblock_checks(params, cfg, B: int, T: int, dev):
                 Bk, tk, R=a[0].shape[-1], S=a[0].shape[-1],
                 cc=a[1].shape[-1] if name == "resblock_v2" else 0,
                 dtype=a[0].dtype)
-            regs, local = rb.kernel_attrs(a[0].dtype, name == "resblock_v2")
+            regs, local = kernel_attrs(name, a[0].dtype)
             design = ("tensor cores (mma.sync)"
-                      if rb.uses_tensor_cores(a[0].dtype) else "CUDA cores")
+                      if uses_tensor_cores(a[0].dtype) else "CUDA cores")
             print(f"{tag} {mode}: {name} route vs plain route update_err "
                   f"{upd:.3e}" + (f" (plain route {upd_p:.3e})" if upd_p
                                   is not None else "")
@@ -1563,7 +1558,7 @@ def batch_composition(loaded, cfg, dev):
     rng = np.random.RandomState(SEED + 3)
     mels = [rng.rand(f, cfg.audio.num_mels).astype(np.float32)
             for f in (345, 301, 262, 180)]
-    lib = pf._library()
+    lib = library("pair_flow")
 
     def batch_rule(B, T, r, r_in, variant, n_sm):
         return pf.hoisted_t_tile(B, T, n_sm, lambda tt: (
@@ -1600,7 +1595,7 @@ def batch_composition(loaded, cfg, dev):
                 stages[n] = st.rows
                 check(_counts() == expect, (name, n, _counts()))
                 if "pair_flow_hoisted_i8" in expect:
-                    tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"][
+                    tiles.add(LAST_LAUNCH["pair_flow_hoisted_i8"][
                         "t_tile"])
             ops = _op_split(lambda: synth(4), 4)
         check(len(tiles) <= 1 or not held,
@@ -1933,7 +1928,7 @@ def odd_width_train_pair(mname: str, params, cfg, dev):
     torch.cuda.synchronize()
     _reset_counts()
     got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
-    fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
+    fwd = pft.fused_pair_forward(u, v, ca, cb, ops)
     d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
     torch.cuda.synchronize()
     counts = _counts()
@@ -3348,21 +3343,6 @@ def data_parallel_phase(loaded, cfg, dev) -> dict:
     return out
 
 
-# The reverse pair kernels' options (ops/pair_flow.py:uses_tensor_cores),
-# which say whether the kernel line reports a kernel as running on the
-# tensor cores; the training pairs say it through
-# ops/pair_flow_train.py:train_uses_tensor_cores, and the ResBlocks through
-# ops/resblock.py:uses_tensor_cores.
-PAIR_OPTIONS = {"pair_flow": {}, "pair_flow_i8": {"int8": True},
-                "pair_flow_i8rs": {"int8": True, "rs": True},
-                "pair_flow_hoisted": {"hoisted": True},
-                "pair_flow_hoisted_i8": {"int8": True, "hoisted": True},
-                "pair_flow_wino": {"phases": 6},
-                "pair_flow_wino4": {"phases": 12},
-                "pair_flow_wino_hoisted": {"phases": 6, "hoisted": True},
-                "pair_flow_wino4_hoisted": {"phases": 12, "hoisted": True}}
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3395,27 +3375,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print("  ptxas:", line.strip())
         _build.load(name)
-    # registers and local (spill) bytes per thread of every reverse pair
-    # instance in bf16 (cudaFuncGetAttributes)
-    from flowavenet_tpu_torch.ops import pair_flow as pf
-    attrs = {}
-    for name, opts in PAIR_OPTIONS.items():
-        regs, local = pf.kernel_attrs(torch.bfloat16, **opts)
-        tc = pf.uses_tensor_cores(torch.bfloat16, **opts)
-        attrs[name] = {"registers": regs, "local_bytes": local}
-        print(f"{name} bf16 ({'tensor cores' if tc else 'CUDA cores'}): "
-              f"numRegs {regs}, localSizeBytes {local}", flush=True)
-    # the same for the training kernels' and the ResBlocks' bf16 instances
+    # registers and local (spill) bytes per thread of every kernel's bf16
+    # instance (cudaFuncGetAttributes)
     from flowavenet_tpu_torch.ops import pair_flow_train as pft
-    from flowavenet_tpu_torch.ops import resblock as rb
-    for name in pft.TRAIN_KERNELS + tuple(rb.LAUNCHES):
-        if name in rb.LAUNCHES:
-            regs, local = rb.kernel_attrs(torch.bfloat16,
-                                          name == "resblock_v2")
-            tc = rb.uses_tensor_cores(torch.bfloat16)
-        else:
-            regs, local = pft.train_kernel_attrs(torch.bfloat16, name)
-            tc = pft.train_uses_tensor_cores(torch.bfloat16, name)
+    tc = uses_tensor_cores(torch.bfloat16)
+    attrs = {}
+    for name in LAUNCHES:
+        regs, local = kernel_attrs(name, torch.bfloat16)
         attrs[name] = {"registers": regs, "local_bytes": local}
         print(f"{name} bf16 ({'tensor cores' if tc else 'CUDA cores'}): "
               f"numRegs {regs}, localSizeBytes {local}", flush=True)
@@ -3626,15 +3592,8 @@ def main() -> int:
                       f"workspace {b['workspace_bytes']} bytes, "
                       f"{b['ms']:.3f} ms per launch", flush=True)
     for k in kernels:
-        opts = PAIR_OPTIONS.get(k["name"])
-        if k["name"] in pft.TRAIN_KERNELS:
-            tc = pft.train_uses_tensor_cores(torch.bfloat16, k["name"])
-        elif k["name"] in rb.LAUNCHES:
-            tc = rb.uses_tensor_cores(torch.bfloat16)
-        else:
-            tc = (opts is not None
-                  and pf.uses_tensor_cores(torch.bfloat16, **opts))
-        k["design"] = "tensor cores (mma.sync)" if tc else "CUDA cores"
+        k["design"] = ("tensor cores (mma.sync)"
+                       if uses_tensor_cores(torch.bfloat16) else "CUDA cores")
         k.update(attrs.get(k["name"], {}))
         k["pct_of_bound"] = 100.0 * k["bound_ms"] / k["ms"]
     check(all(k["launches"] > 0 for k in kernels),

@@ -307,7 +307,7 @@ def _pair_fwd_ref(pair: dict, u, v, c_a, c_b):
 
 class _PairFwdFused(torch.autograd.Function):
     """The forward-kernel route's pair: forward through
-    ``pf.fused_pair_forward`` (kernel ``pair_fwd``), backward by autograd
+    ``pft.fused_pair_forward`` (kernel ``pair_fwd``), backward by autograd
     through a recompute of :func:`_pair_fwd_ref` from input-only
     residuals (the JAX ``_pair_fwd_fused_b``)."""
 
@@ -317,7 +317,7 @@ class _PairFwdFused(torch.autograd.Function):
         ctx.save_for_backward(u, v, c_a, c_b, *pair_leaves)
         pair = rebuild(template, pair_leaves)
         ops = pf.pair_forward_operands(pair, u.dtype)
-        return pf.fused_pair_forward(u, v, c_a, c_b, ops)
+        return pft.fused_pair_forward(u, v, c_a, c_b, ops)
 
     @staticmethod
     def backward(ctx, gu, gv, gr):

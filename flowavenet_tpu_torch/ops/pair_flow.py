@@ -22,7 +22,6 @@ them for CPU tensors and launch the kernels for CUDA tensors.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -31,26 +30,13 @@ import torch.nn.functional as F
 from ..utils.profiling import span, spanned
 from ..utils.tree import tree_map
 from .conv import wn_kernel
+from .launch import (KERNELS, SMEM_MAX, balanced_t_tile, call, library,
+                     pack_tc_weights, pad_dim, pad_halves, uses_tensor_cores)
 
 # Rows of halo per side in the CUDA kernel: the receptive field of one
 # pair (5 per coupling net).  The JAX kernel uses 16 (sublane alignment).
 KERNEL_HALO = 10
 SQRT_HALF = 0.7071067811865476
-
-# Launches of the CUDA kernels, by name; each wrapper adds one per launch.
-# pair_flow* are the reverse pair (csrc/pair_flow.cu; pair_flow_wino[4] and
-# pair_flow_wino[4]_hoisted in csrc/pair_flow_wino.cu); pair_fwd,
-# pair_train_fwd and pair_train_bwd the forward and training pairs
-# (csrc/pair_flow_train.cu, ops/pair_flow_train.py).
-LAUNCHES = {"pair_flow": 0, "pair_flow_i8": 0, "pair_flow_i8rs": 0,
-            "pair_flow_hoisted": 0, "pair_flow_hoisted_i8": 0,
-            "pair_flow_wino": 0, "pair_flow_wino4": 0,
-            "pair_flow_wino_hoisted": 0, "pair_flow_wino4_hoisted": 0,
-            "pair_fwd": 0, "pair_train_fwd": 0, "pair_train_bwd": 0}
-# per reverse-pair kernel, what its last launch ran with: rows per tile
-# ("t_tile") and CTAs ("ctas"); the int8 pairs' output depends on the tile
-# (per-window activation scales), so a plain check runs at this tile
-LAST_LAUNCH: dict = {}
 
 
 def kernel_t_tile(dtype: torch.dtype, r_in: int = 1) -> int:
@@ -687,23 +673,6 @@ def _pack_int8(wq: torch.Tensor) -> torch.Tensor:
     return w.view(torch.int32).reshape(*lead, cin // 4, n)
 
 
-def uses_tensor_cores(dtype: torch.dtype, *, int8: bool = False,
-                      rs: bool = False, hoisted: bool = False,
-                      phases: int = 0) -> bool:
-    """Whether the pair kernel of these options runs its products on the
-    tensor cores (mma.sync): every pair with bf16 storage, i.e. the direct
-    pair (``pair_flow``), the int8 pair (``pair_flow_i8``), the int8 pair
-    with int8 res/skip (``pair_flow_i8rs``: those two products on the int8
-    gate codes, its final 1x1 in bf16), the direct hoisted pairs
-    (``pair_flow_hoisted``, ``pair_flow_hoisted_i8``) and the F(2,3) and
-    F(4,3) Winograd pairs with dense or hoisted conditioning
-    (``pair_flow_wino``, ``pair_flow_wino4``, ``pair_flow_wino_hoisted``,
-    ``pair_flow_wino4_hoisted``); the hoisted ones have no conditioning
-    product and add the precomputed pre-activations per element.  fp32
-    runs on CUDA cores."""
-    return dtype == torch.bfloat16
-
-
 def front_zero_tc(r_in: int) -> bool:
     """Whether a hoisted tensor-core pair also runs its front conv (three
     taps of K = R_in into N = R) and its zero conv (K = R into N = 2R_in)
@@ -715,8 +684,8 @@ def front_zero_tc(r_in: int) -> bool:
 
 def hoisted_t_tile(B: int, T: int, n_sm: int, smem) -> int:
     """Rows per CTA of the hoisted tensor-core pairs (one CTA per tile):
-    ``pair_flow_train.balanced_t_tile(shortest=True)`` over the tiles of
-    16-72 rows whose window needs at most 232448 bytes of shared memory
+    ``launch.balanced_t_tile(shortest=True)`` over the tiles of 16-72 rows
+    whose window needs at most ``SMEM_MAX`` bytes of shared memory
     (``smem(tile)``, the launcher's ``pair_reverse_smem_bytes``): the
     fewest waves of B * ceil(T / tile) CTAs over ``n_sm`` SMs, then the
     shortest tile, since a CTA's time follows its window's rows and a
@@ -726,7 +695,6 @@ def hoisted_t_tile(B: int, T: int, n_sm: int, smem) -> int:
     time than 16 rows, 92 CTAs; H100 80GB HBM3, 700 W, chip_smoke.py
     phase 2d); the floor stays at 16.  The int8 pair takes this rule at a
     fixed batch instead (:func:`hoisted_launch_tile`)."""
-    from .pair_flow_train import SMEM_MAX, balanced_t_tile
     return balanced_t_tile(B, T, n_sm, lambda tt: 0 < smem(tt) <= SMEM_MAX,
                            shortest=True)
 
@@ -757,7 +725,7 @@ def hoisted_launch_tile(B: int, T: int, n_sm: int, smem, *,
 @functools.lru_cache(maxsize=None)
 def _hoisted_tile(B: int, T: int, r: int, r_in: int, variant: int,
                   n_sm: int) -> int:
-    lib = _library("pair_flow")
+    lib = library("pair_flow")
     # variant 4 is the int8 pair (pair_flow_hoisted_i8)
     return hoisted_launch_tile(
         B, T, n_sm, lambda tt: lib.pair_reverse_smem_bytes(
@@ -810,22 +778,6 @@ def kernel_widths(r: int, cc: int, tc: bool, hoisted: bool = False,
     return fits[0], -(-cc // cstep) * cstep
 
 
-def _pad_dim(x: torch.Tensor, dim: int, n: int, value: float = 0.0):
-    """``x`` with ``dim`` extended to ``n`` by entries equal to ``value``."""
-    if x.shape[dim] == n:
-        return x
-    shape = list(x.shape)
-    shape[dim] = n - x.shape[dim]
-    return torch.cat([x, x.new_full(shape, value)], dim)
-
-
-def _pad_halves(x: torch.Tensor, r: int, value: float = 0.0):
-    """Last axis [filter R | gate R] -> [filter r | gate r]."""
-    f, g = x.split(x.shape[-1] // 2, -1)
-    return torch.cat([_pad_dim(f, -1, r, value), _pad_dim(g, -1, r, value)],
-                     -1)
-
-
 def pad_pair_widths(c_a, c_b, operands, r: int, cc: int, *,
                     int8: bool = False, hoisted: bool = False):
     """A pair's conditioning and operands (any family of
@@ -842,91 +794,41 @@ def pad_pair_widths(c_a, c_b, operands, r: int, cc: int, *,
     out = []
     for name, o in zip(names, operands):
         if name in ("front_w", "front_b", "res_b", "skip_b", "fin_b"):
-            o = _pad_dim(o, -1, r)
+            o = pad_dim(o, -1, r)
         elif name in ("res_w", "skip_w", "fin_w"):
-            o = _pad_dim(_pad_dim(o, -2, r), -1, r)
+            o = pad_dim(pad_dim(o, -2, r), -1, r)
         elif name == "zw":
-            o = _pad_dim(o, -2, r)
+            o = pad_dim(o, -2, r)
         elif name in ("kfg", "cond_w"):
-            o = _pad_halves(_pad_dim(o, -2, r if name == "kfg" else cc), r)
+            o = pad_halves(pad_dim(o, -2, r if name == "kfg" else cc), r)
         elif name == "cond_b":
-            o = _pad_halves(o, r)
+            o = pad_halves(o, r)
         elif name in ("kfg_s", "cond_s"):
-            o = _pad_halves(o, r, 1e-30)
+            o = pad_halves(o, r, 1e-30)
         elif name in ("res_s", "skip_s"):
-            o = _pad_dim(o, -1, r, 1e-30)
+            o = pad_dim(o, -1, r, 1e-30)
         out.append(o)
     if hoisted:
         B, T, w = c_a.shape
-        c_a, c_b = (_pad_halves(c.reshape(B, T, 2, w // 2), r)
+        c_a, c_b = (pad_halves(c.reshape(B, T, 2, w // 2), r)
                     .reshape(B, T, 4 * r) for c in (c_a, c_b))
     else:
-        c_a, c_b = (_pad_dim(c, -1, cc) for c in (c_a, c_b))
+        c_a, c_b = (pad_dim(c, -1, cc) for c in (c_a, c_b))
     return c_a.contiguous(), c_b.contiguous(), tuple(out)
-
-
-def pack_tc_weights(w: torch.Tensor) -> torch.Tensor:
-    """[..., K, N] weight -> the tensor cores' fragment order [..., K/ks,
-    N/8, 32, e]: ks = 16, e = 4 for bf16 (mma m16n8k16); ks = 32, e = 8
-    for int8 (m16n8k32), K zero-padded to a multiple of ks.  Entry [s, t,
-    l, i] is the i-th B element that lane l holds for k-step s and n-tile
-    t (PTX ISA): n = 8t + l//4 and, in bf16, k = 16s + 2(l%4) + i%2 +
-    8(i//2); in int8, k = 32s + 4(l%4) + i%4 + 16(i//4).  So a lane reads
-    its fragment as one 8-byte load and a warp 256 contiguous bytes."""
-    *lead, k, n = w.shape
-    r = 4 if w.dtype == torch.int8 else 2          # consecutive k per half
-    ks = 8 * r
-    kp = -(-k // ks) * ks
-    if n % 8:
-        raise ValueError(f"N={n} must be a multiple of 8")
-    if kp != k:
-        w = torch.cat([w, w.new_zeros(*lead, kp - k, n)], -2)
-    nl = len(lead)
-    # k = ks*s + (ks/2)*h + r*q + i_r ; n = 8*t + g ; lane = 4*g + q,
-    # element i = r*h + i_r
-    w = w.reshape(*lead, kp // ks, 2, 4, r, n // 8, 8)
-    w = w.permute(*range(nl), nl, nl + 4, nl + 5, nl + 2, nl + 1, nl + 3)
-    return w.reshape(*lead, kp // ks, n // 8, 32, 2 * r).contiguous()
 
 
 # the operands the tensor-core pairs take packed by pack_tc_weights
 _TC_WEIGHTS = ("kfg", "cond_w", "res_w", "skip_w", "fin_w")
 
 
-@functools.lru_cache(maxsize=None)
-def _library(name: str = "pair_flow"):
-    """The built kernel library ``pair_flow`` (direct pairs) or
-    ``pair_flow_wino``, with every C signature declared."""
-    from . import _build
-
-    lib = _build.load(name)
-    pre = "pair_reverse" if name == "pair_flow" else "pair_wino"
-    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-    getattr(lib, f"{pre}_threads").argtypes = []
-    getattr(lib, f"{pre}_threads").restype = c_int
-    getattr(lib, f"{pre}_smem_bytes").argtypes = [c_int] * 6
-    getattr(lib, f"{pre}_smem_bytes").restype = c_int
-    # (dtype, variant or P, [hoisted,] tc, ptrs, dims, stream): the
-    # Winograd launch also takes its hoisted flag
-    getattr(lib, f"{pre}_launch").argtypes = (
-        [c_int] * (4 if name == "pair_flow_wino" else 3)
-        + [c_ptr, c_ptr, c_ptr])
-    getattr(lib, f"{pre}_launch").restype = c_int
-    # (dtype, variant or P, [hoisted,] out[2])
-    getattr(lib, f"{pre}_attrs").argtypes = (
-        [c_int] * (3 if name == "pair_flow_wino" else 2) + [c_ptr])
-    getattr(lib, f"{pre}_attrs").restype = c_int
-    return lib
-
-
 # the kernels' 19 operand slots, in order (absent ones are null pointers)
 _SLOTS = _OP_NAMES + ("an_s", "an_b", "kfg_s", "cond_s", "res_s", "skip_s")
-# direct-pair variant number and launch counter by (int8, rs, hoisted)
-_VARIANTS = {(False, False, False): (0, "pair_flow"),
-             (True, False, False): (1, "pair_flow_i8"),
-             (True, True, False): (2, "pair_flow_i8rs"),
-             (False, False, True): (3, "pair_flow_hoisted"),
-             (True, False, True): (4, "pair_flow_hoisted_i8")}
+# the direct pair's kernel by (int8, rs, hoisted)
+_DIRECT = {(False, False, False): "pair_flow",
+           (True, False, False): "pair_flow_i8",
+           (True, True, False): "pair_flow_i8rs",
+           (False, False, True): "pair_flow_hoisted",
+           (True, False, True): "pair_flow_hoisted_i8"}
 
 
 def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
@@ -955,11 +857,16 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
                          f"{tuple(c_b.shape)}")
     if c_a.dtype != c_dt or c_b.dtype != c_dt or v.dtype != dt:
         raise TypeError(f"u/v must be {dt} and c {c_dt}")
-    lib = _library("pair_flow_wino" if phases else "pair_flow")
+    if phases:
+        kernel = ("pair_flow_wino" if phases == 6 else "pair_flow_wino4") + (
+            "_hoisted" if hoisted else "")
+    else:
+        kernel = _DIRECT[int8, rs, hoisted]
+    lib_name, pick = KERNELS[kernel]
+    lib = library(lib_name)
     pre = "pair_wino" if phases else "pair_reverse"
     threads = getattr(lib, f"{pre}_threads")()
-    tc = uses_tensor_cores(dt, int8=int8, rs=rs, hoisted=hoisted,
-                           phases=phases)
+    tc = uses_tensor_cores(dt)
     if hoisted and Cc != 2 * R2:
         raise ValueError(f"hoisted c must be n_layer*2R = {2 * R2} wide, got "
                          f"{Cc}")
@@ -1011,60 +918,24 @@ def _launch(u, v, c_a, c_b, operands, *, int8: bool, hoisted: bool,
                               ).reshape(B, 2).contiguous()
     dcode = 0 if dt == torch.float32 else 1
     if phases:
-        variant = phases
-        counter = ("pair_flow_wino" if phases == 6 else "pair_flow_wino4"
-                   ) + ("_hoisted" if hoisted else "")
         t_tile = wino_t_tile(dt, phases)
     elif tc and hoisted:
-        variant, counter = _VARIANTS[int8, rs, hoisted]
         n_sm = torch.cuda.get_device_properties(u.device).multi_processor_count
-        t_tile = _hoisted_tile(B, T, R, r_in, variant, n_sm)
+        t_tile = _hoisted_tile(B, T, R, r_in, pick[0], n_sm)
     else:
-        variant, counter = _VARIANTS[int8, rs, hoisted]
         t_tile = kernel_t_tile(dt, r_in)
-    smem = getattr(lib, f"{pre}_smem_bytes")(dcode, variant, int(tc), R,
+    smem = getattr(lib, f"{pre}_smem_bytes")(dcode, pick[0], int(tc), R,
                                              r_in, t_tile)
-    if not 0 < smem <= 232448:
+    if not 0 < smem <= SMEM_MAX:
         raise ValueError(f"t_tile={t_tile} needs {smem} bytes of shared "
-                         "memory per CTA (at most 232448)")
+                         f"memory per CTA (at most {SMEM_MAX})")
     u_out, v_out = torch.empty_like(u), torch.empty_like(v)
-    # the kernel runs on the current stream, so the caching allocator may
-    # reuse these temporaries only for work queued after it
-    ptrs = [u, v, c_a, c_b, u_out, v_out,
-            *[ops.get(n) for n in _SLOTS], crs]
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(
-        *[0 if x is None else x.data_ptr() for x in ptrs])
-    dims = (ctypes.c_int * 6)(B, T, r_in, R, Cc, t_tile)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        args = ((dcode, variant) + ((int(hoisted),) if phases else ())
-                + (2 if ftc else int(tc),))
-        err = getattr(lib, f"{pre}_launch")(
-            *args, ctypes.cast(ptr_arr, ctypes.c_void_p),
-            ctypes.cast(dims, ctypes.c_void_p), stream)
-    if err != 0:
-        raise RuntimeError(f"{counter} kernel launch failed: cudaError {err}")
-    LAUNCHES[counter] += 1
-    LAST_LAUNCH[counter] = {"t_tile": t_tile, "ctas": B * -(-T // t_tile)}
+    call(getattr(lib, f"{pre}_launch"), kernel,
+         (dcode, *pick, 2 if ftc else int(tc)),
+         [u, v, c_a, c_b, u_out, v_out, *[ops.get(n) for n in _SLOTS], crs],
+         (B, T, r_in, R, Cc, t_tile), u.device,
+         {"t_tile": t_tile, "ctas": B * -(-T // t_tile)})
     return u_out, v_out
-
-
-def kernel_attrs(dtype: torch.dtype, *, int8: bool = False, rs: bool = False,
-                 hoisted: bool = False, phases: int = 0) -> tuple[int, int]:
-    """(registers, local bytes) per thread of the pair kernel instance of
-    these options, as cudaFuncGetAttributes reports them (local bytes are
-    the register spills' stack)."""
-    lib = _library("pair_flow_wino" if phases else "pair_flow")
-    dcode = 0 if dtype == torch.float32 else 1
-    out = (ctypes.c_int * 3)()          # the third: dynamic shared memory
-    if phases:
-        err = lib.pair_wino_attrs(dcode, phases, int(hoisted), out)
-    else:
-        err = lib.pair_reverse_attrs(dcode, _VARIANTS[int8, rs, hoisted][0],
-                                     out)
-    if err != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
-    return out[0], out[1]
 
 
 def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,
@@ -1081,8 +952,8 @@ def fused_pair_reverse(u, v, c_a, c_b, operands, *, int8: bool = False,
     A CPU tensor runs the plain version at the tile of
     :func:`kernel_t_tile`; a CUDA tensor launches the kernel (or raises),
     the hoisted bf16 pairs on the tile of :func:`hoisted_launch_tile`
-    (recorded in :data:`LAST_LAUNCH`; the int8 pair's output depends on it,
-    and that tile on T and the widths alone)."""
+    (recorded in ``launch.LAST_LAUNCH``; the int8 pair's output depends on
+    it, and that tile on T and the widths alone)."""
     if int8 and not hoisted and c_row_scales is None:
         raise ValueError("the int8 pair takes per-row c scales [B, 2]")
     if u.device.type == "cpu":
@@ -1113,22 +984,6 @@ def fused_pair_reverse_wino(u, v, c_a, c_b, operands, *,
                                      hoisted=hoisted)
     return _launch(u, v, c_a, c_b, operands, int8=False, hoisted=hoisted,
                    c_row_scales=None, phases=P)
-
-
-def fused_pair_forward(u, v, c_a, c_b, operands):
-    """Apply one FORWARD flow pair (twin of the JAX ``fused_pair_forward``,
-    the port of ``_pair_kernel_fw``).  u, v: [B, T, R_in]; c_*: [B, T, Cc];
-    ``operands`` from :func:`pair_forward_operands`.  Returns
-    (u', v', raw) where raw is the fp32 sum of -log_s over both couplings.
-
-    A CPU tensor runs the plain version (``pair_flow_train.
-    pair_train_fwd_ref`` without the extra statistics); a CUDA tensor
-    launches ``pair_fwd`` (or raises).  No gradient: the model's
-    autograd.Function recomputes the plain pair for that."""
-    from . import pair_flow_train as pft
-    if u.device.type == "cpu":
-        return pft.pair_train_fwd_ref(u, v, c_a, c_b, operands, stats=False)
-    return pft.launch_forward(u, v, c_a, c_b, operands, stats=False)
 
 
 def pair_cost(B: int, T: int, r_in: int, cc: int, r: int = 256,

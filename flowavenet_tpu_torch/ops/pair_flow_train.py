@@ -22,21 +22,23 @@ outside the kernel; the cotangent of max|log_s| is dropped.
 A CPU tensor runs :func:`pair_train_fwd_ref` (and autograd through it for
 the backward); a CUDA tensor launches the kernels or raises.  In bf16,
 ``pair_fwd``, ``pair_train_fwd`` and ``pair_train_bwd`` run on the tensor
-cores (:func:`train_uses_tensor_cores`); every fp32 instance on CUDA
-cores.
+cores (``launch.uses_tensor_cores``); every fp32 instance on CUDA cores.
+:func:`fused_pair_forward` is the forward pair without the statistics
+(kernel ``pair_fwd``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.flags import HINGE_MARGIN as _HINGE_MARGIN
-from .pair_flow import (_OP_NAMES, LAUNCHES, _coupling_net, _mask,
-                        check_tc_geometry, kernel_widths, pack_tc_weights,
+from .launch import (SMEM_MAX, balanced_t_tile, call, library,
+                     pack_tc_weights, uses_tensor_cores)
+from .pair_flow import (_OP_NAMES, _coupling_net, _mask,
+                        check_kernel_geometry, kernel_widths,
                         pad_pair_widths, pair_cost)
 
 # Dead-zone margin of the hinge statistic (a live attribute: tests set it).
@@ -151,49 +153,8 @@ def pair_train_bwd_ref(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    """The built kernel library, with every C signature declared."""
-    from . import _build
-
-    lib = _build.load("pair_flow_train")
-    c_int, c_ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    lib.pair_train_ws_bytes.argtypes = [c_int] * 6
-    lib.pair_train_ws_bytes.restype = c_ll
-    lib.pair_train_smem_bytes.argtypes = [c_int] * 5
-    lib.pair_train_smem_bytes.restype = c_ll
-    lib.pair_train_grad_floats.argtypes = [c_int] * 3
-    lib.pair_train_grad_floats.restype = c_ll
-    lib.pair_train_fwd_launch.argtypes = [c_int, c_int, c_int, c_ptr, c_ptr,
-                                          ctypes.c_float, c_ptr]
-    lib.pair_train_fwd_launch.restype = c_int
-    lib.pair_train_bwd_launch.argtypes = [c_int, c_int, c_ptr, c_ptr,
-                                          ctypes.c_float, c_ptr]
-    lib.pair_train_bwd_launch.restype = c_int
-    lib.pair_train_attrs.argtypes = [c_int, c_int, c_ptr]
-    lib.pair_train_attrs.restype = c_int
-    return lib
-
-
-# the three kernels of csrc/pair_flow_train.cu, by their C number
+# the three kernels of csrc/pair_flow_train.cu
 TRAIN_KERNELS = ("pair_fwd", "pair_train_fwd", "pair_train_bwd")
-SMEM_MAX = 232448               # bytes of shared memory one CTA may use
-# per kernel, what its last launch ran with: rows per tile ("t_tile"),
-# CTAs ("ctas") and the bytes it allocated besides its inputs and outputs
-# ("workspace_bytes", and "slab_bytes" for the backward's gradient slabs)
-LAST_LAUNCH: dict = {}
-
-
-def train_uses_tensor_cores(dtype: torch.dtype, kernel: str) -> bool:
-    """Whether the training-side kernel ``kernel`` (one of
-    :data:`TRAIN_KERNELS`) runs its products on the tensor cores in
-    ``dtype``: all three in bf16 (``pair_fwd`` is ``pair_train_fwd``'s
-    body without the three statistics).  Every fp32 instance runs the
-    CUDA-core GEMM (fp32 keeps its rel <= 1e-4 bar, which a bf16 product
-    cannot meet)."""
-    if kernel not in TRAIN_KERNELS:
-        raise ValueError(f"unknown training kernel {kernel!r}")
-    return dtype == torch.bfloat16
 
 
 def train_t_tile(B: int, T: int, n_sm: int) -> int:
@@ -206,43 +167,17 @@ def train_t_tile(B: int, T: int, n_sm: int) -> int:
     return tt
 
 
-def balanced_t_tile(B: int, T: int, n_sm: int, fits, *,
-                    shortest: bool = False) -> int:
-    """Rows per tile of a tensor-core instance (one CTA per SM): the fewest
-    waves of B * ceil(T / tile) tiles over ``n_sm`` SMs among the tiles of
-    16-72 rows that ``fits(tile)`` accepts; with several waves the
-    shortest tile that needs no more (a last wave of a few tiles leaves
-    the card idle: lj22k block 0 at batch 8 takes 66 rows, 392 tiles in 3
-    waves, where 64 rows would give 400 tiles and 4), in one wave the
-    longest (on the card, at T = 400 and 300, 64-row tiles beat 25- and
-    16-row ones, and 95-row ones lost to 64).  With ``shortest`` (the
-    forward's rule: one CTA per tile, no persistent grid) the shortest in
-    one wave too, since a CTA's time follows its window's rows and a
-    part-filled wave leaves SMs idle: pair_fwd at lj22k block 3 (batch 8,
-    T 400) takes 0.360 ms of kernel time on 25-row tiles (128 CTAs) and
-    0.771 ms on 72-row ones (48 CTAs) (H100 80GB HBM3, 700 W;
-    tools/train_pair_ab.py --fwd-tiles)."""
-    fit = [tt for tt in range(16, 73) if fits(tt)]
-    if not fit:
-        raise ValueError("no tile of the tensor-core pair fits in "
-                         f"{SMEM_MAX} bytes of shared memory")
-
-    def waves(tt):
-        return -(-B * -(-T // tt) // n_sm)
-    least = min(waves(tt) for tt in fit)
-    best = [tt for tt in fit if waves(tt) == least]
-    return best[-1] if least == 1 and not shortest else best[0]
-
-
 @functools.lru_cache(maxsize=None)
 def train_tc_t_tile(B: int, T: int, r: int, r_in: int, backward: bool,
                     n_sm: int) -> int:
-    """:func:`balanced_t_tile` over the tiles whose window (the tile plus
-    10 rows per side forward, 20 backward) fits in one CTA's shared
+    """``launch.balanced_t_tile`` over the tiles whose window (the tile
+    plus 10 rows per side forward, 20 backward) fits in one CTA's shared
     memory; the forward takes the shortest tile of the fewest waves."""
-    lib = _library()
-    return balanced_t_tile(B, T, n_sm, lambda tt: 0 < lib.pair_train_smem_bytes(
-        int(backward), 1, r, r_in, tt) <= SMEM_MAX, shortest=not backward)
+    lib = library("pair_flow_train")
+    return balanced_t_tile(
+        B, T, n_sm, lambda tt: 0 < lib.pair_train_smem_bytes(
+            int(backward), 1, r, r_in, tt) <= SMEM_MAX,
+        shortest=not backward)
 
 
 def _geometry(u, tc: bool, r: int, backward: bool):
@@ -300,17 +235,6 @@ def _check(u, v, c_a, c_b, operands, extra=()):
     return ops, R, Cc
 
 
-def check_train_tc_geometry(r: int, cc: int) -> None:
-    """Raise ValueError unless the tensor-core training instances take
-    these widths: those of the tensor-core reverse pair (R dividing 512 and
-    a multiple of 32, Cc a multiple of 16; the lj22k widths all are).  The
-    wrappers zero-pad other widths to these first (:func:`_pad_tc`)."""
-    if r <= 0 or 512 % r:
-        raise ValueError(f"the tensor-core training pair takes R dividing "
-                         f"512, got R={r}")
-    check_tc_geometry(r, cc)
-
-
 # folded operands the tensor-core instances take packed in fragment order
 # (slots of pair_forward_operands: kfg, cond_w, res_w, skip_w, fin_w)
 _TC_SLOTS = (2, 3, 5, 7, 9)
@@ -329,7 +253,7 @@ def _pad_tc(c_a, c_b, ops, R: int, Cc: int):
     return c_a, c_b, [o.contiguous() for o in ops], Rk, Cck
 
 
-# operands whose last axis is [filter R | gate R] (pair_flow._pad_halves)
+# operands whose last axis is [filter R | gate R] (launch.pad_halves)
 _HALVES = ("kfg", "cond_w", "cond_b")
 
 
@@ -355,43 +279,31 @@ def _tc_operands(ops, transposed: bool = True):
     return fwd, bwd
 
 
-def _run(fn, name: str, *args):
-    with torch.cuda.device(args[-1]):
-        stream = torch.cuda.current_stream(args[-1]).cuda_stream
-        err = fn(*args[:-1], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def launch_forward(u, v, c_a, c_b, operands, *, stats: bool):
     """Launch ``pair_train_fwd`` (``stats``) or ``pair_fwd``.  Returns
     (u3, v3, raw) or (u3, v3, raw, max, sumsq, hinge) as 0-d fp32 tensors
     on the device (no host sync)."""
-    lib = _library()
+    lib = library("pair_flow_train")
     ops, R, Cc = _check(u, v, c_a, c_b, operands)
     B, T, r_in = u.shape
     dt = u.dtype
     name = "pair_train_fwd" if stats else "pair_fwd"
-    tc = train_uses_tensor_cores(dt, name)
+    tc = uses_tensor_cores(dt)
     if tc:
         c_a, c_b, ops, R, Cc = _pad_tc(c_a, c_b, ops, R, Cc)
-        check_train_tc_geometry(R, Cc)
+        check_kernel_geometry(R, Cc, True)
         ops, _ = _tc_operands(ops, transposed=False)
     tt, G, n_tiles = _geometry(u, tc, R, False)
     ws = torch.empty(lib.pair_train_ws_bytes(0, int(tc), R, r_in, Cc, tt)
                      // 4 * G, dtype=torch.float32, device=u.device)
     st = torch.empty(n_tiles, 4, dtype=torch.float32, device=u.device)
     u_out, v_out = torch.empty_like(u), torch.empty_like(v)
-    ptrs = [u, v, c_a, c_b, u_out, v_out, st, ws, *ops]
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(*[x.data_ptr() for x in ptrs])
-    dims = (ctypes.c_int * 7)(B, T, r_in, R, Cc, tt, G)
-    _run(lib.pair_train_fwd_launch, name,
-         0 if dt == torch.float32 else 1, int(stats), int(tc),
-         ctypes.cast(ptr_arr, ctypes.c_void_p),
-         ctypes.cast(dims, ctypes.c_void_p), float(HINGE_MARGIN), u.device)
-    LAUNCHES[name] += 1
-    LAST_LAUNCH[name] = {"t_tile": tt, "ctas": G,
-                         "workspace_bytes": 4 * ws.numel()}
+    call(lib.pair_train_fwd_launch, name,
+         (0 if dt == torch.float32 else 1, int(stats), int(tc)),
+         [u, v, c_a, c_b, u_out, v_out, st, ws, *ops],
+         (B, T, r_in, R, Cc, tt, G), u.device,
+         {"t_tile": tt, "ctas": G, "workspace_bytes": 4 * ws.numel()},
+         float(HINGE_MARGIN))
     raw = st[:, 0].sum()
     if not stats:
         return u_out, v_out, raw
@@ -402,18 +314,18 @@ def launch_backward(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
     """Launch ``pair_train_bwd`` (the main kernel plus the launch that sums
     its per-CTA gradient slabs).  Returns (d_operands, du, dv, dc_a, dc_b);
     d_operands in fp32, shaped as the operands."""
-    lib = _library()
+    lib = library("pair_flow_train")
     gu, gv = gu.to(u.dtype).contiguous(), gv.to(u.dtype).contiguous()
     ops, R, Cc = _check(u, v, c_a, c_b, operands,
                         extra=(("gu", gu), ("gv", gv)))
     B, T, r_in = u.shape
     dt = u.dtype
-    tc = train_uses_tensor_cores(dt, "pair_train_bwd")
+    tc = uses_tensor_cores(dt)
     shapes = [o.shape for o in ops]
     cc0, extra = Cc, []
     if tc:
         c_a, c_b, ops, R, Cc = _pad_tc(c_a, c_b, ops, R, Cc)
-        check_train_tc_geometry(R, Cc)
+        check_kernel_geometry(R, Cc, True)
     padded = [o.shape for o in ops]
     if tc:
         ops, extra = _tc_operands(ops)
@@ -427,18 +339,13 @@ def launch_backward(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
                        .float() for g in (gr, gq, gh)])
     du, dv = torch.empty_like(u), torch.empty_like(v)
     dca, dcb = torch.empty_like(c_a), torch.empty_like(c_b)
-    ptrs = [u, v, c_a, c_b, gu, gv, du, dv, dca, dcb, gsc, ws, slab, d_flat,
-            *ops, *extra]
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(*[x.data_ptr() for x in ptrs])
-    dims = (ctypes.c_int * 7)(B, T, r_in, R, Cc, tt, G)
-    _run(lib.pair_train_bwd_launch, "pair_train_bwd",
-         0 if dt == torch.float32 else 1, int(tc),
-         ctypes.cast(ptr_arr, ctypes.c_void_p),
-         ctypes.cast(dims, ctypes.c_void_p), float(HINGE_MARGIN), u.device)
-    LAUNCHES["pair_train_bwd"] += 1
-    LAST_LAUNCH["pair_train_bwd"] = {"t_tile": tt, "ctas": G,
-                                     "workspace_bytes": 4 * ws.numel(),
-                                     "slab_bytes": 4 * slab.numel()}
+    call(lib.pair_train_bwd_launch, "pair_train_bwd",
+         (0 if dt == torch.float32 else 1, int(tc)),
+         [u, v, c_a, c_b, gu, gv, du, dv, dca, dcb, gsc, ws, slab, d_flat,
+          *ops, *extra],
+         (B, T, r_in, R, Cc, tt, G), u.device,
+         {"t_tile": tt, "ctas": G, "workspace_bytes": 4 * ws.numel(),
+          "slab_bytes": 4 * slab.numel()}, float(HINGE_MARGIN))
     d_ops, off = [], 0
     for name, shp, pshp in zip(_OP_NAMES + ("an_s", "an_b"), shapes,
                                padded):
@@ -451,15 +358,19 @@ def launch_backward(u, v, c_a, c_b, gu, gv, gr, gq, gh, operands):
     return tuple(d_ops), du, dv, dca, dcb
 
 
-def train_kernel_attrs(dtype: torch.dtype, kernel: str) -> tuple[int, int]:
-    """(registers, local bytes) per thread of the instance of ``kernel``
-    in ``dtype``, as cudaFuncGetAttributes reports them."""
-    out = (ctypes.c_int * 2)()
-    err = _library().pair_train_attrs(TRAIN_KERNELS.index(kernel),
-                                      0 if dtype == torch.float32 else 1, out)
-    if err != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
-    return out[0], out[1]
+def fused_pair_forward(u, v, c_a, c_b, operands):
+    """Apply one FORWARD flow pair (twin of the JAX ``fused_pair_forward``,
+    the port of ``_pair_kernel_fw``).  u, v: [B, T, R_in]; c_*: [B, T, Cc];
+    ``operands`` from ``pair_flow.pair_forward_operands``.  Returns (u', v',
+    raw) where raw is the fp32 sum of -log_s over both couplings.
+
+    A CPU tensor runs the plain version (:func:`pair_train_fwd_ref` without
+    the extra statistics); a CUDA tensor launches ``pair_fwd`` (or raises).
+    No gradient: the model's autograd.Function recomputes the plain pair
+    for that."""
+    if u.device.type == "cpu":
+        return pair_train_fwd_ref(u, v, c_a, c_b, operands, stats=False)
+    return launch_forward(u, v, c_a, c_b, operands, stats=False)
 
 
 def fused_pair_train_fwd(u, v, c_a, c_b, operands):

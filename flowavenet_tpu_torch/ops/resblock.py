@@ -32,15 +32,14 @@ back, so every R the JAX kernels take runs.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from .pair_flow import _pad_dim, _pad_halves, hoisted_t_tile, pack_tc_weights
-from .pair_flow_train import SMEM_MAX
+from .launch import (SMEM_MAX, balanced_t_tile, call, library,
+                     pack_tc_weights, pad_dim, pad_halves, uses_tensor_cores)
 
 SQRT_HALF = math.sqrt(0.5)
 # Dilations up to HALO // 2 (the Pallas kernel's window pad; the CUDA
@@ -52,12 +51,6 @@ V2_MAX_CC = 2560
 # Output rows per CTA of the CUDA-core (fp32) kernels (before _plan_tiles);
 # the tensor-core ones take the wave-balanced tile of _tc_tile.
 KERNEL_T_TILE = 64
-
-# Launches of the CUDA kernels, by name; each wrapper adds one per launch.
-LAUNCHES = {"resblock": 0, "resblock_v2": 0}
-# per kernel, what its last launch ran with: rows per tile ("t_tile") and
-# CTAs ("ctas")
-LAST_LAUNCH: dict = {}
 
 
 def _plan_tiles(T: int, t_tile: int) -> tuple[int, int]:
@@ -264,12 +257,6 @@ def fused_gated_resblock_v2(h, c, w_conv, w_cond, b_all, w_res, b_res,
 # The kernel wrapper
 # ---------------------------------------------------------------------------
 
-def uses_tensor_cores(dtype: torch.dtype) -> bool:
-    """Whether the ResBlock kernels of this storage type run their products
-    on the tensor cores (mma.sync): bf16 yes, fp32 on CUDA cores."""
-    return dtype == torch.bfloat16
-
-
 def resblock_widths(r: int, cc: int, dtype: torch.dtype,
                     threads: int = 512) -> tuple[int, int]:
     """The (R, Cc) a ResBlock of widths (r, cc) runs at on the kernel (cc:
@@ -297,16 +284,16 @@ def pad_resblock_widths(h, ops: dict, r: int, cc: int):
     sigmoid(0) = 0, and the real channels' sums are unchanged; a padded
     channel's h_new and skip are 0.  Returns (h, ops)."""
     v2 = ops["w_cond"] is not None
-    pad = {"cond": (lambda x: _pad_dim(x, -1, cc)) if v2
-           else (lambda x: _pad_halves(x, r)),
-           "w_conv": lambda x: _pad_halves(_pad_dim(x, -2, r), r),
-           "w_cond": lambda x: _pad_halves(_pad_dim(x, -2, cc), r),
-           "b_all": lambda x: _pad_halves(x, r),
-           "w_res": lambda x: _pad_dim(_pad_dim(x, -2, r), -1, r),
-           "w_skip": lambda x: _pad_dim(_pad_dim(x, -2, r), -1, r),
-           "b_res": lambda x: _pad_dim(x, -1, r),
-           "b_skip": lambda x: _pad_dim(x, -1, r)}
-    return (_pad_dim(h, -1, r).contiguous(),
+    pad = {"cond": (lambda x: pad_dim(x, -1, cc)) if v2
+           else (lambda x: pad_halves(x, r)),
+           "w_conv": lambda x: pad_halves(pad_dim(x, -2, r), r),
+           "w_cond": lambda x: pad_halves(pad_dim(x, -2, cc), r),
+           "b_all": lambda x: pad_halves(x, r),
+           "w_res": lambda x: pad_dim(pad_dim(x, -2, r), -1, r),
+           "w_skip": lambda x: pad_dim(pad_dim(x, -2, r), -1, r),
+           "b_res": lambda x: pad_dim(x, -1, r),
+           "b_skip": lambda x: pad_dim(x, -1, r)}
+    return (pad_dim(h, -1, r).contiguous(),
             {k: None if x is None else pad[k](x).contiguous()
              for k, x in ops.items()})
 
@@ -319,7 +306,7 @@ def pack_resblock_weights(ops: dict) -> dict:
     """``ops`` with w_conv [3, R, 2R] (tap k's fragments k * R/16 * 2R/8 *
     32 on, as direct_layer_tc_bf reads layer 0), w_cond [Cc, 2R], w_res and
     w_skip [R, R] in the tensor cores' fragment order
-    (``pair_flow.pack_tc_weights``)."""
+    (``launch.pack_tc_weights``)."""
     return {k: pack_tc_weights(x) if k in _TC_WEIGHTS and x is not None
             else x for k, x in ops.items()}
 
@@ -327,47 +314,17 @@ def pack_resblock_weights(ops: dict) -> dict:
 @functools.lru_cache(maxsize=None)
 def _tc_tile(B: int, T: int, r: int, dilation: int, n_sm: int) -> int:
     """Rows per CTA of the tensor-core ResBlocks (one CTA per (batch row,
-    tile)): the hoisted pairs' rule, ``pair_flow.hoisted_t_tile``, over
-    the tiles whose h window and gate rows fit in shared memory (the
-    launcher's ``resblock_smem_bytes``): the fewest waves of B * ceil(T /
-    tile) CTAs over ``n_sm`` SMs, then the shortest tile.  lj22k blocks
-    6-7 at 4 x 360 frames (T 720 and 360) take 22 and 16 rows: 132 and 92
-    CTAs, where the CUDA-core kernel's 64 rows gave 48 and 24."""
-    lib = _library()
-    return hoisted_t_tile(B, T, n_sm, lambda tt: lib.resblock_smem_bytes(
-        1, 0, r, 0, tt, dilation))
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    """The built kernel library ``resblock`` with its C signatures."""
-    from . import _build
-
-    lib = _build.load("resblock")
-    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-    lib.resblock_threads.argtypes = []
-    lib.resblock_threads.restype = c_int
-    lib.resblock_smem_bytes.argtypes = [c_int] * 6
-    lib.resblock_smem_bytes.restype = c_int
-    # (dtype, v2, tc, ptrs, dims, stream)
-    lib.resblock_launch.argtypes = [c_int, c_int, c_int, c_ptr, c_ptr, c_ptr]
-    lib.resblock_launch.restype = c_int
-    # (dtype, v2, out[3])
-    lib.resblock_attrs.argtypes = [c_int, c_int, c_ptr]
-    lib.resblock_attrs.restype = c_int
-    return lib
-
-
-def kernel_attrs(dtype: torch.dtype, v2: bool) -> tuple[int, int]:
-    """(registers, local bytes) per thread of the ResBlock kernel instance
-    of this storage type, as cudaFuncGetAttributes reports them (local
-    bytes are the register spills' stack)."""
-    out = (ctypes.c_int * 3)()          # the third: dynamic shared memory
-    err = _library().resblock_attrs(0 if dtype == torch.float32 else 1,
-                                    int(v2), out)
-    if err != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
-    return out[0], out[1]
+    tile)): the hoisted pairs' rule, ``launch.balanced_t_tile(shortest=
+    True)``, over the tiles whose h window and gate rows fit in shared
+    memory (the launcher's ``resblock_smem_bytes``): the fewest waves of B
+    * ceil(T / tile) CTAs over ``n_sm`` SMs, then the shortest tile.
+    lj22k blocks 6-7 at 4 x 360 frames (T 720 and 360) take 22 and 16
+    rows: 132 and 92 CTAs, where the CUDA-core kernel's 64 rows gave 48
+    and 24."""
+    lib = library("resblock")
+    return balanced_t_tile(
+        B, T, n_sm, lambda tt: 0 < lib.resblock_smem_bytes(
+            1, 0, r, 0, tt, dilation) <= SMEM_MAX, shortest=True)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -398,7 +355,7 @@ def _launch(h, cond, w_conv, w_cond, b_all, w_res, b_res, w_skip, b_skip,
         raise ValueError(f"h must be [B, T, R], got {tuple(h.shape)}")
     B, T, R = h.shape
     _check_dilation(dilation)
-    lib = _library()
+    lib = library("resblock")
     Cc = cond.shape[-1]
     want = {"cond": (B, T, Cc if v2 else 2 * R), "w_conv": (3, R, 2 * R),
             "w_res": (R, R), "b_res": (R,), "w_skip": (R, R), "b_skip": (R,)}
@@ -441,22 +398,11 @@ def _launch(h, cond, w_conv, w_cond, b_all, w_res, b_res, w_skip, b_skip,
         raise ValueError(f"{name}: t_tile={tt} needs {smem} bytes of shared "
                          f"memory per CTA (at most {SMEM_MAX})")
     h_new, skip = torch.empty_like(h), torch.empty_like(h)
-    # the kernel runs on the current stream, so the caching allocator may
-    # reuse the padded and packed temporaries only for work queued after it
-    ptrs = [h, *[ops[k] for k in _SLOTS], h_new, skip]
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(
-        *[0 if x is None else x.data_ptr() for x in ptrs])
     lead = 2 * dilation if causal else dilation
-    dims = (ctypes.c_int * 7)(B, T, Rk, Cck, tt, dilation, lead)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.resblock_launch(dcode, int(v2), int(tc),
-                                  ctypes.cast(ptr_arr, ctypes.c_void_p),
-                                  ctypes.cast(dims, ctypes.c_void_p), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-    LAST_LAUNCH[name] = {"t_tile": tt, "ctas": B * -(-T // tt)}
+    call(lib.resblock_launch, name, (dcode, int(v2), int(tc)),
+         [h, *[ops[k] for k in _SLOTS], h_new, skip],
+         (B, T, Rk, Cck, tt, dilation, lead), h.device,
+         {"t_tile": tt, "ctas": B * -(-T // tt)})
     if Rk != R:
         h_new, skip = h_new[..., :R].contiguous(), skip[..., :R].contiguous()
     return h_new, skip

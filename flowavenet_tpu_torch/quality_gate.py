@@ -59,8 +59,7 @@ import torch
 from .audio.mel import process_wav
 from .config import Config, get_config
 from .models.flowavenet import reverse
-from .ops import pair_flow as pf
-from .ops import resblock as rb
+from .ops import launch
 from .synthesis.routes import ROUTES, int8_route, patched, route_patches
 from .synthesis.synthesize import _usable_frames, load_params, resolve_device
 
@@ -172,7 +171,7 @@ def corpus_mels(data_dir: str, cfg: Config, max_frames: int):
 
 
 def _launch_counts() -> dict:
-    return {**pf.LAUNCHES, **rb.LAUNCHES}
+    return dict(launch.LAUNCHES)
 
 
 def synthesize_route(params, cfg: Config, z: np.ndarray, c: np.ndarray,

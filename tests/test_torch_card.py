@@ -16,6 +16,7 @@ import torch
 
 from flowavenet_tpu_torch.config import lj22k, tiny
 from flowavenet_tpu_torch.models import flowavenet as fwn
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as pf
 from flowavenet_tpu_torch.ops import resblock as rb
 from flowavenet_tpu_torch.ops.conv import quantize_act
@@ -68,12 +69,12 @@ def test_kernel_matches_plain(cuda, bi, mode):
         ops = pf.pair_reverse_operands_int8(pair, dt)
     else:
         ops = pf.pair_reverse_operands(pair, dt)
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     got = pf.fused_pair_reverse(u, v, *c, ops, int8=mode == "int8",
                                 c_row_scales=crs)
     torch.cuda.synchronize()
     name = "pair_flow_i8" if mode == "int8" else "pair_flow"
-    assert pf.LAUNCHES[name] == n0[name] + 1
+    assert launch.LAUNCHES[name] == n0[name] + 1
     tt = pf.kernel_t_tile(dt)
     want = pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt,
                                int8=mode == "int8", c_row_scales=crs)
@@ -122,10 +123,10 @@ def test_reverse_direct_route_on_card_matches_cpu(cuda, monkeypatch):
     z = torch.randn(2, 2048, 1, generator=r)
     mel = torch.rand(2, 8, 80, generator=r)
     want = fwn.reverse(params, cfg, z, mel).numpy()
-    n0 = pf.LAUNCHES["pair_flow"]
+    n0 = launch.LAUNCHES["pair_flow"]
     got = fwn.reverse(tree_map(lambda l: l.to(cuda), params), cfg,
                       z.to(cuda), mel.to(cuda)).cpu().numpy()
-    assert pf.LAUNCHES["pair_flow"] == n0 + cfg.n_block * cfg.n_flow // 2
+    assert launch.LAUNCHES["pair_flow"] == n0 + cfg.n_block * cfg.n_flow // 2
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
@@ -162,10 +163,10 @@ def test_wino_kernel_matches_plain(cuda, phases, mode):
             else pf.pair_reverse_operands_wino4)
     ops = make(_pair(1, cuda), dt)
     name = "pair_flow_wino" if phases == 6 else "pair_flow_wino4"
-    n0 = pf.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     got = pf.fused_pair_reverse_wino(u, v, *c, ops)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES[name] == n0 + 1
+    assert launch.LAUNCHES[name] == n0 + 1
     want = pf.pair_reverse_wino_ref(u, v, *c, ops, t_tile=60)
     ops_pass = tuple(torch.zeros_like(o) if i in (11, 12) else o
                      for i, o in enumerate(ops))
@@ -207,12 +208,12 @@ def test_hoisted_and_rs_kernels_match_plain(cuda, kind):
             c = [pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo)]
             kw = dict(hoisted=True, int8=kind == "hoisted_i8")
             name = "pair_flow_" + kind
-        n0 = pf.LAUNCHES[name]
+        n0 = launch.LAUNCHES[name]
         got = pf.fused_pair_reverse(u, v, *c, ops, **kw)
         torch.cuda.synchronize()
-        assert pf.LAUNCHES[name] == n0 + 1
+        assert launch.LAUNCHES[name] == n0 + 1
         # the launch's tile: the int8 pairs' per-window scales follow it
-        tt = pf.LAST_LAUNCH[name]["t_tile"]
+        tt = launch.LAST_LAUNCH[name]["t_tile"]
         want = pf.pair_reverse_ref(u, v, *c, ops, t_tile=tt, **kw)
         # zw = zb = 0 (operands 11, 12; 10, 11 without cond_w)
         zi = (11, 12) if kind == "i8rs" else (10, 11)
@@ -305,12 +306,12 @@ def test_train_kernels_match_plain(cuda, monkeypatch, bi, mode):
     mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
     monkeypatch.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
     want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
-    fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
+    fwd = pft.fused_pair_forward(u, v, ca, cb, ops)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
-    assert pf.LAUNCHES["pair_fwd"] == n0["pair_fwd"] + 1
+    assert launch.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
+    assert launch.LAUNCHES["pair_fwd"] == n0["pair_fwd"] + 1
     assert float(want[5]) > 0.0
     for a, b in list(zip(got[:2], want[:2])) + list(zip(fwd[:2], want[:2])):
         a, b = a.float(), b.float()
@@ -325,7 +326,7 @@ def test_train_kernels_match_plain(cuda, monkeypatch, bi, mode):
     d1 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
     d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 2
+    assert launch.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 2
     dref = pft.pair_train_bwd_ref(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
     flat = lambda d: list(d[0]) + list(d[1:])
     for a, a2, b in zip(flat(d1), flat(d2), flat(dref)):
@@ -345,24 +346,23 @@ def test_train_tc_kernels_match_plain(cuda, monkeypatch, bi, mode):
     """pair_fwd, pair_train_fwd and pair_train_bwd vs their plain versions
     at the lj22k widths of blocks 0-3, T=300 (a ragged last tile of the
     tensor-core instances' tiles), hinge live; in bf16 all three run on
-    the tensor cores (train_uses_tensor_cores).  bf16: outputs rel-to-max
+    the tensor cores (launch.uses_tensor_cores).  bf16: outputs rel-to-max
     <= 1e-2 with corr >= 0.999, statistics (pair_fwd: the -log_s sum) rel
     <= 1e-2, cosine >= 0.999 per gradient leaf; fp32 (CUDA cores):
     rel-to-max <= 1e-4 on outputs, statistics and every gradient."""
     dt = torch.float32 if mode == "fp32" else torch.bfloat16
     pft, ops, u, v, ca, cb, gu, gv, (gr, gq, gh) = _train_case(bi, dt, cuda)
-    for k in pft.TRAIN_KERNELS:
-        assert pft.train_uses_tensor_cores(dt, k) == (mode == "bf16")
+    assert launch.uses_tensor_cores(dt) == (mode == "bf16")
     mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
     monkeypatch.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
     want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
-    fwd = pf.fused_pair_forward(u, v, ca, cb, ops)
+    fwd = pft.fused_pair_forward(u, v, ca, cb, ops)
     d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, gr, gq, gh, ops)
     torch.cuda.synchronize()
     for k in pft.TRAIN_KERNELS:
-        assert pf.LAUNCHES[k] == n0[k] + 1
+        assert launch.LAUNCHES[k] == n0[k] + 1
     assert float(want[5]) > 0.0
     bar = 1e-4 if mode == "fp32" else 1e-2
     for a, b in list(zip(got[:2], want[:2])) + list(zip(fwd[:2], want[:2])):
@@ -418,7 +418,7 @@ def test_train_launchers_refuse_mismatched_flags(cuda):
     anything is launched."""
     import ctypes
     from flowavenet_tpu_torch.ops import pair_flow_train as pft
-    lib = pft._library()
+    lib = launch.library("pair_flow_train")
     ptrs = (ctypes.c_void_p * 40)()            # never dereferenced
 
     def dims(R, Cc):
@@ -459,10 +459,10 @@ def test_wino_hoisted_kernel_matches_plain(cuda, phases, mode):
     c = [pf.hoist_cond(ca, we), pf.hoist_cond(cb, wo)]
     name = ("pair_flow_wino" if phases == 6 else "pair_flow_wino4") \
         + "_hoisted"
-    n0 = pf.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     got = pf.fused_pair_reverse_wino(u, v, *c, ops, hoisted=True)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES[name] == n0 + 1
+    assert launch.LAUNCHES[name] == n0 + 1
     want = pf.pair_reverse_wino_ref(u, v, *c, ops, t_tile=60, hoisted=True)
     ops_pass = tuple(torch.zeros_like(o) if i in (10, 11) else o
                      for i, o in enumerate(ops))       # zw = zb = 0
@@ -481,7 +481,7 @@ def test_wino_hoisted_launch_uses_the_reported_smem(cuda, phases):
     dense twin at the same widths and tile: no Winograd instance pads its
     u/v windows."""
     import ctypes
-    lib = pf._library("pair_flow_wino")
+    lib = launch.library("pair_flow_wino")
     got = {}
     for kind in ("wino", "wino_hoisted") if phases == 6 else (
             "wino4", "wino4_hoisted"):
@@ -490,7 +490,7 @@ def test_wino_hoisted_launch_uses_the_reported_smem(cuda, phases):
         torch.cuda.synchronize()
         out = (ctypes.c_int * 3)()
         assert lib.pair_wino_attrs(1, phases, int("hoisted" in kind), out) == 0
-        got[kind] = (out[2], pf.LAST_LAUNCH[name]["t_tile"])
+        got[kind] = (out[2], launch.LAST_LAUNCH[name]["t_tile"])
     (dense, tt), (hoisted, tt_h) = got.values()
     want = lib.pair_wino_smem_bytes(1, phases, 1, 256, 2, tt)
     assert tt_h == tt == pf.wino_t_tile(torch.bfloat16, phases)
@@ -531,11 +531,11 @@ def test_resblock_kernels_match_plain(cuda, v2, mode, causal, dilation):
     name = "resblock_v2" if v2 else "resblock"
     fn = rb.fused_gated_resblock_v2 if v2 else rb.fused_gated_resblock
     ref = rb.resblock_v2_ref if v2 else rb.resblock_ref
-    n0 = rb.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     xs = [a.clone().requires_grad_() for a in args]
     got = fn(*xs, dilation=dilation, causal=causal)
     torch.cuda.synchronize()
-    assert rb.LAUNCHES[name] == n0 + 1
+    assert launch.LAUNCHES[name] == n0 + 1
     want = ref(*args, dilation=dilation, causal=causal)
     for a, b in zip(got, want):
         a, b = a.detach().float(), b.float()
@@ -585,14 +585,15 @@ def test_resblock_tc_kernels_match_plain(cuda, v2, cc, causal, dilation, B):
     name = "resblock_v2" if v2 else "resblock"
     fn = rb.fused_gated_resblock_v2 if v2 else rb.fused_gated_resblock
     ref = rb.resblock_v2_ref if v2 else rb.resblock_ref
-    n0 = rb.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     got = fn(*args, dilation=dilation, causal=causal)
     again = fn(*args, dilation=dilation, causal=causal)
     torch.cuda.synchronize()
-    assert rb.LAUNCHES[name] == n0 + 2
+    assert launch.LAUNCHES[name] == n0 + 2
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     tt = rb._tc_tile(B, 997, 256, dilation, n_sm)
-    assert rb.LAST_LAUNCH[name] == {"t_tile": tt, "ctas": B * -(-997 // tt)}
+    assert launch.LAST_LAUNCH[name] == {"t_tile": tt,
+                                        "ctas": B * -(-997 // tt)}
     want = ref(*args, dilation=dilation, causal=causal)
     for a, a2, b in zip(got, again, want):
         assert torch.equal(a, a2)
@@ -632,7 +633,7 @@ def test_resblock_route_takes_filter_size_48(cuda, mode, gin):
                 p, x.to(dt), c.to(dt), None if gc is None else gc.to(dt),
                 causal=False, use_pallas=on).float()
     name = "resblock" if gin else "resblock_v2"
-    n0 = rb.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     ref32 = run(torch.float32, False)
 
     def err(a):
@@ -645,7 +646,7 @@ def test_resblock_route_takes_filter_size_48(cuda, mode, gin):
                                                         False))
         assert k <= max(1.5 * pl, 1e-2), (k, pl)
     torch.cuda.synchronize()
-    assert rb.LAUNCHES[name] == n0 + 1
+    assert launch.LAUNCHES[name] == n0 + 1
 
 
 @pytest.mark.cuda
@@ -656,7 +657,7 @@ def test_resblock_launcher_refuses_bf16_off_tc_and_unpadded_widths(cuda):
     dividing the 512 threads) on CUDA cores, and a bf16 launch without the
     bias vector return cudaErrorInvalidValue before anything runs."""
     import ctypes
-    lib = rb._library()
+    lib = launch.library("resblock")
     buf = torch.zeros(16, device=cuda)
     ptrs = (ctypes.c_void_p * 11)(*[buf.data_ptr()] * 11)   # never read
     nob = (ctypes.c_void_p * 11)(*[buf.data_ptr()] * 11)
@@ -713,7 +714,7 @@ def test_synthesis_row_does_not_follow_its_companions(cuda, monkeypatch,
         rows[n] = batch[0]
         by_stage[n] = st.rows
         if route == "FWN_HOISTED=1":
-            tiles.add(pf.LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"])
+            tiles.add(launch.LAST_LAUNCH["pair_flow_hoisted_i8"]["t_tile"])
     if route == "FWN_HOISTED=1":
         assert len(tiles) == 1, tiles
     top = float(np.abs(rows[1]).max())
@@ -744,7 +745,7 @@ def test_bench_runs_the_default_route(cuda, monkeypatch, capsys):
                  "BENCH_CONFIG": "lj22k", "BENCH_MELS": "synthetic"}.items():
         monkeypatch.setenv(k, v)
     monkeypatch.delenv("BENCH_SECONDS", raising=False)
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     result = bench.main(["--device", "cuda"])
     torch.cuda.synchronize()
     out = capsys.readouterr().out.strip().splitlines()
@@ -752,7 +753,7 @@ def test_bench_runs_the_default_route(cuda, monkeypatch, capsys):
     assert set(result) == {"metric", "value", "unit", "vs_baseline"}
     assert result["metric"] == "synthesis_khz_per_sec_per_chip"
     assert result["value"] > 0
-    launched = {k: v - n0[k] for k, v in pf.LAUNCHES.items() if v != n0[k]}
+    launched = {k: v - n0[k] for k, v in launch.LAUNCHES.items() if v != n0[k]}
     assert launched == {"pair_flow_i8": 30}, launched
 
 
@@ -816,7 +817,7 @@ def _tc_case(kind: str, bi: int, dev, T: int = 1000, B: int = 2, pair=None):
         def plain(rows, ops=ops):
             return pf.pair_reverse_ref(
                 u[rows], v[rows], c[0][rows], c[1][rows], ops,
-                t_tile=pf.LAST_LAUNCH[name]["t_tile"], int8=int8,
+                t_tile=launch.LAST_LAUNCH[name]["t_tile"], int8=int8,
                 hoisted=True)
         # zw = zb = 0 (operands 10, 11: the hoisted family has no cond_w)
         ops_pass = tuple(torch.zeros_like(o) if i in (10, 11) else o
@@ -873,13 +874,13 @@ def test_tc_kernels_match_plain(cuda, kind, bi):
     (int8: its sums are exact, as the plain version's float64 products) or
     0.999 (bf16: summation order and one-ulp flips), and the error as a
     share of what the coupling nets add <= 1e-2."""
-    assert pf.uses_tensor_cores(torch.bfloat16, **TC_OPTIONS[kind])
+    assert launch.uses_tensor_cores(torch.bfloat16)
     kern, plain, passthru, name = _tc_case(kind, bi, cuda)
     rows = slice(0, 2)
-    n0 = pf.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     got = kern(rows)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES[name] == n0 + 1
+    assert launch.LAUNCHES[name] == n0 + 1
     _check(got, plain(rows), passthru(rows), 1e-2,
            0.9999 if "i8" in kind else 0.999)
 
@@ -893,10 +894,10 @@ def test_tc_kernels_are_deterministic_and_row_local(cuda, kind, bi):
     gives one and two rows the same tile)."""
     kern, _, _, name = _tc_case(kind, bi, cuda)
     a = kern(slice(0, 2))
-    tile = pf.LAST_LAUNCH[name]["t_tile"]
+    tile = launch.LAST_LAUNCH[name]["t_tile"]
     b = kern(slice(0, 2))
     alone = kern(slice(1, 2))
-    assert pf.LAST_LAUNCH[name]["t_tile"] == tile
+    assert launch.LAST_LAUNCH[name]["t_tile"] == tile
     torch.cuda.synchronize()
     for x, y, z in zip(a, b, alone):
         assert torch.equal(x, y)
@@ -919,8 +920,8 @@ def test_tc_launchers_refuse_unpadded_widths_and_wrong_flags(cuda):
 
     def dims(R, Cc, TT, Rin=2):
         return (ctypes.c_int * 6)(1, 120, Rin, R, Cc, TT)
-    direct = pf._library("pair_flow").pair_reverse_launch
-    wino = pf._library("pair_flow_wino").pair_wino_launch
+    direct = launch.library("pair_flow").pair_reverse_launch
+    wino = launch.library("pair_flow_wino").pair_wino_launch
     bad = [direct(1, 0, 1, ptrs, dims(16, 160, 64), None),     # tc, R=16
            direct(1, 1, 1, ptrs, dims(16, 160, 64), None),
            direct(0, 0, 0, ptrs, dims(48, 160, 32), None),     # R=48
@@ -972,10 +973,10 @@ def test_tc_padded_narrow_pair_matches_plain(cuda, kind):
                     fwn._index(fwn._pair_params(block), 0))
     kern, plain, passthru, name = _tc_case(kind, 1, cuda, T=300, pair=pair)
     rows = slice(0, 2)
-    n0 = pf.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     got = kern(rows)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES[name] == n0 + 1
+    assert launch.LAUNCHES[name] == n0 + 1
     _check(got, plain(rows), passthru(rows), 1e-2,
            0.9999 if "i8" in kind else 0.999)
 
@@ -1021,10 +1022,10 @@ def test_odd_width_models_reverse_on_the_kernel_routes(cuda, monkeypatch,
     T = 40 * cfg.hop_size
     z = torch.randn(2, T, 1, generator=g, device=cuda)
     mel = torch.rand(2, 40, cfg.num_mels, generator=g, device=cuda)
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     got = fwn.reverse(params, cfg, z, mel, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert all(pf.LAUNCHES[k] > n0[k] for k in kernels), pf.LAUNCHES
+    assert all(launch.LAUNCHES[k] > n0[k] for k in kernels), launch.LAUNCHES
     want = fwn.reverse(params, dataclasses.replace(cfg, use_pallas=False),
                        z, mel, compute_dtype=torch.bfloat16)
     a, b = (x.float().cpu().numpy().ravel() for x in (got, want))
@@ -1061,12 +1062,12 @@ def test_odd_width_models_train_on_the_kernel_route(cuda, monkeypatch,
     mx = pft.pair_train_fwd_ref(u, v, ca, cb, ops)[3]
     monkeypatch.setattr(pft, "HINGE_MARGIN", 0.5 * float(mx))
     want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
     d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
-    assert pf.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 1
+    assert launch.LAUNCHES["pair_train_fwd"] == n0["pair_train_fwd"] + 1
+    assert launch.LAUNCHES["pair_train_bwd"] == n0["pair_train_bwd"] + 1
     for a, b in zip(got[:2], want[:2]):
         a, b = a.float(), b.float()
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-2
@@ -1097,12 +1098,12 @@ def test_odd_width_models_train_on_the_kernel_route(cuda, monkeypatch,
             (torch.zeros_like(q) if gq is None else gq).flatten()
             for gq, q in zip(gs, flat)])
 
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     l_k, g_k = loss_and_grad(True, torch.bfloat16)
     torch.cuda.synchronize()
     n_pair = cfg.n_flow // 2
     for k in ("pair_train_fwd", "pair_train_bwd"):
-        assert pf.LAUNCHES[k] == n0[k] + n_pair
+        assert launch.LAUNCHES[k] == n0[k] + n_pair
     l_p, g_p = loss_and_grad(False, torch.bfloat16)
     l32, g32 = loss_and_grad(False, torch.float32)
     assert np.isfinite(l_k) and bool(torch.isfinite(g_k).all())
@@ -1158,13 +1159,13 @@ def test_train_bwd_at_tiny_block0_matches_plain(cuda, monkeypatch):
     for tt in (None,) + TINY_BWD_TILES:
         if tt is not None:
             monkeypatch.setattr(pft, "train_tc_t_tile", lambda *a, tt=tt: tt)
-        n0 = pf.LAUNCHES["pair_train_bwd"]
+        n0 = launch.LAUNCHES["pair_train_bwd"]
         d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
         d2 = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
         torch.cuda.synchronize()
         monkeypatch.setattr(pft, "train_tc_t_tile", pick)
-        assert pf.LAUNCHES["pair_train_bwd"] == n0 + 2
-        assert pft.LAST_LAUNCH["pair_train_bwd"]["t_tile"] == (tt or 72)
+        assert launch.LAUNCHES["pair_train_bwd"] == n0 + 2
+        assert launch.LAST_LAUNCH["pair_train_bwd"]["t_tile"] == (tt or 72)
         for a, a2, b in zip(list(d[0]) + list(d[1:]), list(d2[0]) +
                             list(d2[1:]), list(dref[0]) + list(dref[1:])):
             assert torch.equal(a, a2)
@@ -1206,11 +1207,11 @@ def test_tiny_trains_in_bf16_on_the_kernel_route(cuda, monkeypatch):
             (torch.zeros_like(q) if gq is None else gq).flatten()
             for gq, q in zip(gs, flat)])
 
-    n0 = dict(pf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     l_k, g_k = loss_and_grad(True, torch.bfloat16)
     torch.cuda.synchronize()
     for k in ("pair_train_fwd", "pair_train_bwd"):
-        assert pf.LAUNCHES[k] == n0[k] + 1
+        assert launch.LAUNCHES[k] == n0[k] + 1
     l_p, g_p = loss_and_grad(False, torch.bfloat16)
     l32, g32 = loss_and_grad(False, torch.float32)
     assert np.isfinite(l_k) and bool(torch.isfinite(g_k).all())
@@ -1218,10 +1219,10 @@ def test_tiny_trains_in_bf16_on_the_kernel_route(cuda, monkeypatch):
             or abs(l_k - l32) <= abs(l_p - l32))
     assert _cos(g_k, g32) >= _cos(g_p, g32) - 0.01
     monkeypatch.setattr(fwn, "TRAIN_KERNEL", True)
-    n0 = pf.LAUNCHES["pair_train_bwd"]
+    n0 = launch.LAUNCHES["pair_train_bwd"]
     state, m = tts.make_train_step(cfg)(state, batch)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES["pair_train_bwd"] == n0 + 1
+    assert launch.LAUNCHES["pair_train_bwd"] == n0 + 1
     assert all(np.isfinite(float(v)) for v in m.values())
     assert all(bool(torch.isfinite(l).all()) for l in leaves(state.params))
 
@@ -1332,16 +1333,14 @@ def _sweep_smem(name, dt, R, r_in, cc, tt, dil=1):
     if name in SWEEP_OPTIONS:
         o = SWEEP_OPTIONS[name]
         if o.get("phases"):
-            return pf._library("pair_flow_wino").pair_wino_smem_bytes(
+            return launch.library("pair_flow_wino").pair_wino_smem_bytes(
                 dcode, o["phases"], tc, R, r_in, tt)
-        variant = pf._VARIANTS[o.get("int8", False), o.get("rs", False),
-                               o.get("hoisted", False)][0]
-        return pf._library("pair_flow").pair_reverse_smem_bytes(
-            dcode, variant, tc, R, r_in, tt)
+        return launch.library("pair_flow").pair_reverse_smem_bytes(
+            dcode, launch.KERNELS[name][1][0], tc, R, r_in, tt)
     if name in pft.TRAIN_KERNELS:
-        return pft._library().pair_train_smem_bytes(
+        return launch.library("pair_flow_train").pair_train_smem_bytes(
             int(name == "pair_train_bwd"), tc, R, r_in, tt)
-    return rb._library().resblock_smem_bytes(
+    return launch.library("resblock").resblock_smem_bytes(
         dcode, int(name == "resblock_v2"), R, cc, tt, dil)
 
 
@@ -1369,7 +1368,7 @@ def _sweep_tiles(name, dt, R, r_in, cc, dil):
         return [(None, [])]
     fit = [tt for tt in range(16, 73)
            if 0 < _sweep_smem(name, dt, R, r_in, cc, tt, dil)
-           <= pft.SMEM_MAX]
+           <= launch.SMEM_MAX]
     if not fit:
         return [(None, [])]
     return [(tt, [(*target, lambda *a, tt=tt: tt)])
@@ -1403,8 +1402,8 @@ def _sweep_point(name, R, r_in, cc, dt, dev, monkeypatch):
     for tt, patches in _sweep_tiles(name, dt, R, r_in, cc, dil):
         smem = (_sweep_fixed_smem(name, dt, R, r_in, cc, dil) if tt is None
                 else _sweep_smem(name, dt, R, r_in, cc, tt, dil))
-        fits = smem == 0 or 0 < smem <= pft.SMEM_MAX
-        n0 = dict(pf.LAUNCHES, **rb.LAUNCHES)
+        fits = smem == 0 or 0 < smem <= launch.SMEM_MAX
+        n0 = dict(launch.LAUNCHES)
         with monkeypatch.context() as mp:
             for obj, attr, val in patches:
                 mp.setattr(obj, attr, val)
@@ -1412,7 +1411,7 @@ def _sweep_point(name, R, r_in, cc, dt, dev, monkeypatch):
                 n_launch = _sweep_launch(name, R, r_in, cc, dt, dev, dil, mp)
             except ValueError:
                 torch.cuda.synchronize()
-                assert dict(pf.LAUNCHES, **rb.LAUNCHES) == n0
+                assert dict(launch.LAUNCHES) == n0
                 assert not fits, (name, R, r_in, cc, dt, tt, smem)
                 out.append("refused")
                 continue
@@ -1422,7 +1421,7 @@ def _sweep_point(name, R, r_in, cc, dt, dev, monkeypatch):
                 continue
         torch.cuda.synchronize()
         launched = {k: v - n0[k] for k, v in
-                    dict(pf.LAUNCHES, **rb.LAUNCHES).items() if v != n0[k]}
+                    dict(launch.LAUNCHES).items() if v != n0[k]}
         assert launched == {name: n_launch}, launched
         assert fits
         out.append(f"ok {tt}")
@@ -1441,7 +1440,7 @@ def _sweep_launch(name, R, r_in, cc, dt, dev, dil, mp):
             name, pair, r_in, cc, dt, dev)
         got = kern()
         torch.cuda.synchronize()
-        tt = pf.LAST_LAUNCH[name]["t_tile"]
+        tt = launch.LAST_LAUNCH[name]["t_tile"]
         _check(got, plain(tt), passthru(tt), bar, corr)
         return 1
     if name.startswith("resblock"):
@@ -1468,7 +1467,7 @@ def _sweep_launch(name, R, r_in, cc, dt, dev, dil, mp):
         want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
         grads = []
         if name == "pair_fwd":
-            got = pf.fused_pair_forward(u, v, ca, cb, ops)
+            got = pft.fused_pair_forward(u, v, ca, cb, ops)
         elif name == "pair_train_fwd":
             got = pft.fused_pair_train_fwd(u, v, ca, cb, ops)
         else:
@@ -1632,11 +1631,11 @@ def test_nccl_world_size_one_step_is_bit_identical(cuda, monkeypatch, model):
         mesh = make_mesh(cfg.mesh, cuda)
         assert mesh.distributed and mesh.shape == {"data": 1, "model": 1}
         specs = state_sharding(state0, mesh, cfg.mesh)
-        n0 = dict(pf.LAUNCHES)
+        n0 = dict(launch.LAUNCHES)
         got, gm = run(tts.make_train_step(cfg, mesh, specs.params),
                       put_tree(state0, mesh, specs))
-        assert pf.LAUNCHES["pair_train_bwd"] > n0["pair_train_bwd"]
-        assert pf.LAUNCHES["pair_fwd"] > n0["pair_fwd"]
+        assert launch.LAUNCHES["pair_train_bwd"] > n0["pair_train_bwd"]
+        assert launch.LAUNCHES["pair_fwd"] > n0["pair_fwd"]
     finally:
         shutdown()
     assert set(gm) == set(wm)
@@ -1669,10 +1668,10 @@ def test_two_replica_dispatch_rows_are_bit_identical(cuda, monkeypatch,
     one = tsyn.synthesize_mels(params, cfg, mels, device=cuda, **kw)
     mesh = make_data_mesh(["cuda:0", "cuda:0"])
     name = "pair_flow_i8" if int8 else "pair_flow_wino"
-    n0 = pf.LAUNCHES[name]
+    n0 = launch.LAUNCHES[name]
     wav, frames = tsyn.dispatch_mels(params, cfg, mels, data_sharding=mesh,
                                      batch_multiple=2, **kw)
     two = tsyn.materialize_wavs(wav, frames, cfg)
-    assert pf.LAUNCHES[name] - n0 == 2 * (15 if int8 else 9)
+    assert launch.LAUNCHES[name] - n0 == 2 * (15 if int8 else 9)
     for a, b in zip(one, two):
         assert np.array_equal(a, b)

@@ -21,7 +21,7 @@ from flowavenet_tpu.models import flowavenet as jfwn
 from flowavenet_tpu_torch.checkpoint.bridge import to_torch
 from flowavenet_tpu_torch.config import ModelConfig as TModelConfig
 from flowavenet_tpu_torch.models import flowavenet as tfwn
-from flowavenet_tpu_torch.ops import pair_flow as tpf
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.utils.tree import tree_map
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -129,12 +129,12 @@ def test_reverse_matches_jax(model):
     want = np.asarray(jfwn.reverse(params, jcfg, jnp.asarray(z),
                                    jnp.asarray(c), _jg(g)))
     off = dataclasses.replace(tcfg, use_pallas=False)
-    n0 = dict(tpf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     for cfg in (tcfg, off) if name != "odd_mels" else (off,):
         got = tfwn.reverse(tp, cfg, torch.from_numpy(z), torch.from_numpy(c),
                            _tg(g)).numpy()
         np.testing.assert_allclose(got, want, atol=5e-5, rtol=5e-5)
-    assert tpf.LAUNCHES == n0
+    assert launch.LAUNCHES == n0
     if name == "odd_mels":
         # the per-level route on the int8 pair (mel halves quantized per
         # row): the JAX package's int8 bar (test_pallas_flow.py:698)

@@ -15,7 +15,7 @@ from flowavenet_tpu.config import tiny
 from flowavenet_tpu.models import flowavenet as jfwn
 from flowavenet_tpu_torch.checkpoint.bridge import to_torch
 from flowavenet_tpu_torch.models import flowavenet as tfwn
-from flowavenet_tpu_torch.ops import pair_flow as tpf
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.utils.tree import tree_map
 
 CFG = tiny().model
@@ -162,9 +162,9 @@ def test_kernel_routes_match_scan_and_jax(model, monkeypatch, route):
     flag = "TRAIN_KERNEL" if route == "train" else "PAIR_KERNEL_FWD"
     monkeypatch.setattr(tfwn, flag, True)
     monkeypatch.setattr(jfwn, flag, True)
-    n0 = dict(tpf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     l1, a1, g1 = _loss_and_grads(tp, x, c, **kw)
-    assert tpf.LAUNCHES == n0            # CPU: plain versions, no launch
+    assert launch.LAUNCHES == n0            # CPU: plain versions, no launch
     # jitted: half the time of eager dispatch; on the train route the
     # gradients move by at most 5e-7 relative, the loss not at all
     (lj, aj), gj = jax.jit(jax.value_and_grad(

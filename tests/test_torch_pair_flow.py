@@ -16,6 +16,7 @@ from flowavenet_tpu.ops import pallas_flow as jpf
 from flowavenet_tpu.ops.conv import quantize_act as jquant
 from flowavenet_tpu_torch.checkpoint.bridge import to_torch
 from flowavenet_tpu_torch.models import flowavenet as tfwn
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as tpf
 from flowavenet_tpu_torch.ops.conv import quantize_act
 
@@ -153,13 +154,13 @@ def test_wrapper_runs_plain_version_on_cpu(pairs, rng):
     _, tpair = pairs[0]
     u, v, ca, cb = map(torch.from_numpy, _inputs(rng, 100, 1, CFG.num_mels))
     ops = tpf.pair_reverse_operands(tpair, dtype=torch.float32)
-    before = dict(tpf.LAUNCHES)
+    before = dict(launch.LAUNCHES)
     got = tpf.fused_pair_reverse(u, v, ca, cb, ops)
     want = tpf.pair_reverse_ref(u, v, ca, cb, ops,
                                 t_tile=tpf.kernel_t_tile(torch.float32))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert tpf.LAUNCHES == before
+    assert launch.LAUNCHES == before
     with pytest.raises(ValueError, match="per-row"):
         tpf.fused_pair_reverse(u, v, ca, cb, ops, int8=True)
 

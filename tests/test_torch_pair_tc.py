@@ -16,6 +16,7 @@ import torch
 
 from flowavenet_tpu_torch.config import lj22k, tiny
 from flowavenet_tpu_torch.models import flowavenet as fwn
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as pf
 
 
@@ -53,7 +54,7 @@ def test_tc_packing_round_trips(k, n, int8):
     if not int8 and k % 16:
         pytest.skip("bf16 K is always a multiple of 16 (checked)")
     w = _weight(k, n, int8)
-    p = pf.pack_tc_weights(w)
+    p = launch.pack_tc_weights(w)
     ks = 32 if int8 else 16
     kp = -(-k // ks) * ks
     assert p.shape == (kp // ks, n // 8, 32, 8 if int8 else 4)
@@ -76,7 +77,7 @@ def test_tc_fragment_bytes_follow_ptx_layout(int8):
     the filter tile t and its gate tile R/8 + t."""
     R = 256
     w = _weight(R, 2 * R, int8, seed=1)
-    raw = pf.pack_tc_weights(w).contiguous().view(torch.uint8).numpy()
+    raw = launch.pack_tc_weights(w).contiguous().view(torch.uint8).numpy()
     raw = raw.reshape(-1)
     ntl, ks = 2 * R // 8, 32 if int8 else 16
     wf = w.float().numpy()
@@ -151,30 +152,6 @@ def test_tc_geometry_check_rejects_other_widths():
             pf.check_tc_geometry(r, cc)
 
 
-def test_uses_tensor_cores_only_on_the_seven_redesigned_instances():
-    """Nine instances, every pair in bf16: pair_flow, pair_flow_i8,
-    pair_flow_i8rs, pair_flow_hoisted, pair_flow_hoisted_i8,
-    pair_flow_wino, pair_flow_wino4 and the hoisted Winograd pairs
-    pair_flow_wino_hoisted and pair_flow_wino4_hoisted; fp32 stays on CUDA
-    cores."""
-    bf, f32 = torch.bfloat16, torch.float32
-    on = [dict(dtype=bf), dict(dtype=bf, int8=True),
-          dict(dtype=bf, int8=True, rs=True), dict(dtype=bf, phases=6),
-          dict(dtype=bf, phases=12), dict(dtype=bf, hoisted=True),
-          dict(dtype=bf, int8=True, hoisted=True),
-          dict(dtype=bf, phases=6, hoisted=True),
-          dict(dtype=bf, phases=12, hoisted=True)]
-    off = [dict(dtype=f32), dict(dtype=f32, int8=True),
-           dict(dtype=f32, int8=True, rs=True),
-           dict(dtype=f32, phases=6), dict(dtype=f32, phases=12),
-           dict(dtype=f32, hoisted=True),
-           dict(dtype=f32, int8=True, hoisted=True),
-           dict(dtype=f32, phases=6, hoisted=True),
-           dict(dtype=f32, phases=12, hoisted=True)]
-    assert all(pf.uses_tensor_cores(**kw) for kw in on)
-    assert not any(pf.uses_tensor_cores(**kw) for kw in off)
-
-
 @pytest.mark.parametrize("rs", [False, True], ids=["main", "rs"])
 @pytest.mark.parametrize("preset,bi", [("lj22k", 0), ("lj22k", 4),
                                        ("tiny", 0), ("tiny", 1)])
@@ -204,7 +181,7 @@ def test_tc_packed_operands_have_the_kernel_sizes(preset, bi, rs):
     for ops, ks in families:
         d = dict(zip(pf._operand_names(len(ops), ks == 32, False), ops))
         for name in names:
-            packed = pf.pack_tc_weights(d[name])
+            packed = launch.pack_tc_weights(d[name])
             want = d[name].numel()
             if name == "cond_w":
                 want = 2 * 2 * (-(-cc // ks) * ks) * 2 * R
@@ -213,7 +190,7 @@ def test_tc_packed_operands_have_the_kernel_sizes(preset, bi, rs):
         if rs:
             for name in ("res_w", "skip_w"):
                 assert d[name].dtype == torch.int8
-            skip = pf.pack_tc_weights(d["skip_w"])
+            skip = launch.pack_tc_weights(d["skip_w"])
             assert skip.shape == (2, 2, R // 32, R // 8, 32, 8)
             # uint2 fragments from flow f's skip-0 to its skip-1
             assert (skip[0, 1].data_ptr() - skip[0, 0].data_ptr()) // 8 == (
@@ -298,7 +275,7 @@ def test_i8rs_gate_codes_through_ldmatrix_give_the_int_dot(R):
          for _ in range(3)]                         # res, skip-0, skip-1
     res_s, skip_s = (torch.from_numpy(r.rand(R).astype(np.float32) * 1e-2)
                      for _ in range(2))
-    packed = [pf.pack_tc_weights(x).numpy() for x in w]
+    packed = [launch.pack_tc_weights(x).numpy() for x in w]
     tj = 2
     ri, si = _tc_rows_s8(buf, ldq, rb, re, R, packed[0], packed[1],
                          R // (8 * tj), tj)

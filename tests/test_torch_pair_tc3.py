@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as pf
 
 TJ = 2                          # n-tiles per half of a warp item (pf::TJ)
@@ -158,7 +159,8 @@ def test_front_conv_taps_through_ldmatrix_give_the_3tap_conv(r_in):
             assert len({((m0 + l) * rowb // 16) % 8 for l in range(8)}) == 8
     X = _bf16((L, ldx), 3).double().numpy()        # pad columns: junk
     W = _bf16((3, r_in, R), 4)
-    packed = pf.pack_tc_weights(W).double().numpy()  # [3, Rin/16, R/8, 32, 4]
+    # [3, Rin/16, R/8, 32, 4]
+    packed = launch.pack_tc_weights(W).double().numpy()
     assert packed.shape == (3, r_in // 16, R // 8, 32, 4)
     rb, re = 1, L - 1                              # 43 rows: 3 m-tiles
     ntl, tn = R // 8, 2 * TJ
@@ -208,7 +210,7 @@ def test_front_and_zero_conv_weights_pack_and_round_trip(r_in):
     R = 64
     front = _bf16((2, 3, r_in, R), 5)
     zw = _bf16((2, R, 2 * r_in), 6)
-    pfront, pzw = pf.pack_tc_weights(front), pf.pack_tc_weights(zw)
+    pfront, pzw = launch.pack_tc_weights(front), launch.pack_tc_weights(zw)
     assert pfront.shape == (2, 3, r_in // 16, R // 8, 32, 4)
     assert pzw.shape == (2, R // 16, 2 * r_in // 8, 32, 4)
     assert pfront.numel() == front.numel() and pzw.numel() == zw.numel()

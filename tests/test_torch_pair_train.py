@@ -1,5 +1,5 @@
-"""PyTorch port, forward and training pairs (ops/pair_flow_train.py and
-pair_flow.fused_pair_forward): the plain versions and the training
+"""PyTorch port, forward and training pairs (ops/pair_flow_train.py, its
+fused_pair_forward included): the plain versions and the training
 route's autograd.Function held against the JAX Pallas kernels
 ``_pair_kernel_fws``/``_pair_kernel_bwd``/``_pair_kernel_fw`` in interpret
 mode (as tests/test_pallas_train.py runs them), on primal, statistics and
@@ -18,6 +18,7 @@ from flowavenet_tpu.ops import pallas_flow as jpf
 from flowavenet_tpu.ops import pallas_flow_train as jpft
 from flowavenet_tpu_torch.checkpoint.bridge import to_torch
 from flowavenet_tpu_torch.models import flowavenet as tfwn
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as tpf
 from flowavenet_tpu_torch.ops import pair_flow_train as tpft
 from flowavenet_tpu_torch.utils.tree import tree_map
@@ -272,7 +273,7 @@ def test_forward_pair_matches_jax_kernel(pair, T):
                                         has_aux=True)(
         jp, *map(jnp.asarray, (u, v, ca, cb)))
     tops = tpf.pair_forward_operands(tp, torch.float32)
-    plain = tpf.fused_pair_forward(*map(torch.from_numpy, (u, v, ca, cb)),
+    plain = tpft.fused_pair_forward(*map(torch.from_numpy, (u, v, ca, cb)),
                                    tops)
     for a, b in zip(plain, outj):
         assert _rel(a.numpy(), b) < 1e-5
@@ -306,13 +307,13 @@ def test_wrappers_take_plain_version_on_cpu(pair):
     run is finite and keeps the storage type."""
     _, tp = pair
     u, v, ca, cb, _, _ = _data(100, seed=6)
-    before = dict(tpf.LAUNCHES)
+    before = dict(launch.LAUNCHES)
     bf = [torch.from_numpy(x).bfloat16() for x in (u, v, ca, cb)]
     out = tpft.fused_pair_train_fwd(*bf, tpf.pair_forward_operands(
         tp, torch.bfloat16))
     assert out[0].dtype == torch.bfloat16 and out[1].dtype == torch.bfloat16
     assert all(bool(torch.isfinite(x.float()).all()) for x in out)
-    assert tpf.LAUNCHES == before
+    assert launch.LAUNCHES == before
 
 
 def test_train_t_tile_fills_the_card():

@@ -15,6 +15,7 @@ import torch
 
 from flowavenet_tpu_torch.config import PRESETS, tiny
 from flowavenet_tpu_torch.models import flowavenet as fwn
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as pf
 from flowavenet_tpu_torch.ops.conv import quantize_act
 
@@ -61,7 +62,7 @@ def test_route_widths_pass_the_launcher_geometry_after_padding(
             R = cfg.filter_size
             cc = 4 * R if opts.get("hoisted") else cc
             for dt in (torch.float32, torch.bfloat16):
-                tc = pf.uses_tensor_cores(dt, **opts)
+                tc = launch.uses_tensor_cores(dt)
                 r_k, cc_k = pf.kernel_widths(R, cc, tc, opts.get("hoisted",
                                                                  False))
                 pf.check_kernel_geometry(r_k, cc_k, tc)

@@ -10,6 +10,8 @@ batch.  No JAX and no card: the kernels themselves are held against their
 plain versions by tests/test_torch_card.py (``-k resblock``) and
 chip_smoke.py."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -172,10 +174,11 @@ def _smem_bytes(R: int, tt: int, dil: int) -> int:
     return a16(2 * (tt + 2 * dil) * ld) + a16(2 * tt * ld)
 
 
-def test_resblock_tile_rule_fills_the_card_at_phase_2c():
+def test_resblock_tile_rule_fills_the_card_at_phase_2c(monkeypatch):
     """The tensor-core ResBlocks' tile rule (resblock._tc_tile: the hoisted
-    pairs' pair_flow.hoisted_t_tile over resblock_smem_bytes) at chip_smoke
-    phase 2c's geometry (4 mels padded to
+    pairs' launch.balanced_t_tile(shortest=True) over resblock_smem_bytes,
+    here the formula of :func:`_smem_bytes`) at chip_smoke phase 2c's
+    geometry (4 mels padded to
     360 frames: T_k = 92160 >> (b + 1) at lj22k blocks 0-7, R = 256, the
     ResBlock of layer 0 at dilation 1; 132 SMs): a tile whose window fits
     in 232448 bytes of shared memory, needing no more waves than any tile
@@ -183,10 +186,16 @@ def test_resblock_tile_rule_fills_the_card_at_phase_2c():
     16 rows, 132 and 92 CTAs, where the CUDA-core kernel's 64 rows gave 48
     and 24.  The largest window (R = 256, 72 rows, d = 16) fits."""
     n_sm, B, R = 132, 4, 256
+
+    def library(smem):
+        return lambda name: types.SimpleNamespace(
+            resblock_smem_bytes=lambda dt, v2, r, cc, t, dil: smem(r, t, dil))
+    monkeypatch.setattr(rb, "library", library(_smem_bytes))
+    rule = rb._tc_tile.__wrapped__             # uncached
     want = {6: (22, 132), 7: (16, 92)}
     for bi in range(8):
         T = 92160 >> (bi + 1)
-        tt = pf.hoisted_t_tile(B, T, n_sm, lambda t: _smem_bytes(R, t, 1))
+        tt = rule(B, T, R, 1, n_sm)
 
         def waves(t, T=T):
             return -(-B * -(-T // t) // n_sm)
@@ -196,8 +205,9 @@ def test_resblock_tile_rule_fills_the_card_at_phase_2c():
         if bi in want:
             assert (tt, B * -(-T // tt)) == want[bi], (bi, tt)
     assert _smem_bytes(R, 72, 16) <= 232448
+    monkeypatch.setattr(rb, "library", library(lambda r, t, dil: 10 ** 6))
     with pytest.raises(ValueError):
-        pf.hoisted_t_tile(B, 360, n_sm, lambda t: 10 ** 6)
+        rule(B, 360, R, 1, n_sm)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -5,13 +5,14 @@ emulated lane by lane as the PTX ISA lays out the m16n8k16 operands: the
 X^T dY over a tile's valid rows; the transposed weights packed for the
 input-gradient products round-trip; the shifted rows of the transposed
 3-tap convs (``tc_rowprod`` terms) give the conv's input gradient at
-dilations 1 and 3; and which training instances run on the tensor cores.
-No JAX and no card."""
+dilations 1 and 3; the wave-balanced tile; and the zero-padding of widths
+the tensor-core instances do not take.  No JAX and no card."""
 
 import numpy as np
 import pytest
 import torch
 
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as pf
 from flowavenet_tpu_torch.ops import pair_flow_train as pft
 
@@ -123,7 +124,7 @@ def test_transposed_packing_round_trips(k, n):
     (here kfg^T 2R x R, cond_w^T 2R x Cc, res_w^T R x R at R = 256, Cc =
     80)."""
     w = torch.from_numpy(_bf16_grid((n, k), 3)).bfloat16()   # [K_in, N_out]
-    packed = pf.pack_tc_weights(w.transpose(0, 1))
+    packed = launch.pack_tc_weights(w.transpose(0, 1))
     assert packed.shape == (k // 16, n // 8, 32, 4)
     back = np.zeros((k, n))
     p = packed.double().numpy()
@@ -148,8 +149,9 @@ def test_transposed_conv_rows_give_the_input_gradient(dil):
     rows, rb, re = 70, 3 + dil, 44 + dil
     dY = _bf16_grid((rows, K), 4)
     W = _bf16_grid((3, N, K), 5)        # [tap][K_in = N][N_out = K]
-    packed = [pf.pack_tc_weights(torch.from_numpy(W[k].T.copy()).bfloat16())
-              .double().numpy() for k in range(3)]
+    packed = [launch.pack_tc_weights(
+        torch.from_numpy(W[k].T.copy()).bfloat16()).double().numpy()
+        for k in range(3)]
     out = np.zeros((rows, N))
     for m0 in range(rb, re, 16):
         acc = np.zeros((16, N))
@@ -170,19 +172,6 @@ def test_transposed_conv_rows_give_the_input_gradient(dil):
     np.testing.assert_allclose(out[rb:re], want, rtol=1e-12, atol=1e-12)
 
 
-def test_only_the_three_bf16_training_instances_use_tensor_cores():
-    """pair_fwd, pair_train_fwd and pair_train_bwd in bf16 run on the
-    tensor cores; every fp32 instance on CUDA cores."""
-    got = {(dt, k): pft.train_uses_tensor_cores(dt, k)
-           for dt in (torch.float32, torch.bfloat16)
-           for k in pft.TRAIN_KERNELS}
-    assert {key for key, tc in got.items() if tc} == {
-        (torch.bfloat16, "pair_fwd"), (torch.bfloat16, "pair_train_fwd"),
-        (torch.bfloat16, "pair_train_bwd")}
-    with pytest.raises(ValueError):
-        pft.train_uses_tensor_cores(torch.bfloat16, "pair_flow")
-
-
 def test_tc_operands_have_the_launcher_sizes():
     """_tc_operands packs kfg, cond_w, res_w, skip_w and fin_w for the
     shared forward body (element counts unchanged, so the launcher's flow
@@ -199,10 +188,10 @@ def test_tc_operands_have_the_launcher_sizes():
     assert [o.numel() for o in fwd] == [o.numel() for o in ops]
     per_flow = [2 * 3 * 2 * R * R, 2 * 2 * R * Cc, R * R, 2 * R * R, R * R]
     assert [o.numel() // 2 for o in bwd] == per_flow
-    pft.check_train_tc_geometry(256, 80)
+    pf.check_kernel_geometry(256, 80, True)
     for r, cc in ((48, 80), (16, 80), (256, 88)):
         with pytest.raises(ValueError):
-            pft.check_train_tc_geometry(r, cc)
+            pf.check_kernel_geometry(r, cc, True)
 
 
 def test_balanced_tile_fills_whole_waves():
@@ -215,13 +204,13 @@ def test_balanced_tile_fills_whole_waves():
     fits raises."""
     def fits(tt):
         return tt <= 68
-    assert pft.balanced_t_tile(8, 3200, 132, fits) == 66
-    assert pft.balanced_t_tile(2, 300, 132, fits) == 68
-    assert pft.balanced_t_tile(8, 1600, 132, fits) == 49
+    assert launch.balanced_t_tile(8, 3200, 132, fits) == 66
+    assert launch.balanced_t_tile(2, 300, 132, fits) == 68
+    assert launch.balanced_t_tile(8, 1600, 132, fits) == 49
     for T, tt in ((3200, 66), (1600, 49), (800, 50), (400, 25)):
-        assert pft.balanced_t_tile(8, T, 132, fits, shortest=True) == tt
+        assert launch.balanced_t_tile(8, T, 132, fits, shortest=True) == tt
     with pytest.raises(ValueError):
-        pft.balanced_t_tile(8, 3200, 132, lambda tt: False)
+        launch.balanced_t_tile(8, 3200, 132, lambda tt: False)
 
 
 @pytest.mark.parametrize("model", ["num_mels79", "filter_size48"])
@@ -252,7 +241,7 @@ def test_padded_widths_give_the_unpadded_gradients(model):
     scal = [torch.tensor(s, dtype=torch.float64) for s in (0.7, 0.11, 1.3)]
     ca_p, cb_p, ops_p, Rk, Cck = pft._pad_tc(ca, cb, ops, R, Cc)
     assert (Rk, Cck) == pf.kernel_widths(R, Cc, True) != (R, Cc)
-    pft.check_train_tc_geometry(Rk, Cck)
+    pf.check_kernel_geometry(Rk, Cck, True)
     want = pft.pair_train_fwd_ref(u, v, ca, cb, ops)
     got = pft.pair_train_fwd_ref(u, v, ca_p, cb_p, ops_p)
     for a, b in zip(got, want):

@@ -21,6 +21,7 @@ from flowavenet_tpu.models import flowavenet as jfwn
 from flowavenet_tpu.ops import pallas_flow as jpf
 from flowavenet_tpu_torch.checkpoint.bridge import to_torch
 from flowavenet_tpu_torch.models import flowavenet as tfwn
+from flowavenet_tpu_torch.ops import launch
 from flowavenet_tpu_torch.ops import pair_flow as tpf
 
 CFG = tiny().model
@@ -148,9 +149,9 @@ def test_plain_wino_hoisted_matches_jax_kernel(jax_runs, name):
             g = g.float().numpy()
             assert np.all(np.isfinite(g))
             assert np.abs(g - w).max() <= bar * np.abs(w).max(), (name, tile)
-    n0 = dict(tpf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     got = tpf.fused_pair_reverse_wino(*args, ops, hoisted=True)
-    assert tpf.LAUNCHES == n0                  # CPU: the plain version
+    assert launch.LAUNCHES == n0                  # CPU: the plain version
     for g, w in zip(got, out):
         assert np.abs(g.float().numpy() - w).max() <= bar * np.abs(w).max()
 
@@ -216,8 +217,8 @@ def test_reverse_int8_off_matches_jax_plain(params, monkeypatch, wino4):
     z = rs.randn(2, 2048, 1).astype(np.float32)
     mel = rs.rand(2, 8, CFG.num_mels).astype(np.float32)
     want = np.asarray(jfwn.reverse(jp, OFF, jnp.asarray(z), jnp.asarray(mel)))
-    n0 = dict(tpf.LAUNCHES)
+    n0 = dict(launch.LAUNCHES)
     got = tfwn.reverse(tp, CFG, torch.from_numpy(z),
                        torch.from_numpy(mel)).numpy()
-    assert tpf.LAUNCHES == n0                  # CPU: plain versions
+    assert launch.LAUNCHES == n0                  # CPU: plain versions
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

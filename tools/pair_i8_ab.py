@@ -16,7 +16,7 @@ pair's weights come from fixed seeds, so every tree gets the same ones.
 Per (tree, block): ``ms``, CUDA events over repeated wrapper calls;
 ``kernel_ms``, the kernel's own device time per launch from a
 ``torch.profiler`` trace; registers and local bytes per thread
-(``pair_flow.kernel_attrs``); and ``sha256`` of the output's bytes (u'
+(``launch.kernel_attrs``); and ``sha256`` of the output's bytes (u'
 then v').  Each tree runs in its own process, so it imports its own
 package and builds its own kernel.  Prints one JSON line per row, per tree
 the sums and whether every block's output is bit-identical to the first
@@ -31,6 +31,18 @@ import json
 import os
 import subprocess
 import sys
+
+
+def _attrs(name: str, dtype, **options) -> tuple:
+    """(registers, local bytes) per thread of kernel ``name`` in the tree
+    this process imported: ``launch.kernel_attrs``, or in a tree from before
+    ops/launch.py, ``pair_flow.kernel_attrs`` with the pair's options."""
+    try:
+        from flowavenet_tpu_torch.ops import launch
+    except ImportError:
+        from flowavenet_tpu_torch.ops import pair_flow as pf
+        return pf.kernel_attrs(dtype, **options)
+    return launch.kernel_attrs(name, dtype)
 
 
 def run_here(rows: int, frames: int, reps: int) -> list:
@@ -101,7 +113,7 @@ def run_here(rows: int, frames: int, reps: int) -> list:
             uo.contiguous().view(torch.int16).cpu().numpy().tobytes()
             + vo.contiguous().view(torch.int16).cpu().numpy().tobytes()
         ).hexdigest()
-        regs, local = pf.kernel_attrs(dt, int8=True)
+        regs, local = _attrs("pair_flow_i8", dt, int8=True)
         bound_ms, _ = pf.pair_bound_ms(rows, tk, r_in, cc, int8=True)
         out.append({"name": "pair_flow_i8", "block": bi, "rows": rows,
                     "T_k": tk, "ms": events_ms(fn), "kernel_ms":

@@ -18,8 +18,9 @@ included), ``host_ms``, the host's wall time per call to enqueue them
 (no synchronisation inside), ``kernel_ms``, the kernel's own device time
 per launch from a ``torch.profiler`` trace (0 if the trace has none), and,
 where the tree has them, the instance's registers and local bytes per
-thread (``resblock.kernel_attrs``) and the launch's tile and CTAs
-(``resblock.LAST_LAUNCH``).  Each tree runs in its own process, so it
+thread (``launch.kernel_attrs``) and the launch's tile and CTAs
+(``launch.LAST_LAUNCH``; ``resblock``'s own in a tree from before
+ops/launch.py).  Each tree runs in its own process, so it
 imports its own package and builds its own kernels; its lines are printed
 as JSON, one per block, then the per-kernel sums.
 """
@@ -42,6 +43,10 @@ def run_here(reps: int = 5) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     from flowavenet_tpu_torch.ops import resblock as rb
+    try:
+        from flowavenet_tpu_torch.ops import launch
+    except ImportError:             # a tree from before ops/launch.py
+        launch = None
 
     dev = torch.device("cuda", 0)
     dt = torch.bfloat16
@@ -101,9 +106,15 @@ def run_here(reps: int = 5) -> list:
         row = {"name": name, "block": bi, "T_k": tk, "Cc": cc if v2 else 0,
                "ms": events_ms(fn), "host_ms": host_ms(fn),
                "kernel_ms": kernel_ms(fn)}
-        if hasattr(rb, "kernel_attrs"):
-            row["registers"], row["local_bytes"] = rb.kernel_attrs(dt, v2)
-        row.update(getattr(rb, "LAST_LAUNCH", {}).get(name, {}))
+        if launch is not None:
+            row["registers"], row["local_bytes"] = launch.kernel_attrs(
+                name, dt)
+            row.update(launch.LAST_LAUNCH.get(name, {}))
+        else:
+            if hasattr(rb, "kernel_attrs"):
+                row["registers"], row["local_bytes"] = rb.kernel_attrs(dt,
+                                                                       v2)
+            row.update(getattr(rb, "LAST_LAUNCH", {}).get(name, {}))
         rows.append(row)
     return rows
 

@@ -195,6 +195,19 @@ def _fs48_case():
     return ops, x, c, scal
 
 
+def _launch_layer():
+    """(LAST_LAUNCH, the pair_flow_train library, SMEM_MAX) of the tree
+    this process imported: ops/launch.py's, or in a tree from before that
+    module, the training wrapper's own."""
+    try:
+        from flowavenet_tpu_torch.ops import launch
+    except ImportError:
+        from flowavenet_tpu_torch.ops import pair_flow_train as pft
+        return pft.LAST_LAUNCH, pft._library(), pft.SMEM_MAX
+    return (launch.LAST_LAUNCH, launch.library("pair_flow_train"),
+            launch.SMEM_MAX)
+
+
 def _sha(t) -> str:
     """SHA-256 of a tensor's bytes."""
     import hashlib
@@ -223,7 +236,7 @@ def child(mode: str) -> dict:
             ops, (u, v, gu, gv), (ca, cb), scal = make()
             d = pft.fused_pair_train_bwd(u, v, ca, cb, gu, gv, *scal, ops)
             torch.cuda.synchronize()
-            out[name] = {"t_tile": pft.LAST_LAUNCH["pair_train_bwd"]
+            out[name] = {"t_tile": _launch_layer()[0]["pair_train_bwd"]
                          ["t_tile"],
                          "sha256": [_sha(t) for t in list(d[0]) +
                                     list(d[1:])]}
@@ -233,8 +246,8 @@ def child(mode: str) -> dict:
         ops, (u, v, gu, gv), (ca, cb), scal = _tiny_case()
         # the dynamic shared memory the launch sets: the larger of the
         # recompute's layout and the backward phases'
-        res = {"tile": tt, "smem_bytes": pft._library().pair_train_smem_bytes(
-            1, 1, 32, 1, tt)}
+        res = {"tile": tt, "smem_bytes": _launch_layer()[1]
+               .pair_train_smem_bytes(1, 1, 32, 1, tt)}
         pick = pft.train_tc_t_tile
         pft.train_tc_t_tile = lambda *a: tt
         try:
@@ -267,27 +280,27 @@ def child(mode: str) -> dict:
         return {"phase4": [{k: v for k, v in r.items()
                             if not k.endswith("bound")} for r in rows]}
     if mode == "fwd_tiles":
-        from flowavenet_tpu_torch.ops import pair_flow as pf
+        last, lib, smem_max = _launch_layer()
         pick, out = pft.train_tc_t_tile, []
         for bi in range(4):
             ops, (u, v, _, _), (ca, cb), _ = _case(bi)
             n_sm = torch.cuda.get_device_properties(0).multi_processor_count
             tt0 = pick(8, u.shape[1], 256, u.shape[2], False, n_sm)
             for tt in (tt0,) + FWD_TILES:
-                if not 0 < pft._library().pair_train_smem_bytes(
-                        0, 1, 256, u.shape[2], tt) <= pft.SMEM_MAX:
+                if not 0 < lib.pair_train_smem_bytes(
+                        0, 1, 256, u.shape[2], tt) <= smem_max:
                     continue
                 pft.train_tc_t_tile = lambda *a, tt=tt: tt
 
                 def fwd():
-                    return pf.fused_pair_forward(u, v, ca, cb, ops)
+                    return pft.fused_pair_forward(u, v, ca, cb, ops)
                 try:
                     ms = _time_ms(fwd, 10)
                     kms = _kernel_ms(fwd, 10, "pair_fwd_kernel")
                 finally:
                     pft.train_tc_t_tile = pick
                 out.append({"block": bi, "t_tile": tt, "default": tt == tt0,
-                            "ctas": pft.LAST_LAUNCH["pair_fwd"]["ctas"],
+                            "ctas": last["pair_fwd"]["ctas"],
                             "ms": ms, "kernel_ms": kms})
         return {"fwd_tiles": out}
     ops, (u, v, gu, gv), (ca, cb), scal = _case()

@@ -16,7 +16,7 @@ bf16 at the geometry chip_smoke.py's phase 2b gives lj22k blocks 0-2 (batch
 calls (as chip_smoke.py times kernels), ``kernel_ms``, the kernel's own
 device time per launch from a ``torch.profiler`` trace (0 if the trace has
 none), and the instance's registers and local bytes per thread
-(``pair_flow.kernel_attrs``).  Each tree runs in its own process, so it
+(``launch.kernel_attrs``).  Each tree runs in its own process, so it
 imports its own package and builds its own kernels; its lines are printed
 as JSON, one per (kernel, block), then the per-kernel sums.
 """
@@ -31,6 +31,18 @@ import sys
 KERNELS = (("pair_flow_wino", 6, False), ("pair_flow_wino4", 12, False),
            ("pair_flow_wino_hoisted", 6, True),
            ("pair_flow_wino4_hoisted", 12, True))
+
+
+def _attrs(name: str, dtype, **options) -> tuple:
+    """(registers, local bytes) per thread of kernel ``name`` in the tree
+    this process imported: ``launch.kernel_attrs``, or in a tree from before
+    ops/launch.py, ``pair_flow.kernel_attrs`` with the pair's options."""
+    try:
+        from flowavenet_tpu_torch.ops import launch
+    except ImportError:
+        from flowavenet_tpu_torch.ops import pair_flow as pf
+        return pf.kernel_attrs(dtype, **options)
+    return launch.kernel_attrs(name, dtype)
 
 
 def run_here(reps: int = 5) -> list:
@@ -95,7 +107,7 @@ def run_here(reps: int = 5) -> list:
             def fn(ops=ops, cx=cx, hoisted=hoisted):
                 return pf.fused_pair_reverse_wino(u, v, *cx, ops,
                                                   hoisted=hoisted)
-            regs, local = pf.kernel_attrs(dt, phases=P, hoisted=hoisted)
+            regs, local = _attrs(name, dt, phases=P, hoisted=hoisted)
             rows.append({"name": name, "block": bi, "T_k": tk,
                          "ms": events_ms(fn), "kernel_ms": kernel_ms(fn),
                          "registers": regs, "local_bytes": local})
